@@ -1,28 +1,43 @@
 #!/usr/bin/env python3
 """Drive the sail_tpu_torch port on one CUDA card and check every part of it.
 
-    python3 chip_smoke.py            # TPC-H SF10, kernels at 60M rows
-    python3 chip_smoke.py --sf 1     # a smaller, quicker run
+    python3 chip_smoke.py            # TPC-H SF10, kernels at SF10 shapes
+    python3 chip_smoke.py --sf 1 --check-sf 0.1 --kernel-rows 2000000 --runs 1
+                                     # a smaller, quicker run
+    python3 chip_smoke.py --profile  # also trace each query once
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Device: the card's name, count and power limit.
-2. Build: compile the CUDA kernels (sail_tpu_torch/csrc) and print the
-   compiler's register / shared-memory report.
-3. Kernels: run K1 (seg_reduce), K2 (direct_group_ids) and K3
-   (order_keys) on the card at the main path's shapes, hold each against
-   its plain PyTorch version on the same inputs, and time kernel, plain
-   version and, for K1, the one PyTorch call computing the same function.
-4. Main path: generate lineitem (seed 0), register it, run TPC-H Q1 and Q6
-   through ``spark.sql(...).toArrow()`` (one warm-up and three timed runs
-   each), and compare both answers with a numpy oracle in exact integer
-   decimal arithmetic. The launch counts are set to 0 before each query's
-   warm-up and again before its first timed run, and read after that run:
-   each query must have launched its own kernels (Q1: K1, K2, K3; Q6: K1).
+2. Build: compile the CUDA kernels (sail_tpu_torch/csrc, one nvcc per
+   source, all at once) and print the compiler's register report.
+3. Kernels: run K1 (seg_reduce), K2 (direct_group_ids), K3 (order_keys),
+   K4 (join_keys), K5 (probe_ranges), K6 (join_expand) and K7 (bloom) on
+   the card at the main path's shapes (lineitem's ``--kernel-rows``, 60M
+   at SF10, and the tables joined with it at their sizes), hold each
+   against its plain PyTorch version on the same inputs, and time
+   kernel, plain version and, where one exists, the one PyTorch call
+   computing the same function.
+4. Correctness: all 22 TPC-H queries at ``--check-sf`` (default 1, from
+   ``generate_tpch_sf(sf, seed=0)``) through ``spark.sql(...).toArrow()``
+   against the pandas oracle of tests/tpch_oracle.py, compared as the
+   reference's TPC-H test compares; every answer is non-empty unless the
+   oracle's is empty. Each run counts the host syncs the query makes
+   (``torch.cuda.set_sync_debug_mode``).
+5. Main path: all 22 queries at ``--sf`` (default 10), one warm-up and
+   ``--runs`` timed runs each. The plans of Q2, Q5, Q8 and Q9 hold an
+   intermediate that grows with the square of the scale factor (a cross
+   join of filtered part x supplier in Q2, Q8 and Q9; supplier x customer
+   on their nation in Q5); a query whose intermediate would exceed
+   ``QUADRATIC_ROWS_MAX`` rows at that scale runs on phase 4's data, and
+   says so. Q1 and Q6 also match a numpy oracle in exact integer decimal
+   arithmetic. The launch counts are set to 0 before each query's warm-up
+   and again before its first timed run, and read after that run: every
+   query must launch the kernels ``PATH_KERNELS`` names for it.
 
-It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum of
-the one-run counts of Q1 and Q6, ``launches_on_path`` gives each), the
-``nvidia-smi`` name and power limit line, and last
+It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
+over the queries of their one-run counts, ``launches_on_path`` gives
+each), the ``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -30,21 +45,39 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import decimal
 import json
+import pathlib
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-# the kernels each main-path query must launch
-PATH_KERNELS = {"q1": ("seg_reduce", "direct_group_ids", "order_keys"),
-                "q6": ("seg_reduce",)}
+_JOIN = ("join_keys", "probe_ranges")
+# the kernels each main-path query must launch: every query with a keyed
+# join launches K4 and K5; K6 and K7 are named where the plan always
+# reaches them (Q13's and Q21's residual joins expand; Q5's and Q21's
+# dimension filters prune their scans, so their runtime filters keep
+# building)
+PATH_KERNELS = {f"q{q}": _JOIN for q in range(1, 23) if q not in (1, 6)}
+PATH_KERNELS.update({
+    "q1": ("seg_reduce", "direct_group_ids", "order_keys"),
+    "q6": ("seg_reduce",),
+    "q5": _JOIN + ("bloom_build", "bloom_apply"),
+    "q13": _JOIN + ("join_expand",),
+    "q21": _JOIN + ("join_expand", "bloom_build", "bloom_apply"),
+})
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
+# a query whose quadratic intermediate (quadratic_rows) is larger than this
+# runs at the correctness phase's scale
+QUADRATIC_ROWS_MAX = 2.5e8
 
 
 def _nvidia_smi() -> str:
@@ -177,6 +210,130 @@ def check_kernels(n: int, dev: torch.device) -> list:
         ms=cuda_ms(lambda: srt.order_keys(k)),
         plain_ms=cuda_ms(lambda: srt.order_keys_plain(k)),
         bound_ms=_bound_ms(n * (4 + 8)), library_ms=None))
+    del vals, nan_vals, keys, v, k, rf, ls, gid, gid_p, seg
+    torch.cuda.empty_cache()
+    return entries + check_join_kernels(n, dev, gen)
+
+
+def _exact(name: str, got, want) -> None:
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} differs from its plain version")
+
+
+def check_join_kernels(n: int, dev: torch.device, gen) -> list:
+    """K4-K7 at the shapes lineitem (n rows) and the tables joined with it
+    give them: orders n/4, supplier n/600, part n/30."""
+    from sail_tpu_torch.columnar.batch import Column
+    from sail_tpu_torch.ops import hash as hsh
+    from sail_tpu_torch.ops import join as jn
+    from sail_tpu_torch.ops import runtime_filter as rf
+    from sail_tpu_torch.spec import data_type as dt
+
+    n_orders, n_supp, n_part = n // 4, max(1, n // 600), max(1, n // 30)
+    entries = []
+    sel = torch.rand(n, generator=gen, device=dev) < 0.985
+    # K4: l_orderkey (packed) and (l_suppkey, l_partkey) (hashed)
+    lines = torch.randint(1, 8, (n_orders,), generator=gen, device=dev)
+    okeys = torch.arange(1, n_orders + 1, device=dev) * 4 - 3
+    l_orderkey = torch.repeat_interleave(okeys, lines)[:n]
+    l_orderkey = torch.cat([l_orderkey, okeys[-1].repeat(n - l_orderkey.shape[0])])
+    l_suppkey = torch.randint(1, n_supp + 1, (n,), generator=gen, device=dev)
+    l_partkey = torch.randint(1, n_part + 1, (n,), generator=gen, device=dev)
+    packed = [Column(l_orderkey, None, dt.LongType())]
+    hashed = [Column(l_suppkey, None, dt.LongType()),
+              Column(l_partkey, None, dt.LongType())]
+    for label, cols, seed in (("l_orderkey packed", packed, 0),
+                              ("(l_suppkey, l_partkey) hashed", hashed, 0),
+                              ("(l_suppkey, l_partkey) hashed", hashed, 1)):
+        got = hsh.join_keys(cols, sel, seed)
+        want = hsh.join_keys_plain(cols, sel, seed)
+        _exact("join_keys", got[:2], want[:2])
+        print(f"K4 join_keys {label} seed {seed} n={n}: exact, "
+              f"{cuda_ms(lambda: hsh.join_keys(cols, sel, seed)):.3f} ms",
+              flush=True)
+    entries.append(dict(
+        name="join_keys", source="sail_tpu_torch/csrc/join_keys.cu",
+        replaces="sail_tpu/ops/hash.py:75", max_abs_err=0.0,
+        ms=cuda_ms(lambda: hsh.join_keys(packed, sel)),
+        plain_ms=cuda_ms(lambda: hsh.join_keys_plain(packed, sel), 3),
+        bound_ms=_bound_ms(n * (8 + 1) + n * 9), library_ms=None))
+
+    # K5: lineitem probes into the orders build and into the supplier build
+    order_sel = torch.rand(n_orders, generator=gen, device=dev) < 0.5
+    probe_keys, probe_usable, _ = hsh.join_keys(packed, sel)
+    k5 = {}
+    for label, build in (("orders", okeys), ("supplier", torch.arange(
+            1, n_supp + 1, device=dev))):
+        bsel = order_sel if build is okeys else torch.ones_like(
+            build, dtype=torch.bool)
+        bt = jn.build_side([Column(build, None, dt.LongType())], bsel)
+        args = (bt.sorted_keys, bt.num_valid, probe_keys, probe_usable)
+        _exact("probe_ranges", jn.probe_ranges_kernel(*args),
+               jn.probe_ranges_plain(*args))
+
+        def lib(sk=bt.sorted_keys):
+            return (torch.searchsorted(sk, probe_keys, side="left"),
+                    torch.searchsorted(sk, probe_keys, side="right"))
+        k5[label] = (args, cuda_ms(lambda: jn.probe_ranges_kernel(*args)),
+                     cuda_ms(lib), build.shape[0])
+        print(f"K5 probe_ranges {n} probes into {label} "
+              f"({build.shape[0]} keys): exact, {k5[label][1]:.3f} ms "
+              f"(searchsorted x2 {k5[label][2]:.3f} ms)", flush=True)
+    args, ms, lib_ms, nb = k5["orders"]
+    entries.append(dict(
+        name="probe_ranges", source="sail_tpu_torch/csrc/join_probe.cu",
+        replaces="sail_tpu/ops/join.py:117", max_abs_err=0.0, ms=ms,
+        plain_ms=cuda_ms(lambda: jn.probe_ranges_plain(*args), 3),
+        bound_ms=_bound_ms(n * (8 + 1 + 8) + nb * 8), library_ms=lib_ms))
+
+    # K6: Q21's self-join: half of lineitem probes all of it on l_orderkey
+    bt = jn.build_side(packed, sel)
+    half = sel & (torch.rand(n, generator=gen, device=dev) < 0.5)
+    r = jn.probe_ranges(bt, packed, half)
+    eff = jn._effective_counts(r.cnt, half, "inner")
+    offsets = torch.cumsum(eff, 0) - eff
+    total = int(eff.sum())
+    k6 = (eff, offsets, r.cnt, r.lo, bt.perm, total)
+    _exact("join_expand", jn.expand_indices(*k6),
+           jn.expand_indices_plain(*k6))
+    arange = torch.arange(n, device=dev)
+    entries.append(dict(
+        name="join_expand", source="sail_tpu_torch/csrc/join_expand.cu",
+        replaces="sail_tpu/ops/join.py:180", max_abs_err=0.0,
+        ms=cuda_ms(lambda: jn.expand_indices(*k6)),
+        plain_ms=cuda_ms(lambda: jn.expand_indices_plain(*k6), 3),
+        bound_ms=_bound_ms(n * 24 + n * 8 + total * 17),
+        library_ms=cuda_ms(lambda: torch.repeat_interleave(
+            arange, eff, output_size=total))))
+    print(f"K6 join_expand {n} probes -> {total} rows: exact", flush=True)
+    del bt, r, eff, offsets, k6, half
+    torch.cuda.empty_cache()
+
+    # K7: a filter from Q3's filtered orders (~n/8 keys) applied to lineitem
+    src = [Column(okeys, None, dt.LongType())]
+    bits = 1 << 20
+    res = rf.build(src, order_sel, bits)
+    skeys, susable, _ = hsh.join_keys(src, order_sel)
+    _exact("bloom_build", [rf.bloom_build(skeys, susable, bits)],
+           [rf.bloom_build_plain(skeys, susable, bits)])
+    apply_args = (res.words, bits, res.kmin, res.kmax, probe_keys,
+                  probe_usable, sel)
+    _exact("bloom_apply", [rf.bloom_apply(*apply_args)],
+           [rf.bloom_apply_plain(*apply_args)])
+    kept = int(rf.bloom_apply(*apply_args).sum())
+    print(f"K7 bloom {int(susable.sum())} keys into {bits} bits, applied to "
+          f"{n} rows ({kept} kept): exact", flush=True)
+    entries.append(dict(
+        name="bloom", source="sail_tpu_torch/csrc/bloom.cu",
+        replaces="sail_tpu/ops/runtime_filter.py:62", max_abs_err=0.0,
+        ms=cuda_ms(lambda: rf.bloom_build(skeys, susable, bits))
+        + cuda_ms(lambda: rf.bloom_apply(*apply_args)),
+        plain_ms=cuda_ms(lambda: rf.bloom_build_plain(skeys, susable, bits),
+                         3) + cuda_ms(lambda: rf.bloom_apply_plain(
+                             *apply_args), 3),
+        bound_ms=_bound_ms(n_orders * 9 + 2 * bits // 8 + n * (8 + 1 + 1 + 1)),
+        library_ms=None))
     return entries
 
 
@@ -284,19 +441,197 @@ def profile_query(spark, sql: str) -> dict:
             "top": [[n[:90], ms, c] for n, ms, c in by_name[:15]]}
 
 
-def run_main_path(sf: float, runs: int, profile: bool = False) -> dict:
+# ---------------------------------------------------------------------------
+# phase 4: all 22 queries against the pandas oracle
+# ---------------------------------------------------------------------------
+
+def _pandas_frames(tables: dict) -> dict:
+    """The oracle's inputs: strings decoded, decimals as float64, dates as
+    datetime64 (the reference's TPC-H test feeds its oracle the same)."""
+    import pandas as pd
+
+    out = {}
+    for name, table in tables.items():
+        cols = {}
+        for cname, col in zip(table.column_names, table.columns):
+            if pa.types.is_dictionary(col.type):
+                col = col.cast(pa.string())
+            elif pa.types.is_decimal(col.type):
+                col = col.cast(pa.float64())
+            cols[cname] = col
+        df = pa.table(cols).to_pandas()
+        for cname, col in zip(table.column_names, table.columns):
+            if pa.types.is_date(col.type):
+                df[cname] = pd.to_datetime(df[cname])
+        out[name] = df
+    return out
+
+
+def _normalize(df):
+    """tests/test_tpch.py's normalisation: positional names, decimals to
+    float, dates to datetime64, integers to int64, floats rounded to 4
+    places."""
+    import pandas as pd
+
+    out = df.copy()
+    out.columns = [f"c{i}" for i in range(len(out.columns))]
+    for c in out.columns:
+        s = out[c]
+        if s.dtype == object and len(s):
+            first = next((v for v in s if v is not None), None)
+            if first is None:  # all-NULL column (e.g. SUM over zero rows)
+                out[c] = pd.Series([np.nan] * len(s), dtype=np.float64)
+            elif isinstance(first, decimal.Decimal):
+                out[c] = s.astype(np.float64)
+            elif isinstance(first, datetime.date):
+                out[c] = pd.to_datetime(s)
+        if str(out[c].dtype).startswith("datetime64"):
+            out[c] = pd.to_datetime(out[c]).dt.normalize()
+            out[c] = out[c].astype("datetime64[us]")
+        if out[c].dtype.kind in "iu":
+            out[c] = out[c].astype(np.int64)
+        if out[c].dtype.kind == "f":
+            out[c] = out[c].astype(np.float64).round(4)
+    return out.reset_index(drop=True)
+
+
+# queries whose ORDER BY leaves ties: compared as sets (tests/test_tpch.py)
+_UNORDERED = {2, 11, 13, 16, 18, 21}
+
+
+def compare_with_oracle(got, exp, q: int) -> None:
+    """tests/test_tpch.py's comparison: row count, then every column,
+    floats within rtol 1e-6 / atol 1e-4 after rounding to 4 places."""
+    got_n, exp_n = _normalize(got), _normalize(exp)
+    if len(got_n) != len(exp_n):
+        raise AssertionError(f"Q{q}: {len(got_n)} rows, oracle {len(exp_n)}")
+    if q in _UNORDERED:
+        cols = list(got_n.columns)
+        got_n = got_n.sort_values(cols).reset_index(drop=True)
+        exp_n = exp_n.sort_values(cols).reset_index(drop=True)
+    for c in got_n.columns:
+        g, e = got_n[c], exp_n[c]
+        if g.dtype.kind == "f":
+            ok = (g.isna() & e.isna()) | np.isclose(
+                g.fillna(0), e.fillna(0), rtol=1e-6, atol=1e-4)
+        else:
+            ok = (g == e) | (g.isna() & e.isna())
+        if not ok.all():
+            raise AssertionError(f"Q{q} column {c}: {g[~ok].head().tolist()}"
+                                 f" != {e[~ok].head().tolist()}")
+
+
+def _register(spark, tables: dict) -> None:
+    for name, table in tables.items():
+        spark.createDataFrame(table).createOrReplaceTempView(name)
+
+
+def _run_counting_syncs(spark, sql: str):
+    """Run a query once; returns (Arrow result, the number of operations
+    that made the host wait for the device)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = spark.sql(sql).toArrow()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return result, syncs
+
+
+def check_queries(spark, tables: dict, sf: float) -> dict:
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
+    from tpch_oracle import ORACLES
+
+    t = time.perf_counter()
+    frames = _pandas_frames(tables)
+    print(f"oracle inputs SF{sf}: {time.perf_counter() - t:.1f} s", flush=True)
+    report = {}
+    for q in range(1, 23):
+        t = time.perf_counter()
+        result, syncs = _run_counting_syncs(spark, QUERIES[q])
+        run_s = time.perf_counter() - t
+        exp = ORACLES[q](frames)
+        if result.num_rows == 0 and len(exp):
+            raise AssertionError(f"Q{q}: empty answer, oracle has {len(exp)}")
+        compare_with_oracle(result.to_pandas(), exp, q)
+        report[f"q{q}"] = dict(rows=result.num_rows, host_syncs=syncs,
+                               first_s=run_s)
+        print(f"Q{q} SF{sf}: {result.num_rows} rows match the oracle "
+              f"({syncs} host syncs, first run {run_s:.2f} s)", flush=True)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path
+# ---------------------------------------------------------------------------
+
+def quadratic_rows(tables: dict, q: int) -> int:
+    """Rows of the intermediate of Q2, Q5, Q8 or Q9 that grows with the
+    square of the scale factor (0 for the other queries), from the data:
+    the cross join of filtered part x supplier (Q2's suppliers are those
+    of EUROPE) or, in Q5, supplier x customer joined on their nation
+    within ASIA."""
+    part, supp = tables["part"], tables["supplier"]
+    nation = tables["nation"]
+
+    def region_nations(region: int) -> np.ndarray:
+        keep = pc.equal(nation.column("n_regionkey"), region)
+        return pc.filter(nation.column("n_nationkey"), keep).to_numpy()
+
+    def per_nation(table: str, column: str) -> np.ndarray:
+        return np.bincount(tables[table].column(column).to_numpy(),
+                           minlength=25)
+
+    ptype = part.column("p_type").cast(pa.string())
+    if q == 9:
+        parts = pc.match_substring(part.column("p_name").cast(pa.string()),
+                                   "green")
+        return int(pc.sum(parts).as_py()) * supp.num_rows
+    if q == 8:
+        parts = pc.equal(ptype, "ECONOMY ANODIZED STEEL")
+        return int(pc.sum(parts).as_py()) * supp.num_rows
+    if q == 2:
+        parts = pc.and_(pc.equal(part.column("p_size"), 15),
+                        pc.ends_with(ptype, "BRASS"))
+        eu = per_nation("supplier", "s_nationkey")[region_nations(3)].sum()
+        return int(pc.sum(parts).as_py()) * int(eu)
+    if q == 5:
+        asia = region_nations(2)
+        return int((per_nation("supplier", "s_nationkey")[asia]
+                    * per_nation("customer", "c_nationkey")[asia]).sum())
+    return 0
+
+
+def _counters():
+    from sail_tpu_torch.ops import aggregate as agg
+    from sail_tpu_torch.ops import hash as hsh
+    from sail_tpu_torch.ops import join as jn
+    from sail_tpu_torch.ops import runtime_filter as rf
+    from sail_tpu_torch.ops import sort as srt
+    return {"seg_reduce": agg.seg_reduce,
+            "direct_group_ids": agg.direct_group_ids,
+            "order_keys": srt.order_keys, "join_keys": hsh.join_keys,
+            "probe_ranges": jn.probe_ranges_kernel,
+            "join_expand": jn.expand_indices,
+            "bloom_build": rf.bloom_build, "bloom_apply": rf.bloom_apply}
+
+
+def run_main_path(sf: float, runs: int, small, profile: bool) -> dict:
+    """``small``: (session, tables, scale factor) of phase 4, where a query
+    whose cross join is too large at ``sf`` runs."""
     from sail_tpu_torch import SparkSession
-    from sail_tpu_torch.benchmarks.tpch_data import generate_lineitem_sf
+    from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
     from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
     from sail_tpu_torch.columnar import arrow_interop
-    from sail_tpu_torch.ops import aggregate as agg
-    from sail_tpu_torch.ops import sort as srt
 
     t0 = time.perf_counter()
-    table = generate_lineitem_sf(sf, seed=0)
-    print(f"generated lineitem SF{sf}: {table.num_rows} rows in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    want_q1, want_q6 = oracle(table)
+    tables = generate_tpch_sf(sf, seed=0)
+    print(f"generated TPC-H SF{sf}: lineitem {tables['lineitem'].num_rows} "
+          f"rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    want_q1, want_q6 = oracle(tables["lineitem"])
 
     # time every upload (Arrow -> card) the scans make
     upload = {"s": 0.0, "bytes": 0}
@@ -312,24 +647,31 @@ def run_main_path(sf: float, runs: int, profile: bool = False) -> dict:
         return out
 
     arrow_interop.from_arrow = timed_from_arrow
-
     spark = SparkSession.builder.getOrCreate()
     if spark.device.type != "cuda":
         raise AssertionError(f"session runs on {spark.device}, not cuda")
-    spark.createDataFrame(table).createOrReplaceTempView("lineitem")
-    counters = (agg.seg_reduce, agg.direct_group_ids, srt.order_keys)
+    _register(spark, tables)
+    counters = _counters()
 
     def zero_counts():
-        for fn in counters:
+        for fn in counters.values():
             fn.launches = 0
 
     torch.cuda.reset_peak_memory_stats()
+    small_spark, small_tables, small_sf = small
     report = {"launches_on_path": {}}
-    for q in (1, 6):
+    for q in range(1, 23):
+        qrows = quadratic_rows(tables, q)
+        session, q_sf = spark, sf
+        if qrows > QUADRATIC_ROWS_MAX:
+            session, q_sf = small_spark, small_sf
+            print(f"Q{q}: an intermediate of {qrows} rows at SF{sf} exceeds "
+                  f"{QUADRATIC_ROWS_MAX:.0f}; runs at SF{small_sf} "
+                  f"({quadratic_rows(small_tables, q)} rows)", flush=True)
         upload_before = upload["s"]
         zero_counts()
         t = time.perf_counter()
-        result = spark.sql(QUERIES[q]).toArrow()
+        result = session.sql(QUERIES[q]).toArrow()
         torch.cuda.synchronize()
         first = time.perf_counter() - t
         times = []
@@ -337,35 +679,42 @@ def run_main_path(sf: float, runs: int, profile: bool = False) -> dict:
             if i == 0:
                 zero_counts()
             t = time.perf_counter()
-            result = spark.sql(QUERIES[q]).toArrow()
+            result = session.sql(QUERIES[q]).toArrow()
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
             if i == 0:
                 # the launches of this path's one run, counted from 0
-                launches = {fn.__name__: fn.launches for fn in counters}
-                report["launches_on_path"][f"q{q}"] = launches
+                launches = {n: fn.launches for n, fn in counters.items()}
+                filters = session.last_runtime_filters
+        report["launches_on_path"][f"q{q}"] = launches
+        entry = dict(sf=q_sf, quadratic_rows=quadratic_rows(
+            tables if session is spark else small_tables, q),
+            first_s=first, upload_s=upload["s"] - upload_before,
+            query_s=times, rows=result.num_rows, runtime_filters=filters)
         if profile:
-            report[f"q{q}_profile"] = profile_query(spark, QUERIES[q])
+            entry["profile"] = profile_query(session, QUERIES[q])
         if q == 1:
             check_q1(result, want_q1)
-        else:
+        elif q == 6:
             got = _unscaled_result(result.column(0).combine_chunks())
             if got != [want_q6]:
                 raise AssertionError(f"Q6: {got} != {[want_q6]}")
-        report[f"q{q}"] = dict(first_s=first, upload_s=upload["s"] - upload_before,
-                               query_s=times, rows=result.num_rows)
-        print(f"Q{q} SF{sf}: first run {first:.3f} s (upload "
-              f"{upload['s'] - upload_before:.3f} s), then "
+        report[f"q{q}"] = entry
+        print(f"Q{q} SF{q_sf}: first run {first:.3f} s (upload "
+              f"{entry['upload_s']:.3f} s), then "
               f"{', '.join(f'{x * 1e3:.1f} ms' for x in times)}; "
-              f"launches in one run {launches}; matches the oracle",
+              f"{result.num_rows} rows; launches in one run "
+              f"{ {k: v for k, v in launches.items() if v} }; runtime "
+              f"filters (scan rows, mask rows) "
+              f"{[(f['scan_rows'], f['mask_rows']) for f in filters]}",
               flush=True)
         for name in PATH_KERNELS[f"q{q}"]:
             if launches[name] == 0:
                 raise AssertionError(f"{name} never launched on Q{q}'s path")
     report["peak_bytes"] = torch.cuda.max_memory_allocated()
     report["upload_bytes"] = upload["bytes"]
-    print(f"peak device memory {report['peak_bytes'] / 2**30:.2f} GiB",
-          flush=True)
+    print(f"peak device memory {report['peak_bytes'] / 2**30:.2f} GiB; "
+          f"uploaded {upload['bytes'] / 2**30:.2f} GiB", flush=True)
     spark.stop()
     arrow_interop.from_arrow = from_arrow
     return report
@@ -375,13 +724,18 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor of the main path (default 10)")
+    ap.add_argument("--check-sf", type=float, default=1.0,
+                    help="scale factor of the oracle check (default 1)")
     ap.add_argument("--kernel-rows", type=int, default=60_000_000,
-                    help="rows of the kernel checks (default 60M, SF10's)")
+                    help="lineitem rows of the kernel checks (default 60M, "
+                         "SF10's)")
     ap.add_argument("--runs", type=int, default=3,
                     help="timed runs of each query (default 3)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one more run of each query with "
                          "torch.profiler and print device time by kernel")
+    ap.add_argument("--report", type=pathlib.Path,
+                    help="also write the whole report as JSON to this file")
     args = ap.parse_args()
     if args.runs < 1:
         ap.error("--runs must be at least 1: the launches are read in the "
@@ -390,36 +744,66 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from sail_tpu_torch import csrc
+    from sail_tpu_torch import SparkSession, csrc
+    from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f"device: {name} x{torch.cuda.device_count()}; torch "
           f"{torch.__version__} cuda {torch.version.cuda}; {smi}", flush=True)
+    phases = {}
 
     t = time.perf_counter()
     csrc.build()
-    print(f"built the kernels in {time.perf_counter() - t:.1f} s", flush=True)
+    phases["build"] = time.perf_counter() - t
+    print(f"built the kernels in {phases['build']:.1f} s", flush=True)
     for src, log in csrc.build_logs().items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  {src}: {line.strip()}")
 
+    t = time.perf_counter()
     entries = check_kernels(args.kernel_rows, dev)
-    report = run_main_path(args.sf, args.runs, args.profile)
+    phases["kernels"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    small_tables = generate_tpch_sf(args.check_sf, seed=0)
+    small = SparkSession({"spark.sail.device": "cuda"})
+    _register(small, small_tables)
+    checks = check_queries(small, small_tables, args.check_sf)
+    phases["correctness"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    report = run_main_path(args.sf, args.runs,
+                           (small, small_tables, args.check_sf), args.profile)
+    phases["main_path"] = time.perf_counter() - t
+    print(f"phase wall times (s): {phases}", flush=True)
     on_path = report["launches_on_path"]
+    counts = {"bloom": ("bloom_build", "bloom_apply")}
     kernels = [dict(name=e["name"], route="cuda", source=e["source"],
                     replaces=e["replaces"],
-                    launches=sum(c[e["name"]] for c in on_path.values()),
-                    launches_on_path={q: c[e["name"]]
-                                      for q, c in on_path.items()},
+                    launches=sum(c[k] for c in on_path.values()
+                                 for k in counts.get(e["name"],
+                                                     (e["name"],))),
+                    launches_on_path={q: sum(c[k] for k in counts.get(
+                        e["name"], (e["name"],))) for q, c in on_path.items()},
                     max_abs_err=e["max_abs_err"], ms=e["ms"],
                     plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
                     bound_by="bytes", library_ms=e["library_ms"])
                for e in entries]
-    print(json.dumps({"main_path": report, "sf": args.sf,
-                      "kernel_rows": args.kernel_rows}))
+    for k in kernels:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']} launched on no query's path")
+    full = {"main_path": report, "checks": checks, "sf": args.sf,
+            "check_sf": args.check_sf, "phases_s": phases,
+            "kernel_rows": args.kernel_rows, "kernels": kernels, "smi": smi}
+    if args.report is not None:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(full, indent=1))
+    print(json.dumps({k: full[k] for k in ("main_path", "checks", "sf",
+                                           "check_sf", "phases_s")}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

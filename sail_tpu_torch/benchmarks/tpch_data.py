@@ -249,20 +249,34 @@ def generate_lineitem_sf(sf: float, seed: int = 0) -> pa.Table:
     seconds. Value domains follow ``generate_tpch``'s lineitem: 1-7 lines
     per order, the same date windows and the same returnflag/linestatus
     cut-off; the extended price is computed in exact cents."""
-    rng = np.random.default_rng(seed)
+    return _lineitem_sf(np.random.default_rng(seed), sf)[0]
+
+
+def _retail_cents(partkey: np.ndarray) -> np.ndarray:
+    """Retail price in cents: 90000 + p/10 + 100 * (p % 1000), rounded."""
+    return (900_000 + partkey % 200_001 + 1000 * (partkey % 1000) + 5) // 10
+
+
+def _date(days: np.ndarray) -> pa.Array:
+    return pa.array(days.astype(np.int32)).view(pa.date32())
+
+
+def _lineitem_sf(rng, sf: float):
+    """(lineitem, per-order (keys, dates, lines, all lines shipped,
+    no line shipped))."""
     n_order = int(1_500_000 * sf)
     lines_per = rng.integers(1, 8, n_order)
     n = int(lines_per.sum())
     order_start = np.repeat(np.cumsum(lines_per) - lines_per, lines_per)
-    okey = np.repeat(np.arange(1, n_order + 1, dtype=np.int64) * 4 - 3,
-                     lines_per)
-    odate = np.repeat(rng.integers(_START, _END - 151, n_order), lines_per)
+    okeys = np.arange(1, n_order + 1, dtype=np.int64) * 4 - 3
+    odates = rng.integers(_START, _END - 151, n_order)
+    okey = np.repeat(okeys, lines_per)
+    odate = np.repeat(odates, lines_per)
     qty = rng.integers(1, 51, n)
     part = rng.integers(1, max(1, int(200_000 * sf)) + 1, n)
     n_supp = max(1, int(10_000 * sf))
     supp = (part + rng.integers(0, 4, n) * (n_supp // 4 + 1)) % n_supp + 1
-    # retail price in cents: 90000 + p/10 + 100 * (p % 1000), rounded
-    retail = (900_000 + part % 200_001 + 1000 * (part % 1000) + 5) // 10
+    retail = _retail_cents(part)
     discount = rng.integers(0, 11, n)
     tax = rng.integers(0, 9, n)
     ship = odate + rng.integers(1, 122, n)
@@ -272,11 +286,7 @@ def generate_lineitem_sf(sf: float, seed: int = 0) -> pa.Table:
     # returnflag dictionary ["A", "N", "R"]; linestatus ["F", "O"]
     returnflag = np.where(receipt <= cutoff, rng.integers(0, 2, n) * 2, 1)
     linestatus = (ship > cutoff).astype(np.int32)
-
-    def date(days):
-        return pa.array(days.astype(np.int32)).view(pa.date32())
-
-    return pa.table({
+    table = pa.table({
         "l_orderkey": pa.array(okey),
         "l_partkey": pa.array(part.astype(np.int64)),
         "l_suppkey": pa.array(supp.astype(np.int64)),
@@ -288,9 +298,9 @@ def generate_lineitem_sf(sf: float, seed: int = 0) -> pa.Table:
         "l_tax": _decimal_from_unscaled(tax),
         "l_returnflag": _dict_column(returnflag, ["A", "N", "R"]),
         "l_linestatus": _dict_column(linestatus, ["F", "O"]),
-        "l_shipdate": date(ship),
-        "l_commitdate": date(commit),
-        "l_receiptdate": date(receipt),
+        "l_shipdate": _date(ship),
+        "l_commitdate": _date(commit),
+        "l_receiptdate": _date(receipt),
         "l_shipinstruct": _dict_column(rng.integers(0, 4, n), _INSTRUCTS),
         "l_shipmode": _dict_column(rng.integers(0, 7, n), _SHIPMODES),
         "l_comment": _dict_column(rng.integers(0, 6, n), [
@@ -298,3 +308,168 @@ def generate_lineitem_sf(sf: float, seed: int = 0) -> pa.Table:
             "slyly special requests", "blithely even theodolites",
             "furiously bold accounts", "pending unusual ideas"]),
     })
+    starts = np.cumsum(lines_per) - lines_per
+    all_open = np.minimum.reduceat(linestatus, starts) == 1
+    none_open = np.maximum.reduceat(linestatus, starts) == 0
+    return table, (okeys, odates, none_open, all_open)
+
+
+def _phrases(rng, count: int, words: int) -> list:
+    """A vocabulary of ``count`` comment phrases of ``words`` words."""
+    picks = rng.integers(0, len(_COMMENT_WORDS), (count, words))
+    return [" ".join(_COMMENT_WORDS[j] for j in row) for row in picks]
+
+
+def _numbered(prefix: str, keys: np.ndarray) -> pa.Array:
+    """``prefix`` + the key zero-padded to 9 digits, one string per key."""
+    return pa.array(np.char.add(prefix, np.char.zfill(
+        keys.astype(str), 9)).astype(object), type=pa.string())
+
+
+def _money(rng, lo_cents: int, hi_cents: int, n: int) -> pa.Array:
+    return _decimal_from_unscaled(rng.integers(lo_cents, hi_cents + 1, n))
+
+
+def generate_tpch_sf(sf: float, seed: int = 0) -> Dict[str, pa.Table]:
+    """All eight TPC-H tables at scale factor ``sf``, every column
+    vectorised, so SF10 takes seconds where ``generate_tpch`` takes
+    minutes.
+
+    ``lineitem`` is ``generate_lineitem_sf(sf, seed)`` bit for bit (the
+    other tables draw from a second random stream), and ``orders`` holds
+    its order keys and order dates; an order's status follows its lines'
+    status (F all shipped by the cut-off, O none, else P). Value domains
+    follow ``generate_tpch``. Strings are dictionary columns: names and
+    addresses are unique per row, everything else comes from a bounded
+    vocabulary chosen to keep the queries' predicates selective:
+    ``p_name`` joins five of the 92 ``_COLORS`` (Q9's ``%green%``, Q20's
+    ``forest%``), ``c_phone`` and ``s_phone`` start with the country code
+    10 + nation (Q22), ``o_comment`` has "special ... requests" phrases
+    (Q13) and ``s_comment`` "Customer ... Complaints" ones (Q16)."""
+    lineitem, (okeys, odates, none_open, all_open) = _lineitem_sf(
+        np.random.default_rng(seed), sf)
+    rng = np.random.default_rng([seed, 1])
+    n_part = max(1, int(200_000 * sf))
+    n_supp = max(1, int(10_000 * sf))
+    n_cust = max(1, int(150_000 * sf))
+    n_order = okeys.shape[0]
+    tables: Dict[str, pa.Table] = {}
+
+    tables["region"] = pa.table({
+        "r_regionkey": pa.array(np.arange(5), type=pa.int64()),
+        "r_name": pa.array(_REGIONS),
+        "r_comment": pa.array(_phrases(rng, 5, 6)),
+    })
+    tables["nation"] = pa.table({
+        "n_nationkey": pa.array(np.arange(25), type=pa.int64()),
+        "n_name": pa.array([n for n, _ in _NATIONS]),
+        "n_regionkey": pa.array(np.array([r for _, r in _NATIONS]),
+                                type=pa.int64()),
+        "n_comment": pa.array(_phrases(rng, 25, 6)),
+    })
+
+    pk = np.arange(1, n_part + 1, dtype=np.int64)
+    names = [" ".join(rng.choice(_COLORS, 5, replace=False))
+             for _ in range(4096)]
+    mfgr = rng.integers(1, 6, n_part)
+    brand = (mfgr - 1) * 5 + rng.integers(0, 5, n_part)
+    types = [f"{a} {b} {c}" for a in _TYPES_1 for b in _TYPES_2
+             for c in _TYPES_3]
+    containers = [f"{a} {b}" for a in _CONTAINERS_1 for b in _CONTAINERS_2]
+    tables["part"] = pa.table({
+        "p_partkey": pa.array(pk),
+        "p_name": _dict_column(rng.integers(0, len(names), n_part), names),
+        "p_mfgr": _dict_column(mfgr - 1,
+                               [f"Manufacturer#{m}" for m in range(1, 6)]),
+        "p_brand": _dict_column(brand, [f"Brand#{m}{b}" for m in range(1, 6)
+                                        for b in range(1, 6)]),
+        "p_type": _dict_column(rng.integers(0, len(types), n_part), types),
+        "p_size": pa.array(rng.integers(1, 51, n_part).astype(np.int32)),
+        "p_container": _dict_column(
+            rng.integers(0, len(containers), n_part), containers),
+        "p_retailprice": _decimal_from_unscaled(_retail_cents(pk)),
+        "p_comment": _dict_column(rng.integers(0, 256, n_part),
+                                  _phrases(rng, 256, 4)),
+    })
+
+    def phones(nations: np.ndarray) -> pa.Array:
+        # 1000 numbers per country code
+        vocab = [f"{10 + n}-{100 + j % 900}-{100 + (j * 7) % 900}-"
+                 f"{1000 + (j * 13) % 9000}" for n in range(25)
+                 for j in range(1000)]
+        return _dict_column(nations * 1000 + rng.integers(0, 1000,
+                                                          len(nations)),
+                            vocab)
+
+    sk = np.arange(1, n_supp + 1, dtype=np.int64)
+    s_nation = rng.integers(0, 25, n_supp)
+    s_comments = _phrases(rng, 252, 5) + [
+        "slyly Customer even Complaints", "Customer carefully Complaints ideas",
+        "final Customer requests Complaints"]
+    tables["supplier"] = pa.table({
+        "s_suppkey": pa.array(sk),
+        "s_name": _numbered("Supplier#", sk),
+        "s_address": _numbered("addr ", sk),
+        "s_nationkey": pa.array(s_nation.astype(np.int64)),
+        "s_phone": phones(s_nation),
+        "s_acctbal": _money(rng, -99_999, 999_999, n_supp),
+        "s_comment": _dict_column(rng.integers(0, len(s_comments), n_supp),
+                                  s_comments),
+    })
+
+    # partsupp: 4 suppliers per part, as lineitem's l_suppkey picks them
+    ps_part = np.repeat(pk, 4)
+    ps_supp = (ps_part + np.tile(np.arange(4), n_part) * (n_supp // 4 + 1))         % n_supp + 1
+    tables["partsupp"] = pa.table({
+        "ps_partkey": pa.array(ps_part),
+        "ps_suppkey": pa.array(ps_supp.astype(np.int64)),
+        "ps_availqty": pa.array(rng.integers(1, 10000, 4 * n_part)
+                                .astype(np.int32)),
+        "ps_supplycost": _money(rng, 100, 100_000, 4 * n_part),
+        "ps_comment": _dict_column(rng.integers(0, 256, 4 * n_part),
+                                   _phrases(rng, 256, 6)),
+    })
+
+    ck = np.arange(1, n_cust + 1, dtype=np.int64)
+    c_nation = rng.integers(0, 25, n_cust)
+    tables["customer"] = pa.table({
+        "c_custkey": pa.array(ck),
+        "c_name": _numbered("Customer#", ck),
+        "c_address": _numbered("addr ", ck),
+        "c_nationkey": pa.array(c_nation.astype(np.int64)),
+        "c_phone": phones(c_nation),
+        "c_acctbal": _money(rng, -99_999, 999_999, n_cust),
+        "c_mktsegment": _dict_column(rng.integers(0, 5, n_cust), _SEGMENTS),
+        "c_comment": _dict_column(rng.integers(0, 256, n_cust),
+                                  _phrases(rng, 256, 6)),
+    })
+
+    # orders: only customers whose key is not a multiple of 3 order (spec)
+    o_cust = rng.integers(1, n_cust + 1, n_order)
+    o_cust = np.where(o_cust % 3 == 0, o_cust % max(n_cust - 1, 1) + 1,
+                      o_cust)
+    o_cust = np.where(o_cust % 3 == 0, 1 + (o_cust + 1) % max(n_cust, 1),
+                      o_cust)
+    status = np.where(none_open, 0, np.where(all_open, 1, 2))
+    o_comments = _phrases(rng, 250, 6) + [
+        "carefully special final requests", "special pending requests",
+        "blithely special unusual requests sleep", "special requests",
+        "quickly special express requests", "slyly special bold requests"]
+    n_clerk = max(1, int(1000 * sf))
+    tables["orders"] = pa.table({
+        "o_orderkey": pa.array(okeys),
+        "o_custkey": pa.array(o_cust.astype(np.int64)),
+        "o_orderstatus": _dict_column(status, ["F", "O", "P"]),
+        "o_totalprice": _money(rng, 85_000, 55_000_000, n_order),
+        "o_orderdate": _date(odates),
+        "o_orderpriority": _dict_column(rng.integers(0, 5, n_order),
+                                        _PRIORITIES),
+        "o_clerk": _dict_column(rng.integers(0, n_clerk, n_order),
+                                [f"Clerk#{i:09d}" for i in
+                                 range(1, n_clerk + 1)]),
+        "o_shippriority": pa.array(np.zeros(n_order, dtype=np.int32)),
+        "o_comment": _dict_column(rng.integers(0, len(o_comments), n_order),
+                                  o_comments),
+    })
+    tables["lineitem"] = lineitem
+    return tables

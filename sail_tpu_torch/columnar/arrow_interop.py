@@ -284,6 +284,22 @@ def _column_to_arrow(data, validity, d, dictionary, has_dict) -> pa.Array:
     return arr
 
 
+def unify_dictionaries(dict_a: pa.Array, dict_b: pa.Array
+                       ) -> Tuple[pa.Array, np.ndarray, np.ndarray]:
+    """Merge two dictionaries; returns (merged, remap_a, remap_b) where
+    remap_x maps old codes → merged codes. Used before joins on string
+    columns and comparisons of two string columns, so device-side code
+    comparison is exact."""
+    merged = pa.concat_arrays([dict_a.cast(pa.string()),
+                               dict_b.cast(pa.string())])
+    enc = pc.dictionary_encode(merged)
+    if isinstance(enc, pa.ChunkedArray):
+        enc = enc.combine_chunks()
+    codes = np.asarray(enc.indices)
+    return (enc.dictionary, codes[: len(dict_a)].astype(np.int32),
+            codes[len(dict_a):].astype(np.int32))
+
+
 def dictionary_ranks(dictionary: pa.Array) -> np.ndarray:
     """Order-preserving rank per dictionary code (for ORDER BY / range
     comparisons on dictionary-encoded strings)."""

@@ -18,8 +18,19 @@ _DEFAULTS: Dict[str, Any] = {
     # (only ``memory`` is ported); catalog.default picks the session's
     "catalog.list": "",
     "catalog.default": "",
-    # runtime join filters (plan/optimizer.py annotation pass)
+    # runtime join filters (plan/optimizer.py annotation pass; built and
+    # applied by exec/local.py _rtf_conf, session override
+    # spark.sail.join.runtimeFilter.*): skip the build under this many
+    # usable rows; bloom size in bits; exact in-list scan conjunct up to
+    # this many distinct keys; no filter when the source's distinct keys
+    # reach this share of the target's estimated rows; a join whose
+    # filter pruned less than this share stops building it
     "join.runtime_filter.enabled": True,
+    "join.runtime_filter.min_build_rows": 0,
+    "join.runtime_filter.max_bits": 1 << 20,
+    "join.runtime_filter.in_list_max": 8192,
+    "join.runtime_filter.ndv_ratio": 0.75,
+    "join.runtime_filter.min_selectivity": 0.02,
     # greedy cost-based join reordering (plan/optimizer.py)
     "optimizer.enable_join_reorder": True,
     # observed leaf-stage rows feed join_reorder's estimates on repeats

@@ -24,7 +24,8 @@ from typing import Dict
 import torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu")
+SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
+           "join_keys.cu", "join_probe.cu", "join_expand.cu", "bloom.cu")
 _HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -32,12 +33,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
-# C signature of each library's entry point: (name, argtypes)
+ULL = ctypes.c_ulonglong
+# C signature of each library's entry points: {name: argtypes}
 _ENTRY = {
-    "seg_reduce.cu": ("sail_seg_reduce", [P, P, LL, I, I, I, P, P, I, P]),
-    "direct_group.cu": ("sail_direct_group",
-                        [P, P, P, P, I, P, LL, I, P, P, I, P]),
-    "order_keys.cu": ("sail_order_keys", [P, I, LL, I, P, I, P]),
+    "seg_reduce.cu": {"sail_seg_reduce": [P, P, LL, I, I, I, P, P, I, P]},
+    "direct_group.cu": {"sail_direct_group":
+                        [P, P, P, P, I, P, LL, I, P, P, I, P]},
+    "order_keys.cu": {"sail_order_keys": [P, I, LL, I, P, I, P]},
+    "join_keys.cu": {"sail_join_keys": [P, P, LL, I, ULL, P, P, I, P]},
+    "join_probe.cu": {"sail_join_probe": [P, LL, P, P, P, LL, P, P, I, P]},
+    "join_expand.cu": {"sail_join_expand":
+                       [P, P, P, P, LL, P, LL, P, P, P, I, P]},
+    "bloom.cu": {"sail_bloom_build": [P, P, LL, LL, P, I, P],
+                 "sail_bloom_apply": [P, LL, P, P, P, P, P, LL, P, I, P]},
 }
 
 
@@ -102,9 +110,13 @@ def build_logs() -> Dict[str, str]:
 
 
 @functools.cache
-def entry(source: str):
-    """The C entry point of ``source``'s library, built on first use."""
-    name, argtypes = _ENTRY[source]
+def entry(source: str, name: str = ""):
+    """The C entry point ``name`` of ``source``'s library (its only one
+    when ``name`` is empty), built on first use."""
+    entries = _ENTRY[source]
+    if not name:
+        (name,) = entries
+    argtypes = entries[name]
     fn = getattr(ctypes.CDLL(build()[source]), name)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

@@ -1,32 +1,46 @@
 """Local executor: physical plan → tensors on one device → Arrow.
 
-The PyTorch counterpart of ``sail_tpu/exec/local.py`` for the operators of
-a scan–filter–project–aggregate–sort pipeline: Scan (in-memory tables),
-Filter, Project, Aggregate, Sort, Limit. Any other operator, and scalar
-subqueries, raise ``NotImplementedError``.
+The PyTorch counterpart of ``sail_tpu/exec/local.py`` for Scan (in-memory
+tables), Filter, Project, Aggregate, Sort, Limit and Join (equi-joins of
+every type, cross joins, NOT IN), with runtime join filters and scalar
+subqueries. Any other operator raises ``NotImplementedError``.
 
 As in the reference, a Filter/Project chain runs as one stage with the
-operator above it (aggregate or sort): the chain narrows ``sel`` and
-computes its output columns, and the consumer reads them directly. Torch
-runs eagerly, so there is no program to compile or cache; every stage is
-rebuilt per query from the plan.
+operator above it (aggregate, sort or join): the chain narrows ``sel``
+and computes its output columns, and the consumer reads them directly.
+Torch runs eagerly, so there is no program to compile or cache; every
+stage is rebuilt per query from the plan. The host waits for the device
+only where it needs a value to go on: a join fetches its decision
+scalars (duplicate keys, hash ambiguity, output size, filter counts) in
+one transfer.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import dataclasses
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import pyarrow as pa
 import torch
 
 from ..columnar import arrow_interop as ai
 from ..columnar.batch import Column, DeviceBatch, HostBatch, physical_torch_dtype
+from ..config import _DEFAULTS as config_defaults
+from ..config import get as config_get
+from ..config import truthy_value
 from ..ops import aggregate as aggk
+from ..ops import hash as hashk
+from ..ops import join as joink
+from ..ops import runtime_filter as rtfk
 from ..ops import sort as sortk
+from ..plan import join_reorder as jr
 from ..plan import nodes as pn
 from ..plan import rex as rx
+from ..plan import runtime_filters as rtfp
 from ..plan.compiler import ExprCompiler
 from ..spec import data_type as dt
+from ..spec.literal import Literal as LV
 
 
 def _col_name(i: int) -> str:
@@ -38,17 +52,56 @@ def _full(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.expand(n) if x.dim() == 0 else x
 
 
-class LocalExecutor:
-    """Runs one plan on ``device``. ``scan_cache`` maps a memory scan's
-    key to its uploaded batch; the session passes the same dict to every
-    executor it makes, so a table's columns upload once."""
+class _RtfConf(NamedTuple):
+    """spark.sail.join.runtimeFilter.* resolved for one executor."""
 
-    def __init__(self, device, scan_cache: Optional[dict] = None):
+    enabled: bool
+    min_build_rows: int
+    max_bits: int
+    in_list_max: int
+    ndv_ratio: float
+    min_selectivity: float
+
+
+class _Rtf(NamedTuple):
+    """A built runtime filter, ready to mask the filtered side."""
+
+    res: rtfk.BuildResult
+    ordinals: Tuple[int, ...]  # join-key ordinals folded into the bloom
+    fids: Tuple[int, ...]      # annotated filter ids (scan stat lookup)
+    history_key: object        # adaptive-skip key (None if unhashable)
+    pushed: int                # scan targets that received conjuncts
+    # False: built from the build (right) side, masks the probe side.
+    # True: built from the probe (left) side, masks the build side.
+    reverse: bool = False
+
+
+class LocalExecutor:
+    """Runs one plan on ``device``. The session passes the same
+    ``scan_cache`` (a memory scan's key → its uploaded batch, so a table's
+    columns upload once) and ``rtf_history`` (a join's runtime-filter key
+    → the prune ratio it last observed; joins whose filters proved useless
+    skip the build on later runs) to every executor it makes. ``config``
+    is the session's conf. ``runtime_filters`` logs, for each filter this
+    executor built, the rows it saw and kept at the scans and at the
+    join."""
+
+    def __init__(self, device, scan_cache: Optional[dict] = None,
+                 config: Optional[dict] = None,
+                 rtf_history: Optional[dict] = None):
         self.device = torch.device(device)
         self.scan_cache = {} if scan_cache is None else scan_cache
+        self.config = config or {}
+        self.rtf_history = {} if rtf_history is None else rtf_history
+        self.runtime_filters: List[dict] = []
+        self._subquery_cache: Dict[int, LV] = {}
+        # per-fid (rows before, rows after as a device scalar) of the
+        # runtime-filter conjuncts applied at a scan of this plan
+        self._rtf_scan_stats: Dict[int, Tuple[int, torch.Tensor]] = {}
 
     def execute(self, plan: pn.PlanNode) -> pa.Table:
         """Run a plan to an Arrow table with the plan's output names."""
+        self._pre_eval_subqueries(plan)
         table = ai.to_arrow(self.run(plan))
         return table.rename_columns([f.name for f in plan.schema])
 
@@ -59,12 +112,44 @@ class LocalExecutor:
                 f"{type(plan).__name__} is not ported yet")
         return method(plan)
 
+    # -- scalar subqueries ----------------------------------------------------
+    def _pre_eval_subqueries(self, plan: pn.PlanNode) -> None:
+        for node in pn.walk_plan(plan):
+            for r in _node_rex(node):
+                for sub in rx.walk(r):
+                    if isinstance(sub, rx.RScalarSubquery) and \
+                            id(sub) not in self._subquery_cache:
+                        self._subquery_cache[id(sub)] = self._eval_scalar(sub)
+
+    def _eval_scalar(self, sub: rx.RScalarSubquery) -> LV:
+        inner = LocalExecutor(self.device, self.scan_cache, self.config,
+                              self.rtf_history)
+        inner._subquery_cache = self._subquery_cache
+        table = inner.execute(sub.plan)
+        self.runtime_filters.extend(inner.runtime_filters)
+        if table.num_rows == 0:
+            return LV(sub.dtype, None)
+        if table.num_rows > 1:
+            raise RuntimeError("scalar subquery returned more than one row")
+        return LV(sub.dtype, table.column(0)[0].as_py())
+
     # -- expression plumbing ------------------------------------------------
     def _compiler(self, dicts: Dict[str, pa.Array],
                   schema: pn.Schema) -> ExprCompiler:
         by_index = {i: dicts[_col_name(i)] for i in range(len(schema))
                     if _col_name(i) in dicts}
-        return ExprCompiler([f.dtype for f in schema], by_index, self.device)
+        return ExprCompiler([f.dtype for f in schema], by_index, self.device,
+                            self._subquery_cache)
+
+    def _eval_mask(self, cond: rx.Rex, batch: HostBatch,
+                   schema: pn.Schema) -> torch.Tensor:
+        """A boolean condition over a batch as a row mask (NULL is
+        false)."""
+        d, v = self._compiler(batch.dicts, schema).compile(cond).fn(
+            self._cols(batch))
+        n = batch.capacity
+        keep = _full(d.bool(), n)
+        return keep if v is None else keep & _full(v, n)
 
     @staticmethod
     def _cols(batch: HostBatch) -> List:
@@ -131,19 +216,29 @@ class LocalExecutor:
         if p.format != "memory" or not isinstance(p.source, pa.Table):
             raise NotImplementedError(
                 f"scans of {p.format!r} sources are not ported yet")
-        if p.runtime_predicates:
-            raise NotImplementedError("runtime join filters are not ported yet")
         key = ("mem", id(p.source), p.projection)
         hit = self.scan_cache.get(key)
         if hit is not None and hit[0] is p.source:
-            return hit[1]
-        table = p.source
-        if p.projection is not None:
-            table = table.select(list(p.projection))
-        hb = _positional(ai.from_arrow(table, self.device))
-        # the entry holds the table itself, so its id cannot be reused
-        self.scan_cache[key] = (p.source, hb)
-        return hb
+            hb = hit[1]
+        else:
+            table = p.source
+            if p.projection is not None:
+                table = table.select(list(p.projection))
+            hb = _positional(ai.from_arrow(table, self.device))
+            # the entry holds the table itself, so its id cannot be reused
+            self.scan_cache[key] = (p.source, hb)
+        if not p.runtime_predicates:
+            return hb
+        # runtime join-filter conjuncts pushed here by a join's source
+        # side: the table stays resident, so they narrow the selection on
+        # the device (the reference filters on the host before upload; the
+        # answer is the same)
+        sel = hb.device.sel
+        for c in p.runtime_predicates:
+            sel = sel & self._eval_mask(c, hb, p.schema)
+        for t in p.runtime_filters:
+            self._rtf_scan_stats[t.fid] = (hb.capacity, sel.sum())
+        return HostBatch(hb.device.with_sel(sel), hb.dicts)
 
     # -- unary operators ----------------------------------------------------
     def _exec_ProjectExec(self, p: pn.ProjectExec) -> HostBatch:
@@ -266,6 +361,469 @@ class LocalExecutor:
                                        ignore_nulls=a.ignore_nulls)
         raise NotImplementedError(f"aggregate {a.fn!r} is not ported yet")
 
+    # -- joins ----------------------------------------------------------------
+    def _exec_JoinExec(self, p: pn.JoinExec) -> HostBatch:
+        left, right, rtf = self._run_join_inputs(p)
+        jt = p.join_type
+        if jt == "anti" and p.null_aware:
+            return self._null_aware_anti(p, left, right)
+        if jt in ("cross", "inner") and not p.left_keys:
+            out = self._cross_join(p, left, right)
+            if p.residual is not None:
+                keep = self._eval_mask(p.residual, out, _combined(p))
+                out = HostBatch(out.device.with_sel(out.device.sel & keep),
+                                out.dicts)
+            return out
+        if jt == "right":
+            flipped = pn.JoinExec(p.right, p.left, "left", p.right_keys,
+                                  p.left_keys,
+                                  _flip_residual(p.residual, len(p.left.schema),
+                                                 len(p.right.schema)))
+            out = self._join(flipped, right, left)
+            return _reorder_right(out, len(p.right.schema), len(p.left.schema))
+        return self._join(p, left, right, rtf=rtf)
+
+    def _null_aware_anti(self, p: pn.JoinExec, left: HostBatch,
+                         right: HostBatch) -> HostBatch:
+        """NOT IN (subquery) anti join.
+
+        The IN key is the last key pair; earlier pairs are correlation
+        keys. NOT IN over an empty set is TRUE; any NULL build key makes
+        every membership test unknown (no rows); NULL probe keys are
+        excluded while the build side is non-empty.
+        """
+        rcomp = self._compiler(right.dicts, p.right.schema)
+        _, rval = rcomp.compile(p.right_keys[-1]).fn(self._cols(right))
+        rsel = right.device.sel
+        null_build = rsel & ~_full(rval, rsel.shape[0]) if rval is not None \
+            else torch.zeros_like(rsel)
+        n_build, n_null = (int(x) for x in
+                           torch.stack([rsel.sum(), null_build.sum()]).cpu())
+        if n_build == 0:
+            return left
+        # Residual conjuncts are per-row correlation too: the membership set
+        # differs per probe row, so the global NULL shortcuts don't apply.
+        correlated = len(p.left_keys) > 1 or p.residual is not None
+        if n_null:
+            if correlated:
+                raise NotImplementedError(
+                    "correlated NOT IN with NULL subquery keys")
+            return HostBatch(
+                left.device.with_sel(torch.zeros_like(left.device.sel)),
+                left.dicts)
+        out = self._join(p, left, right)
+        lcomp = self._compiler(left.dicts, p.left.schema)
+        _, lval = lcomp.compile(p.left_keys[-1]).fn(self._cols(left))
+        if lval is not None:
+            lval = _full(lval, left.capacity)
+            if bool((left.device.sel & ~lval).any()):
+                if correlated:
+                    raise NotImplementedError(
+                        "correlated NOT IN with NULL probe keys")
+                out = HostBatch(out.device.with_sel(out.device.sel & lval),
+                                out.dicts)
+        return out
+
+    # -- runtime join filters (sideways information passing) ---------------
+    def _run_join_inputs(self, p: pn.JoinExec):
+        """Run a join's children. For runtime-filter-annotated inner/semi
+        joins the estimated-SMALLER side runs first; a filter derived
+        from its keys is pushed into the other subtree's annotated scans
+        before that side executes, and a bloom mask is handed to ``_join``
+        for the filtered side's selection. Forward = build (right) filters
+        probe; reverse = probe (left) filters build."""
+        conf = self._rtf_conf()
+        use = (conf.enabled and p.runtime_filters and p.left_keys
+               and p.join_type in ("inner", "semi") and not p.null_aware)
+        if not use:
+            return self.run(p.left), self.run(p.right), None
+        est_l, est_r = _rtf_est_rows(p.left), _rtf_est_rows(p.right)
+        reverse = est_l < est_r and \
+            any(t.side == "build" for t in p.runtime_filters)
+        if reverse:
+            left = self.run(p.left)
+            rtf, build_plan = self._rtf_prepare(p, left, conf, True,
+                                                est_l, est_r)
+            right = self.run(build_plan)
+        else:
+            right = self.run(p.right)
+            rtf, probe_plan = self._rtf_prepare(p, right, conf, False,
+                                                est_r, est_l)
+            left = self.run(probe_plan)
+        return left, right, rtf
+
+    def _rtf_conf(self) -> _RtfConf:
+        """The session's spark.sail.join.runtimeFilter.* over the app
+        config's join.runtime_filter.* (a value that does not parse falls
+        back to the default)."""
+        def setting(spark_key: str, app_key: str, cast=str):
+            key = "join.runtime_filter." + app_key
+            v = self.config.get("spark.sail.join.runtimeFilter." + spark_key)
+            try:
+                return cast(config_get(key) if v is None else v)
+            except (TypeError, ValueError):
+                return cast(config_defaults[key])
+
+        return _RtfConf(
+            enabled=truthy_value(setting("enabled", "enabled")),
+            min_build_rows=setting("minBuildRows", "min_build_rows", int),
+            max_bits=max(1024, setting("maxBits", "max_bits", int)),
+            in_list_max=setting("inListMax", "in_list_max", int),
+            ndv_ratio=setting("ndvRatio", "ndv_ratio", float),
+            min_selectivity=setting("minSelectivity", "min_selectivity",
+                                    float))
+
+    @staticmethod
+    def _rtf_history_key(p: pn.JoinExec, reverse: bool):
+        # the verdict must be specific to THIS query's join, not just its
+        # key/schema shape: the same `fact JOIN dim` with a different
+        # WHERE on dim has a completely different selectivity, so the
+        # fingerprint folds in every filter condition and scan identity
+        # reachable in both subtrees
+        def fingerprint(node: pn.PlanNode):
+            out = []
+            for n in pn.walk_plan(node):
+                if isinstance(n, pn.FilterExec):
+                    out.append(n.condition)
+                elif isinstance(n, pn.ScanExec):
+                    out.append((n.table_name, n.paths,
+                                id(n.source) if n.source is not None
+                                else None))
+            return tuple(out)
+
+        key = ("rtf_hist", reverse, p.left_keys, p.right_keys,
+               tuple((f.name, f.dtype) for f in p.left.schema),
+               tuple((f.name, f.dtype) for f in p.right.schema),
+               fingerprint(p.left), fingerprint(p.right))
+        try:
+            hash(key)
+            return key
+        except TypeError:
+            return None
+
+    def _rtf_prepare(self, p: pn.JoinExec, src: HostBatch, conf: _RtfConf,
+                     reverse: bool, est_src: float, est_tgt: float):
+        """Build the runtime filter from the materialized SOURCE side
+        (build side forward, probe side reverse) and push value conjuncts
+        into the other subtree's annotated scans. Returns
+        (rtf-or-None, rewritten target subtree)."""
+        src_node = p.left if reverse else p.right
+        src_keys = p.left_keys if reverse else p.right_keys
+        target_plan = p.right if reverse else p.left
+        wanted_side = "build" if reverse else "probe"
+        targets = tuple(t for t in p.runtime_filters if t.side == wanted_side)
+
+        hkey = self._rtf_history_key(p, reverse)
+        if hkey is not None:
+            past = self.rtf_history.get(hkey)
+            if past is not None and past < conf.min_selectivity:
+                return None, target_plan  # observed useless: skip
+        # a filter only pays when its source side is smaller than the
+        # side it prunes
+        if est_src >= est_tgt:
+            return None, target_plan
+        comp = self._compiler(src.dicts, src_node.schema)
+        compiled = [comp.compile(k) for k in src_keys]
+        # eligible key ordinals: device-hashable physical types whose key
+        # bits agree across sides WITHOUT dictionary unification (string
+        # keys use per-side code spaces, so they cannot ride the filter).
+        # The filter keys carry the LEFT key's type, the join's own
+        # convention (_join_key_columns), so both sides' key bits agree.
+        ordinals = tuple(
+            i for i, (c, lk) in enumerate(zip(compiled, p.left_keys))
+            if c.dictionary is None
+            and getattr(rx.rex_type(lk), "physical_dtype", None)
+            in hashk._KEY_BITS)
+        if not ordinals:
+            return None, target_plan
+        scols, ssel = self._cols(src), src.device.sel
+        n = ssel.shape[0]
+        kcols = []
+        usable = ssel
+        for i in ordinals:
+            d, v = compiled[i].fn(scols)
+            v = None if v is None else _full(v, n)
+            kcols.append(Column(_full(d, n), v, rx.rex_type(p.left_keys[i])))
+            if v is not None:
+                usable = usable & v
+        res = rtfk.build(kcols, ssel, conf.max_bits)
+        # scan conjuncts need integer bounds (and, for a small source, its
+        # key values): one transfer with the filter's own counts
+        int_ords = [oi for oi, c in enumerate(kcols)
+                    if not c.data.is_floating_point()
+                    and c.data.dtype != torch.bool]
+        parts = [res.n_build.reshape(1), res.ndv.reshape(1)]
+        for oi in int_ords:
+            parts.extend(b.to(torch.int64).reshape(1) for b in
+                         rtfk.column_bounds(kcols[oi].data, usable))
+        fetch_values = n <= (1 << 17)
+        if fetch_values:
+            parts.append(usable.to(torch.int64))
+            parts.extend(kcols[oi].data.to(torch.int64) for oi in int_ords)
+        fetched = torch.cat(parts).cpu().numpy()
+        n_build, ndv = int(fetched[0]), int(fetched[1])
+        if n_build < conf.min_build_rows:
+            return None, target_plan
+        # a filter cannot prune much when the source's distinct keys
+        # rival the filtered side's row count (the PK→PK shape)
+        if n_build > 0 and ndv >= conf.ndv_ratio * est_tgt:
+            return None, target_plan
+        nb = 2 + 2 * len(int_ords)
+        bounds_by_ord = {ordinals[oi]: (1, 0) if n_build == 0 else
+                         (int(fetched[2 + 2 * j]), int(fetched[3 + 2 * j]))
+                         for j, oi in enumerate(int_ords)}
+        values_by_ord: Dict[int, np.ndarray] = {}
+        if fetch_values:
+            u = fetched[nb: nb + n].astype(bool)
+            for j, oi in enumerate(int_ords):
+                vals = np.unique(fetched[nb + n * (j + 1): nb + n * (j + 2)][u])
+                if vals.size <= conf.in_list_max:
+                    values_by_ord[ordinals[oi]] = vals
+        pushed = 0
+        for t in targets:
+            if t.key not in bounds_by_ord:
+                continue
+            scan = rtfp.find_scan_by_fid(target_plan, t.fid)
+            if scan is None or scan.source is None:
+                continue
+            field = scan.schema[t.column]
+            if not rtfp.supports_bounds(field.dtype):
+                continue
+            lo, hi = bounds_by_ord[t.key]
+            try:
+                conjs = rtfp.bounds_conjuncts(t.column, field, lo, hi,
+                                              values_by_ord.get(t.key))
+            except (OverflowError, ValueError):
+                continue  # out-of-range literal (exotic date values)
+            new_scan = dataclasses.replace(
+                scan, runtime_predicates=scan.runtime_predicates + conjs)
+            target_plan = _replace_node(target_plan, scan, new_scan)
+            pushed += 1
+        rtf = _Rtf(res=res, ordinals=ordinals,
+                   fids=tuple(t.fid for t in targets), history_key=hkey,
+                   pushed=pushed, reverse=reverse)
+        return rtf, target_plan
+
+    def _rtf_finish(self, rtf: _Rtf, before: int, after: int,
+                    scan_stats: Dict[int, Tuple[int, int]]) -> None:
+        """Post-join accounting: the adaptive history and the log. Only
+        SCAN-site pruning counts towards the verdict, as in the reference:
+        a filter whose conjuncts never landed at a scan stops rebuilding.
+        ``scan_stats``: fid → (rows before, rows after) at its scan."""
+        ratio = 0.0
+        measured = False
+        for fid in rtf.fids:
+            st = scan_stats.get(fid)
+            if st is not None and st[0] > 0:
+                measured = True
+                ratio = max(ratio, (st[0] - st[1]) / st[0])
+        if rtf.history_key is not None and (measured or rtf.pushed == 0):
+            while len(self.rtf_history) > 256:
+                self.rtf_history.pop(next(iter(self.rtf_history)))
+            self.rtf_history[rtf.history_key] = ratio
+        self.runtime_filters.append(dict(
+            reverse=rtf.reverse, pushed=rtf.pushed,
+            scan_rows=[list(scan_stats[f]) for f in rtf.fids
+                       if f in scan_stats],
+            mask_rows=[before, after]))
+
+    # -- equi-join ----------------------------------------------------------
+    def _join_key_columns(self, p: pn.JoinExec, left: HostBatch,
+                          right: HostBatch):
+        """Both sides' key columns. String keys compare through one
+        unified dictionary (per-side code lookup tables); every key pair
+        carries the LEFT key's type, so the two sides' key bits agree."""
+        lcomp = self._compiler(left.dicts, p.left.schema)
+        rcomp = self._compiler(right.dicts, p.right.schema)
+        lcols, rcols = self._cols(left), self._cols(right)
+        nl, nr = left.capacity, right.capacity
+        lkeys, rkeys = [], []
+        for lk, rk in zip(p.left_keys, p.right_keys):
+            lc, rc = lcomp.compile(lk), rcomp.compile(rk)
+            ktype = rx.rex_type(lk)
+            (ld, lv), (rd, rv) = lc.fn(lcols), rc.fn(rcols)
+            if lc.dictionary is not None or rc.dictionary is not None:
+                _, ra, rb = ai.unify_dictionaries(lc.dictionary,
+                                                  rc.dictionary)
+                ld = torch.from_numpy(ra).to(self.device)[ld.long()]
+                rd = torch.from_numpy(rb).to(self.device)[rd.long()]
+                ktype = dt.IntegerType()
+            lkeys.append(Column(_full(ld, nl),
+                                None if lv is None else _full(lv, nl), ktype))
+            rkeys.append(Column(_full(rd, nr),
+                                None if rv is None else _full(rv, nr), ktype))
+        return lkeys, rkeys
+
+    def _join(self, p: pn.JoinExec, left: HostBatch, right: HostBatch,
+              rtf: Optional[_Rtf] = None) -> HostBatch:
+        jt = p.join_type
+        lkeys, rkeys = self._join_key_columns(p, left, right)
+        lsel, rsel = left.device.sel, right.device.sel
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
+        rtf_before = rtf_after = zero
+        fids = []
+        if rtf is not None:
+            # mask the filtered side's selection with the source side's
+            # bloom before the build/probe. Forward masks the probe;
+            # reverse masks the build (a masked build row's key has no
+            # probe partner, so it could never match).
+            if rtf.reverse:
+                masked = rtfk.apply(rtf.res, [rkeys[i] for i in rtf.ordinals],
+                                    rsel)
+                rtf_before, rtf_after, rsel = rsel.sum(), masked.sum(), masked
+            else:
+                masked = rtfk.apply(rtf.res, [lkeys[i] for i in rtf.ordinals],
+                                    lsel)
+                rtf_before, rtf_after, lsel = lsel.sum(), masked.sum(), masked
+            fids = [f for f in rtf.fids if f in self._rtf_scan_stats]
+        for seed in range(4):
+            bt = joink.build_side(rkeys, rsel, seed)
+            ambiguous = zero if bt.exact else \
+                joink.hash_ambiguous(bt, rkeys).to(torch.int64)
+            ranges = joink.probe_ranges(
+                bt, lkeys, lsel, build_key_cols=None if bt.exact else rkeys)
+            # one transfer for every host decision value: each separate
+            # read would be a round trip to the device
+            fetched = torch.stack(
+                [joink.has_duplicate_build_keys(bt).to(torch.int64),
+                 ambiguous, joink.join_output_count(ranges, lsel, "inner"),
+                 rtf_before, rtf_after] +
+                [self._rtf_scan_stats[f][1] for f in fids]).cpu().tolist()
+            has_dup, ambiguous, inner_total = fetched[:3]
+            if bt.exact or not ambiguous:
+                break
+        else:
+            raise RuntimeError("could not build an unambiguous hash join "
+                               "in 4 seeds")
+        if rtf is not None:
+            self._rtf_finish(rtf, fetched[3], fetched[4], {
+                f: (self._rtf_scan_stats[f][0], after)
+                for f, after in zip(fids, fetched[5:])})
+        merged_dicts = dict(left.dicts)
+        n_left = len(p.left.schema)
+        # right columns renamed to their combined positions
+        r_dev_cols = {}
+        for i in range(len(p.right.schema)):
+            r_dev_cols[_col_name(n_left + i)] = \
+                right.device.columns[_col_name(i)]
+            if _col_name(i) in right.dicts:
+                merged_dicts[_col_name(n_left + i)] = right.dicts[_col_name(i)]
+        build_payload = DeviceBatch(r_dev_cols, right.device.sel)
+        build_names = list(r_dev_cols) if jt not in ("semi", "anti") else []
+        # full outer always takes the expanding path (it appends unmatched
+        # build rows, which the unique fast path cannot express)
+        if not has_dup and p.residual is None and jt != "full":
+            out_dev = joink.join_unique(bt, ranges, left.device,
+                                        build_payload, jt, build_names)
+            return HostBatch(out_dev, merged_dicts
+                             if jt not in ("semi", "anti") else left.dicts)
+        return self._join_expand(p, left, bt, ranges, build_payload,
+                                 merged_dicts, inner_total)
+
+    def _join_expand(self, p: pn.JoinExec, left: HostBatch, bt, ranges,
+                     build_payload: DeviceBatch, merged_dicts,
+                     total: int) -> HostBatch:
+        jt = p.join_type
+        n_left = len(p.left.schema)
+        res = joink.join_expand(bt, ranges, left.device, build_payload,
+                                "inner", list(build_payload.columns), total)
+        exp_batch, pi = res.batch, res.probe_index
+        ok = exp_batch.sel
+        if p.residual is not None:
+            ok = ok & self._eval_mask(p.residual,
+                                      HostBatch(exp_batch, merged_dicts),
+                                      _combined(p))
+        if jt == "inner":
+            return HostBatch(exp_batch.with_sel(ok), merged_dicts)
+        probe_cap = left.capacity
+        # probe rows with >= 1 surviving match
+        matched_probe = torch.zeros(probe_cap, dtype=torch.int32,
+                                    device=self.device).index_add_(
+            0, pi, ok.to(torch.int32)) > 0
+        if jt == "semi":
+            return HostBatch(left.device.with_sel(left.device.sel
+                                                  & matched_probe),
+                             left.dicts)
+        if jt == "anti":
+            return HostBatch(left.device.with_sel(left.device.sel
+                                                  & ~matched_probe),
+                             left.dicts)
+        if jt not in ("left", "full"):
+            raise NotImplementedError(f"join type {jt!r}")
+        # surviving inner rows + unmatched probe rows with null build cols
+        unmatched = left.device.sel & ~matched_probe
+        cols = {}
+        for i in range(n_left):
+            key = _col_name(i)
+            ec, lc = exp_batch.columns[key], left.device.columns[key]
+            cols[key] = Column(torch.cat([ec.data, lc.data]),
+                               _cat_validity([ec, lc]), ec.dtype)
+        for key in build_payload.columns:
+            ec = exp_batch.columns[key]
+            cols[key] = Column(
+                torch.cat([ec.data, torch.zeros(probe_cap,
+                                                dtype=ec.data.dtype,
+                                                device=self.device)]),
+                torch.cat([_validity(ec), torch.zeros(
+                    probe_cap, dtype=torch.bool, device=self.device)]),
+                ec.dtype)
+        out = DeviceBatch(cols, torch.cat([ok, unmatched]))
+        if jt == "full":
+            out = self._append_unmatched_build(out, p, bt, ranges, left,
+                                               build_payload, ok,
+                                               res.build_index)
+        return HostBatch(out, merged_dicts)
+
+    def _append_unmatched_build(self, out: DeviceBatch, p: pn.JoinExec, bt,
+                                ranges, left: HostBatch,
+                                build_payload: DeviceBatch, ok, bix
+                                ) -> DeviceBatch:
+        bcap = build_payload.sel.shape[0]
+        if p.residual is not None:
+            # A build row counts as matched only if at least one of its
+            # expanded rows survived the residual filter
+            matched_build = torch.zeros(bcap, dtype=torch.int32,
+                                        device=self.device).index_add_(
+                0, bix, ok.to(torch.int32)) > 0
+        else:
+            matched_build = joink.build_matched_mask(bt, ranges,
+                                                     left.device.sel)
+        unmatched = build_payload.sel & ~matched_build
+        cols = {}
+        for i in range(len(p.left.schema)):
+            c = out.columns[_col_name(i)]
+            cols[_col_name(i)] = Column(
+                torch.cat([c.data, torch.zeros(bcap, dtype=c.data.dtype,
+                                               device=self.device)]),
+                torch.cat([_validity(c), torch.zeros(
+                    bcap, dtype=torch.bool, device=self.device)]), c.dtype)
+        for key, c in build_payload.columns.items():
+            oc = out.columns[key]
+            cols[key] = Column(torch.cat([oc.data, c.data]),
+                               _cat_validity([oc, c]), c.dtype)
+        return DeviceBatch(cols, torch.cat([out.sel, unmatched]))
+
+    def _cross_join(self, p: pn.JoinExec, left: HostBatch,
+                    right: HostBatch) -> HostBatch:
+        lc, rc = sortk.compact(left.device), sortk.compact(right.device)
+        n_right = rc.capacity
+        total = lc.capacity * n_right
+        idx = torch.arange(total, device=self.device)
+        li, ri = idx // max(n_right, 1), idx % max(n_right, 1)
+        cols = {}
+        n_left = len(p.left.schema)
+        for i in range(n_left):
+            cols[_col_name(i)] = sortk.take_column(lc.columns[_col_name(i)],
+                                                   li)
+        dicts = dict(left.dicts)
+        for i in range(len(p.right.schema)):
+            cols[_col_name(n_left + i)] = sortk.take_column(
+                rc.columns[_col_name(i)], ri)
+            if _col_name(i) in right.dicts:
+                dicts[_col_name(n_left + i)] = right.dicts[_col_name(i)]
+        return HostBatch(DeviceBatch(cols, torch.ones(
+            total, dtype=torch.bool, device=self.device)), dicts)
+
 
 def _positional(hb: HostBatch) -> HostBatch:
     """Rename columns to positional keys c0..cn."""
@@ -278,3 +836,125 @@ def _positional(hb: HostBatch) -> HostBatch:
             dicts[_col_name(i)] = hb.dicts[name]
     return HostBatch(DeviceBatch(cols, dev.sel), dicts)
 
+
+
+def _combined(p: pn.JoinExec) -> pn.Schema:
+    """The schema a join's residual binds to: left ++ right."""
+    return tuple(p.left.schema) + tuple(p.right.schema)
+
+
+def _validity(c: Column) -> torch.Tensor:
+    return c.validity if c.validity is not None else \
+        torch.ones(c.data.shape[0], dtype=torch.bool, device=c.data.device)
+
+
+def _cat_validity(cols: List[Column]) -> Optional[torch.Tensor]:
+    if all(c.validity is None for c in cols):
+        return None
+    return torch.cat([_validity(c) for c in cols])
+
+
+def _rtf_est_rows(p: pn.PlanNode) -> float:
+    """Runtime-filter direction estimate: join_reorder's cardinality
+    model, except cross joins count as the cartesian PRODUCT (the
+    ordering model's max would make a large cross product look like its
+    smaller side, steering the filter the wrong way)."""
+    obs = jr.observed_rows(p)
+    if obs is not None:
+        return obs
+    if isinstance(p, pn.JoinExec):
+        lr, rr = _rtf_est_rows(p.left), _rtf_est_rows(p.right)
+        if p.join_type in ("semi", "anti"):
+            return lr * 0.5
+        if p.join_type == "cross" or not p.left_keys:
+            return lr * rr
+        return max(lr, rr)
+    if isinstance(p, pn.FilterExec):
+        return _rtf_est_rows(p.input) * jr._conjunct_selectivity(p.condition)
+    if isinstance(p, pn.AggregateExec):
+        return max(_rtf_est_rows(p.input) * 0.1, 1.0)
+    if isinstance(p, pn.UnionExec):
+        return sum(_rtf_est_rows(c) for c in p.inputs)
+    if isinstance(p, pn.ScanExec):
+        return jr._scan_rows(p)
+    child = getattr(p, "input", None)
+    if isinstance(child, pn.PlanNode):
+        return _rtf_est_rows(child)
+    return jr._DEFAULT_ROWS
+
+
+def _replace_node(plan: pn.PlanNode, target: pn.PlanNode,
+                  replacement: pn.PlanNode) -> pn.PlanNode:
+    if plan is target:
+        return replacement
+    if isinstance(plan, pn.JoinExec):
+        return dataclasses.replace(
+            plan, left=_replace_node(plan.left, target, replacement),
+            right=_replace_node(plan.right, target, replacement))
+    if isinstance(plan, pn.UnionExec):
+        return dataclasses.replace(plan, inputs=tuple(
+            _replace_node(c, target, replacement) for c in plan.inputs))
+    if getattr(plan, "input", None) is not None:
+        return dataclasses.replace(
+            plan, input=_replace_node(plan.input, target, replacement))
+    return plan
+
+
+def _flip_residual(r: Optional[rx.Rex], n_left: int, n_right: int
+                   ) -> Optional[rx.Rex]:
+    if r is None:
+        return None
+
+    def flip(x: rx.Rex) -> rx.Rex:
+        if isinstance(x, rx.BoundRef):
+            if x.index < n_left:
+                return dataclasses.replace(x, index=x.index + n_right)
+            return dataclasses.replace(x, index=x.index - n_left)
+        if isinstance(x, rx.RCall):
+            return dataclasses.replace(x, args=tuple(flip(a) for a in x.args))
+        if isinstance(x, rx.RCast):
+            return dataclasses.replace(x, child=flip(x.child))
+        if isinstance(x, rx.RCase):
+            return dataclasses.replace(
+                x, branches=tuple((flip(c), flip(v)) for c, v in x.branches),
+                else_value=None if x.else_value is None else flip(x.else_value))
+        return x
+
+    return flip(r)
+
+
+def _reorder_right(hb: HostBatch, n_right: int, n_left: int) -> HostBatch:
+    """After executing a flipped right join (as left join with sides
+    swapped), restore the original column order: right-output cols
+    [0..n_right) move after the left cols."""
+    dev = hb.device
+    cols = {}
+    dicts = {}
+    for i in range(n_left):
+        src = _col_name(n_right + i)
+        cols[_col_name(i)] = dev.columns[src]
+        if src in hb.dicts:
+            dicts[_col_name(i)] = hb.dicts[src]
+    for i in range(n_right):
+        src = _col_name(i)
+        cols[_col_name(n_left + i)] = dev.columns[src]
+        if src in hb.dicts:
+            dicts[_col_name(n_left + i)] = hb.dicts[src]
+    return HostBatch(DeviceBatch(cols, dev.sel), dicts)
+
+
+def _node_rex(p: pn.PlanNode):
+    """The expressions of one plan node (where scalar subqueries sit)."""
+    if isinstance(p, pn.FilterExec):
+        yield p.condition
+    elif isinstance(p, pn.ProjectExec):
+        for _, e in p.exprs:
+            yield e
+    elif isinstance(p, pn.JoinExec):
+        yield from p.left_keys
+        yield from p.right_keys
+        if p.residual is not None:
+            yield p.residual
+    elif isinstance(p, pn.SortExec):
+        for k in p.keys:
+            yield k.expr

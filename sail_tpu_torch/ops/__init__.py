@@ -1,2 +1,3 @@
-"""Relational kernels over tensors: sort/compact/limit and grouped
-aggregation (the counterpart of ``sail_tpu/ops``)."""
+"""Relational kernels over tensors: sort/compact/limit, grouped
+aggregation, key hashing, equi-joins and runtime join filters (the
+counterpart of ``sail_tpu/ops``)."""

@@ -6,22 +6,33 @@ produces a closure over column ``(data, validity)`` pairs. PyTorch runs
 the closure eagerly, one elementwise op at a time; literals are 0-d
 tensors that broadcast against columns.
 
-Ported subset: column refs, literals, casts between numeric, decimal,
-boolean and date types, CASE, decimal ``+ - *`` with rescale, ``/``,
-comparisons, Kleene AND/OR/NOT, the null-handling functions, and date ±
-interval arithmetic. Anything else — string functions and comparisons on
-dictionary codes among them — raises ``NotImplementedError`` naming the
-expression; nothing falls back silently.
+Ported subset: column refs, literals, pre-evaluated scalar subqueries,
+casts between numeric, decimal, boolean and date types and from strings,
+CASE (over strings too), decimal ``+ - *`` with rescale, ``/``,
+comparisons (of strings through unified dictionaries), Kleene
+AND/OR/NOT, the null-handling functions, IN, LIKE/ILIKE/RLIKE, the
+date fields, date ± interval arithmetic and the dictionary transforms
+(``substring`` among them). Strings stay int32 dictionary codes on the
+device; every string function runs on the host over the dictionary at
+bind time and reaches the device as a lookup table. Anything else raises
+``NotImplementedError`` naming the expression; nothing falls back
+silently.
 """
 
 from __future__ import annotations
 
+import datetime
+import decimal
+import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
+from ..columnar.arrow_interop import dictionary_ranks, unify_dictionaries
 from ..columnar.batch import physical_torch_dtype
 from ..functions import kernels as K
 from ..spec import data_type as dt
@@ -49,15 +60,67 @@ def _unported(r: rx.Rex, why: str) -> NotImplementedError:
     return NotImplementedError(f"{why} is not ported yet: {r!r}")
 
 
+def _dict_strings(dictionary: pa.Array) -> List[Optional[str]]:
+    return dictionary.cast(pa.string()).to_pylist()
+
+
+def like_pattern_to_regex(pattern: str, escape: Optional[str] = None) -> str:
+    esc = escape or "\\"
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == esc and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "".join(out)
+
+
+_PY_RE_ESCAPES = set("dDwWsSbBAZnrtfv0123456789\\.^$*+?()[]{}|/")
+
+
+def _jre(pattern: str) -> str:
+    """Java-regex → python re, leniently: escapes python's re rejects
+    (like \\U outside known classes) lose the backslash instead of
+    failing the whole query."""
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            nxt = pattern[i + 1]
+            if nxt in _PY_RE_ESCAPES:
+                out.append(c)
+                out.append(nxt)
+            else:
+                out.append(re.escape(nxt))
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    return "".join(out)
+
+
 class ExprCompiler:
     """Compiles Rex against (schema types, dictionaries) for tensors on
     ``device``."""
 
     def __init__(self, column_types: Sequence[dt.DataType],
-                 dictionaries: Dict[int, pa.Array], device):
+                 dictionaries: Dict[int, pa.Array], device,
+                 subquery_values: Optional[Dict[int, LV]] = None):
         self.column_types = list(column_types)
         self.dicts = dictionaries  # column index → dictionary
         self.device = torch.device(device)
+        # id(RScalarSubquery) → its value, evaluated before the plan runs
+        self.subquery_values = subquery_values or {}
 
     def compile(self, r: rx.Rex) -> Compiled:
         if isinstance(r, rx.BoundRef):
@@ -66,6 +129,10 @@ class ExprCompiler:
                             self.dicts.get(idx))
         if isinstance(r, rx.RLit):
             return self._compile_literal(r.value, r)
+        if isinstance(r, rx.RScalarSubquery):
+            if id(r) not in self.subquery_values:
+                raise RuntimeError("scalar subquery not pre-evaluated")
+            return self._compile_literal(self.subquery_values[id(r)], r)
         if isinstance(r, rx.RCast):
             return self._compile_cast(r)
         if isinstance(r, rx.RCase):
@@ -100,8 +167,13 @@ class ExprCompiler:
             return child
         if isinstance(src, dt.NullType):
             return self._compile_literal(LV(dst, None), r)
+        if _is_str(src) and _is_str(dst):
+            return Compiled(child.fn, dst, child.dictionary)
+        if _is_str(src) and child.dictionary is not None and \
+                dst.physical_dtype:
+            return self._cast_from_string(child, dst)
         if _is_str(src) or _is_str(dst):
-            raise _unported(r, "a cast from or to a string")
+            raise _unported(r, "a cast to a string or of a complex type")
         if not (src.physical_dtype and dst.physical_dtype) or \
                 isinstance(dst, (dt.ArrayType, dt.MapType, dt.StructType)):
             raise _unported(r, "a cast of a complex type")
@@ -133,12 +205,35 @@ class ExprCompiler:
 
         return Compiled(fn, dst)
 
+    def _cast_from_string(self, child: Compiled, dst: dt.DataType
+                          ) -> Compiled:
+        """Parse each dictionary value on the host; the device gathers the
+        parsed value (NULL where it does not parse) by code."""
+        parsed = [_parse_string_value(v, dst)
+                  for v in _dict_strings(child.dictionary)]
+        lut = self._lut([v for v, _ in parsed], physical_torch_dtype(dst))
+        ok = self._lut([good for _, good in parsed], torch.bool)
+
+        def fn(cols):
+            data, validity = child.fn(cols)
+            good = ok[data.long()]
+            return lut[data.long()], \
+                good if validity is None else validity & good
+
+        return Compiled(fn, dst)
+
+    def _lut(self, values, tdt: torch.dtype) -> torch.Tensor:
+        """A per-dictionary-code lookup table on the device (one neutral
+        entry for an empty dictionary, whose codes are never valid)."""
+        return torch.tensor(list(values) or [0], dtype=tdt,
+                            device=self.device)
+
     # -- case ------------------------------------------------------------
     def _compile_case(self, r: rx.RCase) -> Compiled:
-        if _is_str(r.dtype):
-            raise _unported(r, "a CASE of strings")
         branches = [(self.compile(c), self.compile(v)) for c, v in r.branches]
         else_c = self.compile(r.else_value) if r.else_value is not None else None
+        if _is_str(r.dtype):
+            return self._compile_case_string(r, branches, else_c)
         tdt = physical_torch_dtype(r.dtype)
 
         def fn(cols):
@@ -163,15 +258,349 @@ class ExprCompiler:
 
         return Compiled(fn, r.dtype)
 
+    def _compile_case_string(self, r: rx.RCase, branches, else_c
+                             ) -> Compiled:
+        """CASE over strings: the branches' dictionaries merge into one and
+        each branch's codes remap into it."""
+        dicts = [v.dictionary for _, v in branches]
+        if else_c is not None:
+            dicts.append(else_c.dictionary)
+        merged, remaps = _merge_dicts(dicts)
+        luts = [self._lut(rm, torch.int32) for rm in remaps]
+
+        def fn(cols):
+            if else_c is not None:
+                acc, accv = else_c.fn(cols)
+                acc = luts[-1][acc.long()]
+            else:
+                acc = torch.zeros((), dtype=torch.int32, device=self.device)
+                accv = torch.zeros((), dtype=torch.bool, device=self.device)
+            for i, (cond_c, val_c) in reversed(list(enumerate(branches))):
+                cd, cv = cond_c.fn(cols)
+                cd = cd.bool()
+                if cv is not None:
+                    cd = cd & cv
+                vd, vv = val_c.fn(cols)
+                acc = torch.where(cd, luts[i][vd.long()], acc)
+                if vv is not None or accv is not None:
+                    new_v = vv if vv is not None else torch.ones_like(cd)
+                    old_v = accv if accv is not None else torch.ones_like(cd)
+                    accv = torch.where(cd, new_v, old_v)
+            return acc, accv
+
+        return Compiled(fn, r.dtype, merged)
+
     # -- calls -----------------------------------------------------------
     def _compile_call(self, r: rx.RCall) -> Compiled:
         args = [self.compile(a) for a in r.args]
         if any(_is_str(a.dtype) for a in args):
+            out = self._compile_string_call(r, args)
+            if out is not None:
+                return out
             raise _unported(r, f"function {r.fn!r} over strings")
         builder = _BUILDERS.get(r.fn)
         if builder is None:
             raise _unported(r, f"function {r.fn!r}")
         return Compiled(builder(args, r), r.dtype)
+
+    # -- string calls ------------------------------------------------------
+    def _compile_string_call(self, r: rx.RCall, args: List[Compiled]
+                             ) -> Optional[Compiled]:
+        """A function with a string argument, as a lookup table over the
+        dictionary codes; None when the function has no such form."""
+        name, opts = r.fn, dict(r.options)
+
+        def dict_of(a: Compiled) -> pa.Array:
+            if a.dictionary is None:
+                raise _unported(r, f"a string argument without a "
+                                   f"dictionary in {name!r}")
+            return a.dictionary
+
+        def by_code(child: Compiled, lut: torch.Tensor, dtype: dt.DataType,
+                    ok: Optional[torch.Tensor] = None) -> Compiled:
+            def fn(cols):
+                d, v = child.fn(cols)
+                if ok is None:
+                    return lut[d.long()], v
+                good = ok[d.long()]
+                return lut[d.long()], good if v is None else v & good
+            return Compiled(fn, dtype)
+
+        if name in _CMP_OPS or name == "<=>":
+            a, b = args
+            if _is_str(a.dtype) and _is_str(b.dtype):
+                merged, ra, rb = unify_dictionaries(dict_of(a), dict_of(b))
+                if name not in ("==", "!=", "<=>"):
+                    ranks = dictionary_ranks(merged)
+                    ra, rb = ranks[ra], ranks[rb]
+                lut_a = self._lut(ra, torch.int32)
+                lut_b = self._lut(rb, torch.int32)
+
+                def fn(cols):
+                    (ad, av), (bd, bv) = a.fn(cols), b.fn(cols)
+                    x, y = lut_a[ad.long()], lut_b[bd.long()]
+                    if name == "<=>":
+                        return K.eq_null_safe((x, av), (y, bv))
+                    return _CMP_OPS[name](x, y), K.merge_validity(av, bv)
+
+                return Compiled(fn, dt.BooleanType())
+            # string vs non-string: parse the string side's dictionary
+            sa, other = (a, b) if _is_str(a.dtype) else (b, a)
+            if sa.dictionary is None or not other.dtype.physical_dtype:
+                return None
+            casted = self._cast_from_string(sa, other.dtype)
+            x_c, y_c = (casted, other) if _is_str(a.dtype) else (other, casted)
+            op = _CMP_OPS.get(name, torch.eq)  # the reference's "<=>" too
+
+            def fn2(cols):
+                (x, xv), (y, yv) = x_c.fn(cols), y_c.fn(cols)
+                x, y = _promote(x, y)
+                return op(x, y), K.merge_validity(xv, yv)
+
+            return Compiled(fn2, dt.BooleanType())
+
+        if name in ("like", "ilike", "rlike"):
+            child, pat = args
+            pat_dict = _dict_strings(dict_of(pat))
+            if len(pat_dict) != 1:
+                raise _unported(r, "a LIKE pattern that is not a literal")
+            pattern = pat_dict[0]
+            if name == "rlike":
+                match = re.compile(_jre(pattern)).search
+            else:
+                flags = re.IGNORECASE if name == "ilike" else 0
+                match = re.compile(like_pattern_to_regex(
+                    pattern, opts.get("escape")), flags).fullmatch
+            lut = self._lut([bool(v is not None and match(v))
+                             for v in _dict_strings(dict_of(child))],
+                            torch.bool)
+            return by_code(child, lut, dt.BooleanType())
+
+        if name == "in":
+            child = args[0]
+            if not _is_str(child.dtype):
+                return None
+            items = set()
+            for a in args[1:]:
+                items.update(_dict_strings(dict_of(a)))
+            lut = self._lut([v in items for v in
+                             _dict_strings(dict_of(child))], torch.bool)
+            return by_code(child, lut, dt.BooleanType())
+
+        # dictionary transforms: apply to the dictionary values on the host
+        transform = _STRING_TRANSFORMS.get(name)
+        if transform is not None:
+            child = args[0]
+            extra = []
+            for a in args[1:]:
+                if _is_str(a.dtype):
+                    ds = _dict_strings(dict_of(a))
+                    if len(ds) != 1:
+                        raise _unported(r, f"a non-literal string argument "
+                                           f"to {name!r}")
+                    extra.append(ds[0])
+                else:
+                    lit = _extract_literal(a)
+                    if lit is None:
+                        raise _unported(r, f"a non-literal argument to "
+                                           f"{name!r}")
+                    extra.append(lit)
+            out_vals = [None if v is None else transform(v, *extra)
+                        for v in _dict_strings(dict_of(child))]
+            if _is_str(r.dtype):
+                # canonicalize: transforms can map distinct inputs to equal
+                # outputs (substring!), and equality/grouping runs on codes —
+                # re-encode and remap so equal strings share one code.
+                new_dict, remap, null_out = _canonical_dict(out_vals)
+                out = by_code(child, self._lut(remap, torch.int32), r.dtype,
+                              None if null_out is None else
+                              self._lut(null_out, torch.bool))
+                return Compiled(out.fn, r.dtype, new_dict)
+            tdt = physical_torch_dtype(r.dtype)
+            return by_code(child,
+                           self._lut([0 if v is None else v
+                                      for v in out_vals], tdt), r.dtype,
+                           self._lut([v is not None for v in out_vals],
+                                     torch.bool))
+
+        if name == "concat":
+            return self._compile_concat(r, args, dict_of)
+        return None
+
+    def _compile_concat(self, r: rx.RCall, args: List[Compiled], dict_of
+                        ) -> Compiled:
+        """concat of literals and at most one string column: a new
+        dictionary over the column's codes."""
+        if len([a for a in args if a.dictionary is not None
+                and len(a.dictionary) > 1]) > 1:
+            raise _unported(r, "concat of several string columns")
+        parts = []
+        col = None
+        for a in args:
+            vals = _dict_strings(dict_of(a))
+            if len(vals) == 1:
+                parts.append(("lit", vals[0]))
+            else:
+                col = a
+                parts.append(("col", None))
+        if col is None:
+            return self._compile_literal(
+                LV.string("".join(p[1] or "" for p in parts)), r)
+        out_vals = [None if v is None else
+                    "".join(v if p[0] == "col" else (p[1] or "")
+                            for p in parts)
+                    for v in _dict_strings(col.dictionary)]
+
+        def fn(cols):
+            validity = K.merge_validity(*[a.fn(cols)[1] for a in args])
+            return col.fn(cols)[0], validity
+
+        return Compiled(fn, r.dtype, pa.array(out_vals, type=pa.string()))
+
+
+def _extract_literal(c: Compiled):
+    """The Python value of a compiled literal argument, else None."""
+    try:
+        d, v = c.fn([])
+    except IndexError:  # it reads a column
+        return None
+    if d.dim() != 0 or (v is not None and not bool(v)):
+        return None
+    val = d.item()
+    if isinstance(c.dtype, dt.DecimalType) and \
+            c.dtype.physical_dtype == "int64":
+        return val / (10 ** c.dtype.scale)
+    return val
+
+
+def _canonical_dict(values: List[Optional[str]]):
+    """Deduplicate transformed dictionary values.
+
+    Returns (dictionary, remap[int32], null_lut|None): codes map through
+    ``remap``; positions whose transformed value is None are flagged via
+    ``null_lut`` (False = null)."""
+    uniq: Dict[str, int] = {}
+    remap = np.empty(len(values), dtype=np.int32)
+    has_null = False
+    for i, v in enumerate(values):
+        if v is None:
+            has_null = True
+            remap[i] = 0
+            continue
+        remap[i] = uniq.setdefault(v, len(uniq))
+    dictionary = pa.array(list(uniq.keys()), type=pa.string())
+    if len(dictionary) == 0:
+        dictionary = pa.array([""], type=pa.string())
+    null_lut = [v is not None for v in values] if has_null else None
+    return dictionary, remap, null_lut
+
+
+def _merge_dicts(dicts: List[Optional[pa.Array]]):
+    """One dictionary over several; returns (merged, remap per input)."""
+    all_vals: List[str] = []
+    offsets = []
+    for d in dicts:
+        offsets.append(len(all_vals))
+        if d is not None:  # NULL-typed branch: no dictionary
+            all_vals.extend(_dict_strings(d))
+    enc = pc.dictionary_encode(pa.array(all_vals, type=pa.string()))
+    codes = np.asarray(enc.indices)
+    remaps = []
+    for off, d in zip(offsets, dicts):
+        n = 0 if d is None else len(d)
+        remaps.append(codes[off: off + n].astype(np.int32))
+    return enc.dictionary, remaps
+
+
+def _parse_string_value(s: Optional[str], target: dt.DataType):
+    """(physical value, parsed) of a string cast to ``target``."""
+    if s is None:
+        return 0, False
+    s = s.strip()
+    try:
+        if isinstance(target, (dt.ByteType, dt.ShortType, dt.IntegerType,
+                               dt.LongType)):
+            return int(s), True
+        if isinstance(target, (dt.FloatType, dt.DoubleType)):
+            return float(s), True
+        if isinstance(target, dt.DecimalType):
+            v = decimal.Decimal(s).scaleb(target.scale)
+            if target.physical_dtype == "int64":
+                return int(v.to_integral_value(
+                    rounding=decimal.ROUND_HALF_UP)), True
+            return float(s), True
+        if isinstance(target, dt.BooleanType):
+            if s.lower() in ("true", "t", "yes", "y", "1"):
+                return True, True
+            if s.lower() in ("false", "f", "no", "n", "0"):
+                return False, True
+            return False, False
+        if isinstance(target, dt.DateType):
+            return (datetime.date.fromisoformat(s[:10])
+                    - datetime.date(1970, 1, 1)).days, True
+        if isinstance(target, dt.TimestampType):
+            v = datetime.datetime.fromisoformat(s)
+            if v.tzinfo is None:
+                from ..utils.tz import localize
+                v = localize(v)  # session timezone (Spark semantics)
+            return int(v.timestamp() * 1_000_000), True
+    except (ValueError, ArithmeticError):
+        return 0, False
+    return 0, False
+
+
+def _substring(v: str, start: int, length: Optional[int] = None) -> str:
+    start = int(start)
+    if start > 0:
+        i = start - 1
+    elif start == 0:
+        i = 0
+    else:
+        i = max(len(v) + start, 0)
+    if length is None:
+        return v[i:]
+    return v[i: i + int(length)]
+
+
+# string dictionary transforms: name → fn(value, *extra) → value
+_STRING_TRANSFORMS: Dict[str, Callable] = {
+    "upper": lambda v: v.upper(),
+    "ucase": lambda v: v.upper(),
+    "lower": lambda v: v.lower(),
+    "lcase": lambda v: v.lower(),
+    "length": lambda v: len(v),
+    "char_length": lambda v: len(v),
+    "character_length": lambda v: len(v),
+    "trim": lambda v, chars=None: v.strip(chars),
+    "ltrim": lambda v, chars=None: v.lstrip(chars),
+    "rtrim": lambda v, chars=None: v.rstrip(chars),
+    "substring": _substring,
+    "substr": _substring,
+    "left": lambda v, n: v[: int(n)] if n >= 0 else "",
+    "right": lambda v, n: v[-int(n):] if n > 0 else "",
+    "replace": lambda v, search, rep="": v.replace(search, rep),
+    "reverse": lambda v: v[::-1],
+    "initcap": lambda v: v.title(),
+    "ascii": lambda v: ord(v[0]) if v else 0,
+    "lpad": lambda v, n, pad=" ": v.rjust(int(n), pad[0] if pad else " ")[: int(n)],
+    "rpad": lambda v, n, pad=" ": v.ljust(int(n), pad[0] if pad else " ")[: int(n)],
+    "repeat": lambda v, n: v * int(n),
+    "startswith": lambda v, p: v.startswith(p),
+    "endswith": lambda v, p: v.endswith(p),
+    "contains": lambda v, p: p in v,
+    "instr": lambda v, sub: v.find(sub) + 1,
+    # NOTE arg order: position/locate take the needle first
+    "position": lambda sub, v, pos=1: v.find(sub, max(int(pos) - 1, 0)) + 1,
+    "locate": lambda sub, v, pos=1: v.find(sub, max(int(pos) - 1, 0)) + 1,
+    "regexp_extract": lambda v, pat, idx=1: (
+        (re.search(pat, v).group(int(idx)) if re.search(pat, v) else "")),
+    "regexp_replace": lambda v, pat, rep: re.sub(pat, rep, v),
+    "translate": lambda v, frm, to: v.translate(
+        str.maketrans(frm[: len(to)], to[: len(frm)])),
+    "bit_length": lambda v: len(v.encode()) * 8,
+    "octet_length": lambda v: len(v.encode()),
+    "space_trimmed_length": lambda v: len(v.rstrip()),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +796,77 @@ def _date_arith(op: str):
     return build
 
 
+def _temporal_field(which: str):
+    def build(args, r):
+        (a,) = args
+
+        def fn(cols):
+            xd, xv = a.fn(cols)
+            days = _to_days(xd, a.dtype)
+            y, m, d = civil_from_days(days)
+            if which == "year":
+                out = y
+            elif which == "month":
+                out = m
+            elif which == "day":
+                out = d
+            elif which == "quarter":
+                out = (m - 1) // 3 + 1
+            elif which == "dayofweek":  # Sunday=1
+                out = (days + 4) % 7 + 1
+            elif which == "weekday":  # Monday=0
+                out = (days + 3) % 7
+            else:  # dayofyear
+                out = days - days_from_civil(y, torch.ones_like(m),
+                                             torch.ones_like(d)) + 1
+            return out.to(torch.int32), xv
+
+        return fn
+
+    return build
+
+
+def _in_builder(args, r):
+    child, items = args[0], args[1:]
+    s = _decimal_scale(child.dtype)
+
+    def fn(cols):
+        xd, xv = child.fn(cols)
+        hit = torch.zeros(xd.shape, dtype=torch.bool, device=xd.device)
+        for it in items:
+            yd, yv = it.fn(cols)
+            si = _decimal_scale(it.dtype)
+            x, y = xd, yd
+            if s is not None or si is not None:
+                sc = max(s or 0, si or 0)
+                if s is not None:
+                    x = x * (10 ** (sc - s))
+                if si is not None:
+                    y = y * (10 ** (sc - si))
+            eq = x == y.to(x.dtype)
+            if yv is not None:
+                eq = eq & yv
+            hit = hit | eq
+        return hit, xv
+
+    return fn
+
+
+def _rtf_member_builder(args, r):
+    """A runtime join filter's exact key list (plan/runtime_filters.py
+    ``bounds_conjuncts``), as a device membership test."""
+    (a,) = args
+    values = dict(r.options)["values"]
+
+    def fn(cols):
+        d, v = a.fn(cols)
+        hit = torch.isin(d, torch.tensor(values, dtype=d.dtype,
+                                         device=d.device))
+        return hit, v
+
+    return fn
+
+
 def _strict1(k):
     def build(args, r):
         (a,) = args
@@ -414,4 +914,14 @@ _BUILDERS: Dict[str, Callable] = {
     "<=>": _strict2(K.eq_null_safe),
     "date+interval": _date_arith("+"),
     "date-interval": _date_arith("-"),
+    "in": _in_builder,
+    "year": _temporal_field("year"),
+    "month": _temporal_field("month"),
+    "day": _temporal_field("day"),
+    "dayofmonth": _temporal_field("day"),
+    "quarter": _temporal_field("quarter"),
+    "dayofweek": _temporal_field("dayofweek"),
+    "weekday": _temporal_field("weekday"),
+    "dayofyear": _temporal_field("dayofyear"),
+    "rtf_member": _rtf_member_builder,
 }

@@ -76,6 +76,12 @@ class SparkSession:
         # uploaded memory-table columns, reused by every query
         # (LocalExecutor._exec_ScanExec)
         self._scan_cache: dict = {}
+        # each join's last observed runtime-filter prune ratio
+        # (LocalExecutor._rtf_finish)
+        self._rtf_history: dict = {}
+        # the runtime filters the last query built, with the rows each saw
+        # and kept (LocalExecutor.runtime_filters)
+        self.last_runtime_filters: list = []
 
     def sql(self, query: str) -> "DataFrame":
         from .sql import parse_one
@@ -91,6 +97,7 @@ class SparkSession:
 
     def stop(self) -> None:
         self._scan_cache.clear()
+        self._rtf_history.clear()
         with SparkSession._lock:
             if SparkSession._active is self:
                 SparkSession._active = None
@@ -104,7 +111,12 @@ class SparkSession:
             self.conf.get("spark.sql.session.timeZone") or "UTC")
         try:
             node = optimize(Resolver(self.catalog_manager).resolve(plan))
-            return LocalExecutor(self.device, self._scan_cache).execute(node)
+            executor = LocalExecutor(self.device, self._scan_cache, self.conf,
+                                     self._rtf_history)
+            try:
+                return executor.execute(node)
+            finally:
+                self.last_runtime_filters = executor.runtime_filters
         finally:
             reset_session_timezone(token)
 

@@ -175,3 +175,78 @@ def test_expression_matches_reference(numbers, sql):
     (jd, jv), (td, tv) = out
     np.testing.assert_array_equal(tv, jv)
     np.testing.assert_array_equal(td[tv], jd[jv].astype(td.dtype))
+
+
+@pytest.fixture(scope="module")
+def words():
+    rng = np.random.default_rng(23)
+    n = 400
+    vocab = np.array(["special requests", "Customer Complaints", "forest green",
+                      "PROMO BRUSHED TIN", "13-555-1234", "31-999-0000", "",
+                      "MED BOX", "12", "7.5", "1995-03-15", "abc", "ABC"])
+
+    def nulls():
+        return rng.random(n) < 0.15
+
+    return pa.table({
+        "s": pa.array(rng.choice(vocab, n), mask=nulls()),
+        "t": pa.array(rng.choice(vocab[::-1], n), mask=nulls()),
+        "a": pa.array(rng.integers(-5, 15, n), mask=nulls()),
+        "d": pa.array(rng.integers(-10**6, 10**6, n) / 100,
+                      mask=nulls()).cast(pa.decimal128(10, 2)),
+        "dt": pa.array(rng.integers(-800, 11000, n).astype(np.int32),
+                       mask=nulls()).cast(pa.date32()),
+    })
+
+
+_STRING_EXPRESSIONS = [
+    "s = t", "s != t", "s < t", "s >= t", "s <=> t", "s = 'MED BOX'",
+    "s like '%special%requests%'", "s like 'forest%'", "s like '__-%'",
+    "s ilike 'abc'", "s rlike '^[0-9]+-'", "s not like '%e%'",
+    "s in ('abc', 'MED BOX', 'x')", "substring(s, 1, 2) in ('13', '31')",
+    "substring(s, 3)", "upper(s)", "length(s)", "trim(s)",
+    "case when a > 3 then s when a < 0 then t else 'none' end",
+    "case when a > 3 then s end", "cast(s as int)", "cast(s as double)",
+    "cast(s as decimal(10, 2))", "cast(s as date)", "concat(s, '!')",
+    "a in (1, 2, 3)", "d in (1.5, 2)", "year(dt)", "month(dt)", "day(dt)",
+    "quarter(dt)", "dayofweek(dt)", "dayofyear(dt)",
+]
+
+
+@pytest.mark.parametrize("sql", _STRING_EXPRESSIONS)
+def test_string_expression_matches_reference(words, sql):
+    """The string builders (lookup tables over dictionary codes), IN and
+    the date fields, against the reference; string results compare as
+    decoded values."""
+    out = []
+    for ref in (True, False):
+        catalog, resolver, optimize, parse, sp, ai, comp = (
+            (JCatalog(), JResolver, joptimize, jparse, jsp, jai, JCompiler)
+            if ref else
+            (TCatalog(), TResolver, toptimize, tparse, tsp, tai, TCompiler))
+        catalog.register_temp_view("t", sp.LocalRelation(words))
+        node = optimize(resolver(catalog).resolve(
+            parse(f"select {sql} from t")))
+        rex, schema = node.exprs[0][1], node.input.schema
+        hb = ai.from_arrow(words) if ref else ai.from_arrow(words, "cpu")
+        names = list(hb.device.columns)
+        dicts = {names.index(k): v for k, v in hb.dicts.items()}
+        cols = [(c.data, c.validity) for c in hb.device.columns.values()]
+        args = ([f.dtype for f in schema], dicts) + (() if ref else ("cpu",))
+        c = comp(*args).compile(rex)
+        d, v = c.fn(cols)
+        if ref:
+            live = np.asarray(hb.device.sel)
+            d, v = _as_numpy(d, v, len(live))
+            d, v = d[live], v[live]
+        else:
+            d, v = _as_numpy(d.numpy(), None if v is None else v.numpy(),
+                             words.num_rows)
+        if c.dictionary is not None:
+            values = c.dictionary.to_pylist()
+            d = np.array([values[i] if ok else None
+                          for i, ok in zip(d, v)], dtype=object)
+        out.append((d, v))
+    (jd, jv), (td, tv) = out
+    np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(td[tv], jd[jv].astype(td.dtype))

@@ -1,12 +1,13 @@
-"""The PyTorch port end to end: TPC-H Q1 and Q6 through
-``sail_tpu_torch.SparkSession`` against the JAX reference and a pandas
-oracle, the port's isolation from JAX and ``sail_tpu``, and its device
-default.
+"""The PyTorch port end to end: TPC-H Q1-Q8 through
+``sail_tpu_torch.SparkSession`` against the JAX reference (Q9-Q22 in
+test_torch_tpch_q09_q15.py and test_torch_tpch_q16_q22.py, so that the
+reference's compile time spreads over test workers), Q1 and Q6 against an
+exact pandas oracle, the generators, the port's isolation from JAX and
+``sail_tpu``, and its device default.
 
-Comparison rule: integer, decimal, date, string and bool columns exactly;
-float64 (the AVG columns) within a relative 1e-12, since sums are taken in
-another order; row order only where the query has ORDER BY (Q1; Q6 has one
-row).
+Comparison rule (torch_tpch_common.py): integer, decimal, date, string and
+bool columns exactly; float64 within a relative 1e-12, since sums are
+taken in another order; row order only where the query has ORDER BY.
 """
 
 import ast
@@ -28,9 +29,16 @@ from sail_tpu.benchmarks import tpch_data as jdata
 from sail_tpu_torch import SparkSession
 from sail_tpu_torch.benchmarks import tpch_data as tdata
 from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
+from torch_tpch_common import (FLOAT_RTOL, assert_same_result, has_order_by,
+                               port_session, reference_session,
+                               reference_tables)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FLOAT_RTOL = 1e-12
+
+
+@pytest.fixture(scope="module")
+def tables():
+    return reference_tables()
 
 
 @pytest.fixture(scope="module")
@@ -39,32 +47,20 @@ def lineitem():
 
 
 @pytest.fixture(scope="module")
-def port(lineitem):
-    spark = SparkSession.builder.config("spark.sail.device", "cpu") \
-        .getOrCreate()
-    spark.createDataFrame(lineitem).createOrReplaceTempView("lineitem")
-    return spark
+def port(tables):
+    return port_session(tables)
 
 
 @pytest.fixture(scope="module")
-def reference(lineitem):
-    spark = sail_tpu.SparkSession({
-        "spark.sail.execution.backend.force": "xla",
-        "spark.sail.execution.mesh": "off"})
+def reference(tables):
+    return reference_session(tables)
+
+
+@pytest.fixture(scope="module")
+def port_lineitem(lineitem):
+    spark = SparkSession({"spark.sail.device": "cpu"})
     spark.createDataFrame(lineitem).createOrReplaceTempView("lineitem")
     return spark
-
-
-def assert_same_result(got: pa.Table, want: pa.Table):
-    assert got.schema == want.schema
-    assert got.num_rows == want.num_rows
-    for name in want.column_names:
-        g, w = got.column(name), want.column(name)
-        if pa.types.is_floating(w.type):
-            np.testing.assert_allclose(g.to_numpy(), w.to_numpy(),
-                                       rtol=FLOAT_RTOL, atol=0)
-        else:
-            assert g.to_pylist() == w.to_pylist(), name
 
 
 def test_generate_tpch_equals_reference():
@@ -75,10 +71,11 @@ def test_generate_tpch_equals_reference():
         assert got[name].equals(want[name]), name
 
 
-@pytest.mark.parametrize("q", [1, 6])
+@pytest.mark.parametrize("q", range(1, 9))
 def test_query_matches_reference(port, reference, q):
     assert_same_result(port.sql(QUERIES[q]).toArrow(),
-                       reference.sql(QUERIES[q]).toArrow())
+                       reference.sql(QUERIES[q]).toArrow(),
+                       ordered=has_order_by(QUERIES[q]))
 
 
 def _unscaled(col: pa.ChunkedArray) -> np.ndarray:
@@ -106,7 +103,8 @@ def _pandas_oracle(lineitem: pa.Table):
     return q1, int((df.l_extendedprice[m6] * df.l_discount[m6]).sum())
 
 
-def test_queries_match_pandas_oracle(port, lineitem):
+def test_queries_match_pandas_oracle(port_lineitem, lineitem):
+    port = port_lineitem
     q1, revenue = _pandas_oracle(lineitem)
     got = port.sql(QUERIES[1]).toArrow()
     assert got.column("l_returnflag").to_pylist() == list(q1.l_returnflag)
@@ -157,6 +155,27 @@ def test_lineitem_sf_generator_is_lineitem_shaped():
     assert again.equals(got)  # deterministic in the seed
 
 
+def test_tpch_sf_generator_is_tpch_shaped():
+    got = tdata.generate_tpch_sf(0.002, seed=0)
+    want = tdata.generate_tpch(0.002, seed=0)
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].column_names == want[name].column_names, name
+        for f in want[name].schema:
+            g = got[name].schema.field(f.name).type
+            assert (g.value_type if pa.types.is_dictionary(g) else g) == \
+                f.type, (name, f.name)
+        assert abs(got[name].num_rows - want[name].num_rows) <= \
+            0.1 * want[name].num_rows, name
+    # lineitem is generate_lineitem_sf's, and orders holds its order keys
+    assert got["lineitem"].equals(tdata.generate_lineitem_sf(0.002, seed=0))
+    okeys = np.unique(got["lineitem"].column("l_orderkey").to_numpy())
+    np.testing.assert_array_equal(
+        got["orders"].column("o_orderkey").to_numpy(), okeys)
+    assert tdata.generate_tpch_sf(0.002, seed=0)["orders"].equals(
+        got["orders"])
+
+
 # ---------------------------------------------------------------------------
 # isolation and the device default
 # ---------------------------------------------------------------------------
@@ -164,11 +183,13 @@ def test_lineitem_sf_generator_is_lineitem_shaped():
 _ISOLATION = """
 import sys
 from sail_tpu_torch import SparkSession
-from sail_tpu_torch.benchmarks.tpch_data import generate_lineitem_sf
+from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
 from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
 spark = SparkSession.builder.config("spark.sail.device", "cpu").getOrCreate()
-spark.createDataFrame(generate_lineitem_sf(0.001)).createOrReplaceTempView("lineitem")
+for name, table in generate_tpch_sf(0.01).items():
+    spark.createDataFrame(table).createOrReplaceTempView(name)
 assert spark.sql(QUERIES[1]).toArrow().num_rows > 0
+assert spark.sql(QUERIES[3]).toArrow().num_rows > 0  # three joins
 print(sorted(m for m in sys.modules
              if m.startswith("jax") or m == "sail_tpu" or m.startswith("sail_tpu.")))
 """
@@ -229,12 +250,14 @@ def test_config_defaults_match_reference(monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("q", [1, 6])
-def test_query_on_card_matches_cpu(lineitem, port, q):
+@pytest.mark.parametrize("q", range(1, 23))
+def test_query_on_card_matches_cpu(tables, port, q):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     card = SparkSession({"spark.sail.device": "cuda"})
-    card.createDataFrame(lineitem).createOrReplaceTempView("lineitem")
+    for name, table in tables.items():
+        card.createDataFrame(table).createOrReplaceTempView(name)
     assert_same_result(card.sql(QUERIES[q]).toArrow(),
-                       port.sql(QUERIES[q]).toArrow())
+                       port.sql(QUERIES[q]).toArrow(),
+                       ordered=has_order_by(QUERIES[q]))
 
