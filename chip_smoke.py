@@ -4,7 +4,8 @@
     python3 chip_smoke.py            # TPC-H SF10, kernels at SF10 shapes
     python3 chip_smoke.py --sf 1 --check-sf 0.1 --kernel-rows 2000000 --runs 1
                                      # a smaller, quicker run
-    python3 chip_smoke.py --profile  # also trace each query once
+    python3 chip_smoke.py --profile  # also trace each query once, with
+                                     # its K5 and K6 device ms
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -17,7 +18,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
    at SF10, and the tables joined with it at their sizes), hold each
    against its plain PyTorch version on the same inputs, and time
    kernel, plain version and, where one exists, the one PyTorch call
-   computing the same function.
+   computing the same function. K5 runs at five shapes (lineitem's
+   l_orderkey into orders; l_partkey into part, with 98.5% and 1.3% of
+   the probes live; into part filtered to 0.1%; l_suppkey into supplier),
+   K6 at three (Q21's self-join, 1% of the probes live, a build key with
+   100,000 duplicates); the JSON entry carries each shape under
+   ``shapes`` and the first shape's numbers as its own.
 4. Correctness: all 22 TPC-H queries at ``--check-sf`` (default 1, from
    ``generate_tpch_sf(sf, seed=0)``) through ``spark.sql(...).toArrow()``
    against the pandas oracle of tests/tpch_oracle.py, compared as the
@@ -73,6 +79,9 @@ PATH_KERNELS.update({
     "q13": _JOIN + ("join_expand",),
     "q21": _JOIN + ("join_expand", "bloom_build", "bloom_apply"),
 })
+# device functions of the kernels whose time each profiled query reports
+PROFILED_KERNELS = {"K5 probe_ranges": ("probe_kernel(", "splitter_kernel("),
+                    "K6 join_expand": ("expand_kernel(",)}
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
 # a query whose quadratic intermediate (quadratic_rows) is larger than this
@@ -221,6 +230,83 @@ def _exact(name: str, got, want) -> None:
             raise AssertionError(f"{name} differs from its plain version")
 
 
+def check_probe_shape(label, build, build_sel, probe_cols,
+                      probe_sel) -> dict:
+    """K5 on one shape: exact against its plain version, then timed with
+    the plain version and searchsorted x2 (the library's two searches).
+    Bound: the usable flags read and lo, cnt written (n * 9 bytes), the
+    live rows' keys read and the usable build prefix read once;
+    ``bound_ms_full_read`` counts every key and the whole build read."""
+    from sail_tpu_torch.columnar.batch import Column
+    from sail_tpu_torch.ops import hash as hsh
+    from sail_tpu_torch.ops import join as jn
+    from sail_tpu_torch.spec import data_type as dt
+
+    bt = jn.build_side([Column(build, None, dt.LongType())], build_sel)
+    keys, usable, _ = hsh.join_keys(probe_cols, probe_sel)
+    args = (bt.sorted_keys, bt.num_valid, keys, usable)
+    _exact("probe_ranges", jn.probe_ranges_kernel(*args),
+           jn.probe_ranges_plain(*args))
+    sk = bt.sorted_keys
+
+    def lib():
+        return (torch.searchsorted(sk, keys, side="left"),
+                torch.searchsorted(sk, keys, side="right"))
+    n, nb = keys.shape[0], sk.shape[0]
+    live, nv = int(usable.sum()), int(bt.num_valid)
+    out = dict(shape=label, n=n, nb=nb, num_valid=nv, live=live,
+               ms=cuda_ms(lambda: jn.probe_ranges_kernel(*args)),
+               plain_ms=cuda_ms(lambda: jn.probe_ranges_plain(*args), 3),
+               library_ms=cuda_ms(lib),
+               bound_ms=_bound_ms(n * (1 + 8) + live * 8 + nv * 8),
+               bound_ms_full_read=_bound_ms(n * (8 + 1 + 8) + nb * 8))
+    print(f"K5 probe_ranges {label}: {n} probes ({live} live) into {nb} "
+          f"keys ({nv} usable): exact, {out['ms']:.3f} ms, searchsorted x2 "
+          f"{out['library_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {out['bound_ms']:.3f} ms", flush=True)
+    return out
+
+
+def check_expand_shape(label, build, probe, build_sel, probe_sel) -> dict:
+    """K6 on one inner-join shape: exact against its plain version, then
+    timed with the plain version and repeat_interleave (the probe index
+    alone). Bound: every row's offset read, cnt and lo of the rows with
+    output, each perm entry the matches read once, 17 bytes a row written;
+    ``bound_ms_full_read`` counts every input read in full."""
+    from sail_tpu_torch.columnar.batch import Column
+    from sail_tpu_torch.ops import join as jn
+    from sail_tpu_torch.spec import data_type as dt
+
+    bt = jn.build_side([Column(build, None, dt.LongType())], build_sel)
+    r = jn.probe_ranges(bt, [Column(probe, None, dt.LongType())], probe_sel)
+    eff = jn._effective_counts(r.cnt, probe_sel, "inner")
+    offsets = torch.cumsum(eff, 0) - eff
+    total = int(eff.sum())
+    args = (eff, offsets, r.cnt, r.lo, bt.perm, total)
+    _exact("join_expand", jn.expand_indices(*args),
+           jn.expand_indices_plain(*args))
+    n, nb = eff.shape[0], bt.perm.shape[0]
+    rows_out = int((eff > 0).sum())
+    touched = int(jn.build_matched_mask(bt, r, probe_sel).sum())
+    arange = torch.arange(n, device=eff.device)
+    out = dict(shape=label, n=n, nb=nb, rows_with_output=rows_out,
+               total=total,
+               ms=cuda_ms(lambda: jn.expand_indices(*args)),
+               plain_ms=cuda_ms(lambda: jn.expand_indices_plain(*args), 3),
+               library_ms=cuda_ms(lambda: torch.repeat_interleave(
+                   arange, eff, output_size=total)),
+               bound_ms=_bound_ms(n * 8 + rows_out * 8 + touched * 8
+                                  + total * 17),
+               bound_ms_full_read=_bound_ms(n * 24 + nb * 8 + total * 17))
+    print(f"K6 join_expand {label}: {n} probes ({rows_out} with output) -> "
+          f"{total} rows: exact, {out['ms']:.3f} ms, repeat_interleave "
+          f"{out['library_ms']:.3f} ms, plain {out['plain_ms']:.3f} ms, "
+          f"bound {out['bound_ms']:.3f} ms", flush=True)
+    del bt, r, eff, offsets, args, arange
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_join_kernels(n: int, dev: torch.device, gen) -> list:
     """K4-K7 at the shapes lineitem (n rows) and the tables joined with it
     give them: orders n/4, supplier n/600, part n/30."""
@@ -259,55 +345,57 @@ def check_join_kernels(n: int, dev: torch.device, gen) -> list:
         plain_ms=cuda_ms(lambda: hsh.join_keys_plain(packed, sel), 3),
         bound_ms=_bound_ms(n * (8 + 1) + n * 9), library_ms=None))
 
-    # K5: lineitem probes into the orders build and into the supplier build
+    # K5 at the shapes the queries give it (PERF.md §6)
     order_sel = torch.rand(n_orders, generator=gen, device=dev) < 0.5
     probe_keys, probe_usable, _ = hsh.join_keys(packed, sel)
-    k5 = {}
-    for label, build in (("orders", okeys), ("supplier", torch.arange(
-            1, n_supp + 1, device=dev))):
-        bsel = order_sel if build is okeys else torch.ones_like(
-            build, dtype=torch.bool)
-        bt = jn.build_side([Column(build, None, dt.LongType())], bsel)
-        args = (bt.sorted_keys, bt.num_valid, probe_keys, probe_usable)
-        _exact("probe_ranges", jn.probe_ranges_kernel(*args),
-               jn.probe_ranges_plain(*args))
-
-        def lib(sk=bt.sorted_keys):
-            return (torch.searchsorted(sk, probe_keys, side="left"),
-                    torch.searchsorted(sk, probe_keys, side="right"))
-        k5[label] = (args, cuda_ms(lambda: jn.probe_ranges_kernel(*args)),
-                     cuda_ms(lib), build.shape[0])
-        print(f"K5 probe_ranges {n} probes into {label} "
-              f"({build.shape[0]} keys): exact, {k5[label][1]:.3f} ms "
-              f"(searchsorted x2 {k5[label][2]:.3f} ms)", flush=True)
-    args, ms, lib_ms, nb = k5["orders"]
+    part_keys = torch.arange(1, n_part + 1, device=dev)
+    every_part = torch.ones(n_part, dtype=torch.bool, device=dev)
+    k5_shapes = (
+        # Q3/Q18-like: l_orderkey in lineitem order into half of orders
+        ("orders", okeys, order_sel, packed, sel),
+        # Q9/Q17/Q19-like: l_partkey, random over part, into all of part
+        ("part random", part_keys, every_part, hashed[1:], sel),
+        # Q14: the same probes, ~1.3% live (one month of l_shipdate)
+        ("part, Q14 live", part_keys, every_part, hashed[1:],
+         torch.rand(n, generator=gen, device=dev) < 0.013),
+        # Q17: part filtered to ~0.1% (one brand and container)
+        ("filtered part", part_keys,
+         torch.rand(n_part, generator=gen, device=dev) < 0.001, hashed[1:],
+         sel),
+        # Q5/Q7/Q9-like: l_suppkey, random over supplier
+        ("supplier", torch.arange(1, n_supp + 1, device=dev),
+         torch.ones(n_supp, dtype=torch.bool, device=dev), hashed[:1], sel))
+    k5 = [check_probe_shape(*shape) for shape in k5_shapes]
+    main = k5[0]
     entries.append(dict(
         name="probe_ranges", source="sail_tpu_torch/csrc/join_probe.cu",
-        replaces="sail_tpu/ops/join.py:117", max_abs_err=0.0, ms=ms,
-        plain_ms=cuda_ms(lambda: jn.probe_ranges_plain(*args), 3),
-        bound_ms=_bound_ms(n * (8 + 1 + 8) + nb * 8), library_ms=lib_ms))
+        replaces="sail_tpu/ops/join.py:117", max_abs_err=0.0,
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], library_ms=main["library_ms"],
+        shapes=k5))
 
-    # K6: Q21's self-join: half of lineitem probes all of it on l_orderkey
-    bt = jn.build_side(packed, sel)
+    # K6 at Q21's self-join (half of lineitem probes all of it on
+    # l_orderkey), with 1% of lineitem live, and with a hot build key
     half = sel & (torch.rand(n, generator=gen, device=dev) < 0.5)
-    r = jn.probe_ranges(bt, packed, half)
-    eff = jn._effective_counts(r.cnt, half, "inner")
-    offsets = torch.cumsum(eff, 0) - eff
-    total = int(eff.sum())
-    k6 = (eff, offsets, r.cnt, r.lo, bt.perm, total)
-    _exact("join_expand", jn.expand_indices(*k6),
-           jn.expand_indices_plain(*k6))
-    arange = torch.arange(n, device=dev)
+    sparse = sel & (torch.rand(n, generator=gen, device=dev) < 0.01)
+    hot_build = l_orderkey.clone()
+    hot_build[torch.randperm(n, generator=gen, device=dev)[:100_000]] = 1
+    hot_probe = l_orderkey.clone()
+    hot_rows = torch.randperm(n, generator=gen, device=dev)[:600]
+    hot_probe[hot_rows] = 1
+    hot_sel = sparse.clone()
+    hot_sel[hot_rows] = True
+    k6 = [check_expand_shape(*shape) for shape in (
+        ("Q21 self-join", l_orderkey, l_orderkey, sel, half),
+        ("1% live", l_orderkey, l_orderkey, sel, sparse),
+        ("hot key x 100,000", hot_build, hot_probe, sel, hot_sel))]
+    main = k6[0]
     entries.append(dict(
         name="join_expand", source="sail_tpu_torch/csrc/join_expand.cu",
         replaces="sail_tpu/ops/join.py:180", max_abs_err=0.0,
-        ms=cuda_ms(lambda: jn.expand_indices(*k6)),
-        plain_ms=cuda_ms(lambda: jn.expand_indices_plain(*k6), 3),
-        bound_ms=_bound_ms(n * 24 + n * 8 + total * 17),
-        library_ms=cuda_ms(lambda: torch.repeat_interleave(
-            arange, eff, output_size=total))))
-    print(f"K6 join_expand {n} probes -> {total} rows: exact", flush=True)
-    del bt, r, eff, offsets, k6, half
+        ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        library_ms=main["library_ms"], shapes=k6))
+    del half, sparse, hot_build, hot_probe, hot_sel
     torch.cuda.empty_cache()
 
     # K7: a filter from Q3's filtered orders (~n/8 keys) applied to lineitem
@@ -433,11 +521,16 @@ def profile_query(spark, sql: str) -> dict:
                       for e in events if e.self_device_time_total > 0),
                      key=lambda x: -x[1])
     busy_ms = sum(ms for _, ms, _ in by_name)
+    kernel_ms = {k: sum(ms for name, ms, _ in by_name
+                        if any(sym in name for sym in syms))
+                 for k, syms in PROFILED_KERNELS.items()}
     print(f"  profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-          f"({100 * busy_ms / wall_ms:.1f}%), {len(by_name)} kernels")
+          f"({100 * busy_ms / wall_ms:.1f}%), {len(by_name)} kernels; "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kernel_ms.items()))
     for name, ms, count in by_name[:15]:
         print(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "kernel_ms": kernel_ms,
             "top": [[n[:90], ms, c] for n, ms, c in by_name[:15]]}
 
 
@@ -791,7 +884,8 @@ def main() -> int:
                         e["name"], (e["name"],))) for q, c in on_path.items()},
                     max_abs_err=e["max_abs_err"], ms=e["ms"],
                     plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-                    bound_by="bytes", library_ms=e["library_ms"])
+                    bound_by="bytes", library_ms=e["library_ms"],
+                    **({"shapes": e["shapes"]} if "shapes" in e else {}))
                for e in entries]
     for k in kernels:
         if k["launches"] == 0:

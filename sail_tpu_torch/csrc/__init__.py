@@ -41,9 +41,10 @@ _ENTRY = {
                         [P, P, P, P, I, P, LL, I, P, P, I, P]},
     "order_keys.cu": {"sail_order_keys": [P, I, LL, I, P, I, P]},
     "join_keys.cu": {"sail_join_keys": [P, P, LL, I, ULL, P, P, I, P]},
-    "join_probe.cu": {"sail_join_probe": [P, LL, P, P, P, LL, P, P, I, P]},
-    "join_expand.cu": {"sail_join_expand":
-                       [P, P, P, P, LL, P, LL, P, P, P, I, P]},
+    "join_probe.cu": {"sail_join_probe": [P, LL, P, P, P, LL, P, LL, P, P,
+                                          P]},
+    "join_expand.cu": {"sail_join_expand": [P, P, P, LL, LL, P, LL, P, LL,
+                                            P, P, P, P]},
     "bloom.cu": {"sail_bloom_build": [P, P, LL, LL, P, I, P],
                  "sail_bloom_apply": [P, LL, P, P, P, P, P, LL, P, I, P]},
 }

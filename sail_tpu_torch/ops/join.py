@@ -97,19 +97,31 @@ def hash_ambiguous(bt: BuildTable, build_key_cols: Sequence[Column]
 
 class MatchRanges(NamedTuple):
     lo: torch.Tensor      # int32[pn] first matching sorted-build position
+                          # (0 on rows that are not usable)
     cnt: torch.Tensor     # int32[pn] number of matches (0 if none)
     usable: torch.Tensor  # bool[pn] probe row alive with non-null key
+
+
+# keys of K5's splitter table in shared memory (csrc/join_probe.cu
+# kTableMax): the wrapper allocates the scratch the table is staged in
+PROBE_TABLE_MAX = 16384
 
 
 def probe_ranges_plain(sorted_keys: torch.Tensor, num_valid: torch.Tensor,
                        keys: torch.Tensor, usable: torch.Tensor):
     """(lo, cnt) int32: the reference's two searchsorted calls, hi clipped
-    at num_valid, cnt 0 for unusable rows."""
+    at num_valid; lo and cnt are 0 on rows that are not usable.
+
+    The reference also searches the keys of unusable rows and keeps that
+    lo; every consumer reads lo only where cnt > 0 or where the build
+    columns come out NULL (``_first_candidate`` in ``join_unique`` and
+    the hashed check, ``expand_indices``, ``build_matched_mask``), so the
+    answers are the same and K5 need not search those rows."""
     lo = torch.searchsorted(sorted_keys, keys, side="left")
     hi = torch.minimum(torch.searchsorted(sorted_keys, keys, side="right"),
                        num_valid)
     cnt = torch.where(usable, torch.clamp(hi - lo, min=0), 0)
-    return lo.to(torch.int32), cnt.to(torch.int32)
+    return torch.where(usable, lo, 0).to(torch.int32), cnt.to(torch.int32)
 
 
 def probe_ranges_kernel(sorted_keys: torch.Tensor, num_valid: torch.Tensor,
@@ -128,18 +140,24 @@ def probe_ranges_kernel(sorted_keys: torch.Tensor, num_valid: torch.Tensor,
         raise TypeError("probe_ranges: needs int64 keys and bool usable "
                         "flags of one length, on one device")
     n, nb = keys.shape[0], sorted_keys.shape[0]
-    lo = torch.empty(n, dtype=torch.int32, device=keys.device)
-    cnt = torch.empty(n, dtype=torch.int32, device=keys.device)
+    if nb >= 2**31:
+        raise ValueError("probe_ranges: int32 positions need a build of "
+                         "fewer than 2**31 rows")
+    dev = keys.device
+    lo = torch.empty(n, dtype=torch.int32, device=dev)
+    cnt = torch.empty(n, dtype=torch.int32, device=dev)
     if n:
         sorted_keys = sorted_keys.contiguous()
         nv = num_valid.to(torch.int64).reshape(1)
         keys, usable = keys.contiguous(), usable.contiguous()
-        with torch.cuda.device(keys.device):
+        splitters = torch.empty(min(nb, PROBE_TABLE_MAX) + 1,
+                                dtype=torch.int64, device=dev)
+        with torch.cuda.device(dev):
             csrc.check(csrc.entry("join_probe.cu")(
                 sorted_keys.data_ptr(), nb, nv.data_ptr(), keys.data_ptr(),
-                usable.data_ptr(), n, lo.data_ptr(), cnt.data_ptr(),
-                csrc.grid_for(n, keys.device), csrc.stream_ptr(keys.device)),
-                "probe_ranges")
+                usable.data_ptr(), n, splitters.data_ptr(),
+                splitters.shape[0], lo.data_ptr(), cnt.data_ptr(),
+                csrc.stream_ptr(dev)), "probe_ranges")
         probe_ranges_kernel.launches += 1
     return lo, cnt
 
@@ -222,6 +240,11 @@ def join_output_count(ranges: MatchRanges, probe_sel, join_type: str
     return _effective_counts(ranges.cnt, probe_sel, join_type).sum()
 
 
+# probe rows + output slots per piece of K6's work (csrc/join_expand.cu
+# kPiece): the wrapper allocates the scratch of the pieces' first rows
+EXPAND_PIECE = 2048
+
+
 def expand_indices_plain(eff, offsets, cnt, lo, perm, total: int):
     """(probe_index, build_index, is_match) of the ``total`` output rows:
     output row j = offsets[i] + k (k < eff[i]) comes from probe row i, is a
@@ -260,14 +283,17 @@ def expand_indices(eff, offsets, cnt, lo, perm, total: int):
     bi = torch.empty(total, dtype=torch.int64, device=dev)
     is_match = torch.empty(total, dtype=torch.bool, device=dev)
     if n and total:
-        eff, offsets = eff.contiguous(), offsets.contiguous()
+        offsets = offsets.contiguous()
         cnt, lo, perm = cnt.contiguous(), lo.contiguous(), perm.contiguous()
+        # each piece's first probe row, written by the kernel's pre-pass
+        split = torch.empty(-(-(n + total) // EXPAND_PIECE) + 1,
+                            dtype=torch.int64, device=dev)
         with torch.cuda.device(dev):
             csrc.check(csrc.entry("join_expand.cu")(
-                eff.data_ptr(), offsets.data_ptr(), cnt.data_ptr(),
-                lo.data_ptr(), n, perm.data_ptr(), perm.shape[0],
-                pi.data_ptr(), bi.data_ptr(), is_match.data_ptr(),
-                csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "join_expand")
+                offsets.data_ptr(), cnt.data_ptr(), lo.data_ptr(), n, total,
+                perm.data_ptr(), perm.shape[0], split.data_ptr(),
+                split.shape[0], pi.data_ptr(), bi.data_ptr(),
+                is_match.data_ptr(), csrc.stream_ptr(dev)), "join_expand")
         expand_indices.launches += 1
     return pi, bi, is_match
 

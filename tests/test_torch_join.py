@@ -177,7 +177,11 @@ def test_build_and_probe_match_reference(keyset, seed):
     _eq(tbt.perm, jbt.perm)
     _eq(tbt.sorted_keys, _u64_as_port(jbt.sorted_keys))
     assert int(tbt.num_valid) == int(jbt.num_valid)
-    _eq(tr.lo, jr.lo)
+    # lo equals the reference's on usable rows; the port neither searches
+    # nor keeps a position for the others
+    usable = np.asarray(jr.usable)
+    _eq(tr.lo[usable], np.asarray(jr.lo)[usable])
+    assert not tr.lo[~usable].any() and not tr.cnt[~usable].any()
     _eq(tr.cnt, jr.cnt)
     _eq(tr.usable, jr.usable)
     assert bool(tjoin.has_duplicate_build_keys(tbt)) == \
@@ -240,6 +244,47 @@ def test_forced_hash_ambiguity_is_detected():
     assert bool(tjoin.hash_ambiguous(tbt, tcols))
 
 
+@pytest.mark.parametrize("seed", [23, 24])
+def test_probe_ranges_plain_on_sentinel_suffix_matches_reference(seed):
+    """num_valid < nb: the usable prefix ends in a real all-ones key
+    (int64 -1) and the sentinel fills the positions after it."""
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-1, 40, 300).astype(np.int64)
+    vals[:5] = -1
+    bsel = rng.random(300) < 0.6
+    bsel[:5] = True
+    keys = np.concatenate([rng.integers(-1, 50, 400), [-1, -1, 1 << 62]])
+    probe = [(keys.astype(np.int64), rng.random(403) > 0.1, "int64")]
+    psel = rng.random(403) < 0.8
+    build = [(vals, None, "int64")]
+    _, jr = _ref_join(build, bsel, probe, psel, 0)
+    tbt, _ = _port_join(build, bsel, probe, psel, 0)
+    nv = int(tbt.num_valid)
+    assert 0 < nv < 300
+    assert int(tbt.sorted_keys[nv - 1]) == np.iinfo(np.int64).max
+    pkeys, pusable, _ = thash.join_keys(_tcols(probe),
+                                        torch.from_numpy(psel))
+    lo, cnt = tjoin.probe_ranges_plain(tbt.sorted_keys, tbt.num_valid,
+                                       pkeys, pusable)
+    usable = np.asarray(jr.usable)
+    _eq(lo[usable], np.asarray(jr.lo)[usable])
+    _eq(cnt, jr.cnt)
+    assert not lo[~usable].any()
+    ones = int(((vals == -1) & bsel).sum())
+    assert ones >= 5
+    assert (cnt[torch.from_numpy(keys == -1) & pusable] == ones).all()
+
+
+@pytest.mark.parametrize("keyset", ["int64", "int64+int64"])
+def test_all_dead_probe_gives_zeros(keyset):
+    build, bsel, probe, _ = _both_sides(keyset, 4, 100, 200)
+    psel = np.zeros(200, bool)
+    _, jr = _ref_join(build, bsel, probe, psel, 0)
+    _, tr = _port_join(build, bsel, probe, psel, 0)
+    _eq(tr.cnt, jr.cnt)
+    assert not tr.lo.any() and not tr.cnt.any() and not tr.usable.any()
+
+
 # ---------------------------------------------------------------------------
 # K6: expanding join
 # ---------------------------------------------------------------------------
@@ -261,8 +306,13 @@ def test_join_expand_indices_match_reference(keyset, join_type):
     tb = TBatch({"b": _tcols(build)[0]}, torch.from_numpy(bsel))
     got = tjoin.join_expand(tbt, tr, tp, tb, join_type, ["b"], total)
     _eq(got.probe_index, np.asarray(want.probe_index)[:total])
-    _eq(got.build_index, np.asarray(want.build_index)[:total])
     _eq(got.is_match, np.asarray(want.is_match)[:total])
+    # a left join's unmatched rows read no build row (their build columns
+    # are NULL): the build index is compared where it is a match
+    match = np.asarray(want.is_match)[:total]
+    assert join_type == "left" or match.all()
+    _eq(got.build_index[torch.from_numpy(match)],
+        np.asarray(want.build_index)[:total][match])
     wb = want.batch.columns["b"]
     _eq(got.batch.columns["b"].validity, np.asarray(wb.validity)[:total])
 
@@ -381,3 +431,97 @@ def test_bloom_kernels_match_plain(cuda):
         want = trtf.bloom_apply_plain(words.cpu(), num_bits, lo, hi, keys,
                                       usable, sel)
         _eq(got, want.numpy())
+
+
+# K5's builds on the card, (capacity, usable rows): the splitter table in
+# shared memory holds tjoin.PROBE_TABLE_MAX keys, so "fits" and
+# "filtered_fits" (a large build whose usable prefix fits) are searched
+# there whole, "just_over" with every second key there, and the others
+# finish in global memory; "hot_key" has a run of half its rows
+_K5_BUILDS = {
+    "fits": (tjoin.PROBE_TABLE_MAX, tjoin.PROBE_TABLE_MAX),
+    "filtered_fits": (500_000, tjoin.PROBE_TABLE_MAX - 100),
+    "just_over": (tjoin.PROBE_TABLE_MAX + 1, tjoin.PROBE_TABLE_MAX + 1),
+    "large_filtered": (1_000_000, 400_000),
+    "hot_key": (100_000, 100_000),
+    "nv0": (5_000, 0),
+    "nv1": (5_000, 1),
+}
+
+
+def _card_build(cuda, rng, nb, nv, hot=False):
+    """A one-column int64 build of nb rows, nv of them usable, with
+    duplicate keys and the all-ones key (-1)."""
+    vals = rng.integers(-1, nb // 2 + 2, nb).astype(np.int64)
+    if hot:
+        vals[: nb // 2] = 7
+    bsel = np.zeros(nb, bool)
+    bsel[rng.permutation(nb)[:nv]] = True
+    bt = tjoin.build_side([TColumn(torch.from_numpy(vals).to(cuda), None,
+                                   tdt.LongType())],
+                          torch.from_numpy(bsel).to(cuda))
+    assert int(bt.num_valid) == nv
+    return bt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probes", ["random", "sorted", "one_percent_live",
+                                    "unaligned"])
+@pytest.mark.parametrize("build", list(_K5_BUILDS))
+def test_probe_kernel_matches_plain(cuda, build, probes):
+    rng = np.random.default_rng(31)
+    nb, nv = _K5_BUILDS[build]
+    bt = _card_build(cuda, rng, nb, nv, hot=build == "hot_key")
+    n = 300_001
+    keys = rng.integers(-1, nb // 2 + 4, n).astype(np.int64)
+    if probes == "sorted":
+        keys.sort()
+    live = rng.random(n) < (0.01 if probes == "one_percent_live" else 0.985)
+    pk, pu, _ = thash.join_keys(
+        [TColumn(torch.from_numpy(keys).to(cuda), None, tdt.LongType())],
+        torch.from_numpy(live).to(cuda))
+    if probes == "unaligned":  # flags off 4-byte alignment: scalar path
+        pk, pu = pk[1:], pu[1:]
+    before = tjoin.probe_ranges_kernel.launches
+    lo, cnt = tjoin.probe_ranges_kernel(bt.sorted_keys, bt.num_valid, pk, pu)
+    torch.cuda.synchronize()
+    assert tjoin.probe_ranges_kernel.launches == before + 1
+    want_lo, want_cnt = tjoin.probe_ranges_plain(
+        bt.sorted_keys.cpu(), bt.num_valid.cpu(), pk.cpu(), pu.cpu())
+    _eq(lo, want_lo.numpy())
+    _eq(cnt, want_cnt.numpy())
+    if build == "hot_key":
+        assert int(cnt.max()) > 10_000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["self_join", "one_percent_live", "hot_key",
+                                  "all_dead", "empty_build"])
+def test_expand_kernel_matches_plain(cuda, case):
+    rng = np.random.default_rng(37)
+    nb = 0 if case == "empty_build" else 200_000
+    bt = _card_build(cuda, rng, nb, nb, hot=case == "hot_key")
+    n = 200_003
+    keys = rng.integers(-1, nb // 2 + 4, n).astype(np.int64)
+    share = {"one_percent_live": 0.01, "all_dead": 0.0,
+             "hot_key": 2e-4}.get(case, 0.985)
+    sel = torch.from_numpy(rng.random(n) < share).to(cuda)
+    if case == "hot_key":
+        keys[:] = 7  # every live probe hits the run of 100,000
+    pk, pu, _ = thash.join_keys(
+        [TColumn(torch.from_numpy(keys).to(cuda), None, tdt.LongType())], sel)
+    lo, cnt = tjoin.probe_ranges_kernel(bt.sorted_keys, bt.num_valid, pk, pu)
+    eff = tjoin._effective_counts(
+        cnt, sel, "left" if case == "empty_build" else "inner")
+    offsets = torch.cumsum(eff, 0) - eff
+    total = int(eff.sum())
+    assert (total == 0) == (case == "all_dead")
+    before = tjoin.expand_indices.launches
+    got = tjoin.expand_indices(eff, offsets, cnt, lo, bt.perm, total)
+    torch.cuda.synchronize()
+    assert tjoin.expand_indices.launches == before + (total > 0)
+    want = tjoin.expand_indices_plain(eff, offsets, cnt, lo, bt.perm, total)
+    for g, w in zip(got, want):
+        assert g.shape == (total,) and torch.equal(g, w)
+    if case == "empty_build":
+        assert not got[1].any() and not got[2].any()
