@@ -5,7 +5,8 @@
     python3 chip_smoke.py --sf 1 --check-sf 0.1 --kernel-rows 2000000 --runs 1
                                      # a smaller, quicker run
     python3 chip_smoke.py --profile  # also trace each query once, with
-                                     # its K5 and K6 device ms
+                                     # its K1 (global path), K4, K5, K6
+                                     # and K7 device ms and its sorts
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -13,16 +14,19 @@ Phases, each of which fails the script (non-zero exit, no result line):
 2. Build: compile the CUDA kernels (sail_tpu_torch/csrc, one nvcc per
    source, all at once) and print the compiler's register report.
 3. Kernels: run K1 (seg_reduce), K2 (direct_group_ids), K3 (order_keys),
-   K4 (join_keys), K5 (probe_ranges), K6 (join_expand) and K7 (bloom) on
-   the card at the main path's shapes (lineitem's ``--kernel-rows``, 60M
-   at SF10, and the tables joined with it at their sizes), hold each
-   against its plain PyTorch version on the same inputs, and time
-   kernel, plain version and, where one exists, the one PyTorch call
-   computing the same function. K5 runs at five shapes (lineitem's
-   l_orderkey into orders; l_partkey into part, with 98.5% and 1.3% of
-   the probes live; into part filtered to 0.1%; l_suppkey into supplier),
-   K6 at three (Q21's self-join, 1% of the probes live, a build key with
-   100,000 duplicates); the JSON entry carries each shape under
+   K4 (join_keys), K5 (probe_ranges), K6 (join_expand) and K7's build
+   and apply (bloom_build, bloom_apply) on the card at the main path's
+   shapes (lineitem's ``--kernel-rows``, 60M at SF10, and the tables
+   joined with it at their sizes), hold each against its plain PyTorch
+   version on the same inputs, and time kernel, plain version and, where
+   one exists, the one PyTorch call computing the same function. K1 runs
+   at two shapes (Q1's 13 segments; l_orderkey's n/4, Q3's and Q18's
+   grouping), K5 at five (lineitem's l_orderkey into orders; l_partkey
+   into part, with 98.5% and 1.3% of the probes live; into part filtered
+   to 0.1%; l_suppkey into supplier), K6 at three (Q21's self-join, 1% of
+   the probes live, a build key with 100,000 duplicates), K7 at the three
+   filter sizes of ``FILTER_BITS`` (a filter of Q3's filtered orders
+   applied to lineitem); the JSON entry carries each shape under
    ``shapes`` and the first shape's numbers as its own.
 4. Correctness: all 22 TPC-H queries at ``--check-sf`` (default 1, from
    ``generate_tpch_sf(sf, seed=0)``) through ``spark.sql(...).toArrow()``
@@ -54,6 +58,7 @@ import datetime
 import decimal
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -79,9 +84,15 @@ PATH_KERNELS.update({
     "q13": _JOIN + ("join_expand",),
     "q21": _JOIN + ("join_expand", "bloom_build", "bloom_apply"),
 })
-# device functions of the kernels whose time each profiled query reports
-PROFILED_KERNELS = {"K5 probe_ranges": ("probe_kernel(", "splitter_kernel("),
-                    "K6 join_expand": ("expand_kernel(",)}
+# device functions of the kernels whose time and launches each profiled
+# query reports (K1's global-atomic path: more than 4,097 segments)
+PROFILED_KERNELS = {
+    "K1 seg_reduce, global": re.compile(r"seg_reduce_kernel<[^>]*false>"),
+    "K4 join_keys": re.compile(r"join_keys_kernel\("),
+    "K5 probe_ranges": re.compile(r"probe_kernel\(|splitter_kernel\("),
+    "K6 join_expand": re.compile(r"expand_kernel\("),
+    "K7 bloom": re.compile(r"bloom_(build|apply)_kernel[<(]"),
+}
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
 # a query whose quadratic intermediate (quadratic_rows) is larger than this
@@ -183,18 +194,27 @@ def check_kernels(n: int, dev: torch.device) -> list:
             want = agg.seg_reduce_plain(v, seg, S, kind)
             k1_err = max(k1_err, _max_abs_err(got, want))
             print(f"K1 seg_reduce {kind} {label} n={n} S={S}: ok", flush=True)
-    # times at the dominant case of the path: int64 sums
+    # times at the dominant case of the path: int64 sums, at Q1's 13
+    # segments (in shared memory) and at Q3's and Q18's grouping on
+    # l_orderkey (~n/4 segments, global atomics)
     v = vals["int64"]
-    lib = lambda: torch.zeros(S, dtype=torch.int64, device=dev).index_add_(  # noqa: E731
-        0, seg, v)
-    if not torch.equal(lib(), agg.seg_reduce(v, seg, S, "sum")):
-        raise AssertionError("index_add_ disagrees with seg_reduce")
+    k1 = [check_seg_reduce_shape(f"Q1, {S} segments", v, seg, S)]
+    # a generator of its own, so the later phases' data do not depend on
+    # this shape
+    lines = torch.randint(1, 8, (n // 4,), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(1))
+    order_seg = torch.repeat_interleave(
+        torch.arange(n // 4, device=dev, dtype=torch.int32), lines)[:n]
+    order_seg = torch.cat([order_seg, order_seg[-1:].repeat(
+        n - order_seg.shape[0])])
+    k1.append(check_seg_reduce_shape("l_orderkey, n/4 segments", v,
+                                     order_seg, n // 4))
+    del lines, order_seg
     entries.append(dict(
         name="seg_reduce", source="sail_tpu_torch/csrc/seg_reduce.cu",
         replaces="sail_tpu/ops/aggregate.py:208", max_abs_err=k1_err,
-        ms=cuda_ms(lambda: agg.seg_reduce(v, seg, S, "sum")),
-        plain_ms=cuda_ms(lambda: agg.seg_reduce_plain(v, seg, S, "sum"), 3),
-        bound_ms=_bound_ms(n * (8 + 4) + S * 8), library_ms=cuda_ms(lib)))
+        ms=k1[0]["ms"], plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
+        library_ms=k1[0]["library_ms"], shapes=k1))
 
     # K3 over the main path's key types, both directions
     keys = {
@@ -222,6 +242,33 @@ def check_kernels(n: int, dev: torch.device) -> list:
     del vals, nan_vals, keys, v, k, rf, ls, gid, gid_p, seg
     torch.cuda.empty_cache()
     return entries + check_join_kernels(n, dev, gen)
+
+
+def check_seg_reduce_shape(label, v, seg, S) -> dict:
+    """K1's int64 sum at one shape: exact against its plain version and
+    index_add_, then timed with both. Bound: values and ids read once, the
+    segments written once."""
+    from sail_tpu_torch.ops import aggregate as agg
+
+    def lib():
+        return torch.zeros(S, dtype=v.dtype, device=v.device).index_add_(
+            0, seg, v)
+    got = agg.seg_reduce(v, seg, S, "sum")
+    if not torch.equal(got, agg.seg_reduce_plain(v, seg, S, "sum")) or \
+            not torch.equal(got, lib()):
+        raise AssertionError(f"seg_reduce {label} differs")
+    n = v.shape[0]
+    out = dict(shape=label, n=n, segments=S,
+               ms=cuda_ms(lambda: agg.seg_reduce(v, seg, S, "sum")),
+               plain_ms=cuda_ms(lambda: agg.seg_reduce_plain(v, seg, S,
+                                                             "sum"), 3),
+               library_ms=cuda_ms(lib),
+               bound_ms=_bound_ms(n * (8 + 4) + S * 8))
+    print(f"K1 seg_reduce sum int64 {label}: n={n} S={S}: exact, "
+          f"{out['ms']:.3f} ms, index_add_ {out['library_ms']:.3f} ms, plain "
+          f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms",
+          flush=True)
+    return out
 
 
 def _exact(name: str, got, want) -> None:
@@ -313,7 +360,6 @@ def check_join_kernels(n: int, dev: torch.device, gen) -> list:
     from sail_tpu_torch.columnar.batch import Column
     from sail_tpu_torch.ops import hash as hsh
     from sail_tpu_torch.ops import join as jn
-    from sail_tpu_torch.ops import runtime_filter as rf
     from sail_tpu_torch.spec import data_type as dt
 
     n_orders, n_supp, n_part = n // 4, max(1, n // 600), max(1, n // 30)
@@ -400,29 +446,115 @@ def check_join_kernels(n: int, dev: torch.device, gen) -> list:
 
     # K7: a filter from Q3's filtered orders (~n/8 keys) applied to lineitem
     src = [Column(okeys, None, dt.LongType())]
-    bits = 1 << 20
-    res = rf.build(src, order_sel, bits)
-    skeys, susable, _ = hsh.join_keys(src, order_sel)
-    _exact("bloom_build", [rf.bloom_build(skeys, susable, bits)],
-           [rf.bloom_build_plain(skeys, susable, bits)])
-    apply_args = (res.words, bits, res.kmin, res.kmax, probe_keys,
-                  probe_usable, sel)
-    _exact("bloom_apply", [rf.bloom_apply(*apply_args)],
-           [rf.bloom_apply_plain(*apply_args)])
-    kept = int(rf.bloom_apply(*apply_args).sum())
-    print(f"K7 bloom {int(susable.sum())} keys into {bits} bits, applied to "
-          f"{n} rows ({kept} kept): exact", flush=True)
-    entries.append(dict(
-        name="bloom", source="sail_tpu_torch/csrc/bloom.cu",
-        replaces="sail_tpu/ops/runtime_filter.py:62", max_abs_err=0.0,
-        ms=cuda_ms(lambda: rf.bloom_build(skeys, susable, bits))
-        + cuda_ms(lambda: rf.bloom_apply(*apply_args)),
-        plain_ms=cuda_ms(lambda: rf.bloom_build_plain(skeys, susable, bits),
-                         3) + cuda_ms(lambda: rf.bloom_apply_plain(
-                             *apply_args), 3),
-        bound_ms=_bound_ms(n_orders * 9 + 2 * bits // 8 + n * (8 + 1 + 1 + 1)),
-        library_ms=None))
+    entries.extend(check_filter_kernels(src, order_sel, packed, sel))
     return entries
+
+
+# K7's filter sizes: the executor's default (join.runtime_filter.max_bits),
+# one that is no power of two, and one above the shared-memory limit
+FILTER_BITS = (1 << 20, 1_000_003, 1 << 22)
+
+
+def _key_bytes(cols, with_sel: bool = True) -> int:
+    """Bytes a row of key columns (their validities) and sel takes."""
+    return sum(c.data.element_size() + (c.validity is not None)
+               for c in cols) + with_sel
+
+
+def check_filter_kernels(src, src_sel, tgt, tgt_sel) -> list:
+    """K7 build over the source's key columns and K7 apply over the
+    target's, at each of FILTER_BITS: each exact against its plain version,
+    then timed with it. Bounds: build reads its key columns and sel and
+    writes 9 bytes a row and the words; apply reads its key columns, sel
+    and the words and writes 1 byte a row. At 1 << 20 bits both are also
+    timed as the whole call the executor makes (runtime_filter.build, which
+    adds the ndv sort, and runtime_filter.apply, the kernel's wrapper), and
+    with 1.3% of the rows live."""
+    from sail_tpu_torch.ops import runtime_filter as rf
+
+    ns, nt = src_sel.shape[0], tgt_sel.shape[0]
+    rows = {"bloom_build": [], "bloom_apply": []}
+    for bits in FILTER_BITS:
+        built = rf.filter_build(src, src_sel, bits)
+        _exact("bloom_build", [t for t in built if torch.is_tensor(t)],
+               [t for t in rf.filter_build_plain(src, src_sel, bits)
+                if torch.is_tensor(t)])
+        res = rf.build(src, src_sel, bits)
+        kept = rf.apply(res, tgt, tgt_sel)
+        _exact("bloom_apply", [kept], [rf.filter_apply_plain(res, tgt,
+                                                             tgt_sel)])
+        words = res.words.numel() * 4
+        build = dict(shape=f"{bits} bits", n=ns, keys=int(built.n_build),
+                     ms=cuda_ms(lambda: rf.filter_build(src, src_sel, bits)),
+                     plain_ms=cuda_ms(lambda: rf.filter_build_plain(
+                         src, src_sel, bits), 3),
+                     bound_ms=_bound_ms(ns * (_key_bytes(src) + 9) + words))
+        apply = dict(shape=f"{bits} bits", n=nt, kept=int(kept.sum()),
+                     ms=cuda_ms(lambda: rf.apply(res, tgt, tgt_sel)),
+                     plain_ms=cuda_ms(lambda: rf.filter_apply_plain(
+                         res, tgt, tgt_sel), 3),
+                     bound_ms=_bound_ms(nt * (_key_bytes(tgt) + 1) + words))
+        shapes = [("bloom_build", build), ("bloom_apply", apply)]
+        if bits == FILTER_BITS[0]:
+            build["pipeline_ms"] = cuda_ms(lambda: rf.build(src, src_sel,
+                                                            bits))
+            shapes += _sparse_rows(res, src, src_sel, tgt, tgt_sel)
+        for name, row in shapes:
+            rows[name].append(row)
+            print(f"K7 {name} {row['shape']}: {row['n']} rows, exact, "
+                  f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+                  f"bound {row['bound_ms']:.3f} ms" + (
+                      f", pipeline_ms {row['pipeline_ms']:.3f} ms"
+                      if "pipeline_ms" in row else ""), flush=True)
+    return [_filter_entry(name, shapes) for name, shapes in rows.items()]
+
+
+def _sparse_rows(res, src, src_sel, tgt, tgt_sel) -> list:
+    """K7 build and apply with 1.3% of the rows live (Q14's share of
+    lineitem): each exact against its plain version, then timed. Bounds:
+    build still derives and writes every row's key; apply reads sel and
+    writes out for every row, and the keys of the live rows only."""
+    from sail_tpu_torch.ops import runtime_filter as rf
+
+    gen = torch.Generator(device=tgt_sel.device).manual_seed(2)
+    ssel = src_sel & (torch.rand(src_sel.shape[0], generator=gen,
+                                 device=src_sel.device) < 0.013)
+    tsel = tgt_sel & (torch.rand(tgt_sel.shape[0], generator=gen,
+                                 device=tgt_sel.device) < 0.013)
+    bits, words = res.num_bits, res.words.numel() * 4
+    _exact("bloom_build sparse",
+           [t for t in rf.filter_build(src, ssel, bits) if torch.is_tensor(t)],
+           [t for t in rf.filter_build_plain(src, ssel, bits)
+            if torch.is_tensor(t)])
+    kept = rf.apply(res, tgt, tsel)
+    _exact("bloom_apply sparse", [kept], [rf.filter_apply_plain(res, tgt,
+                                                                tsel)])
+    ns, nt = ssel.shape[0], tsel.shape[0]
+    slive, tlive = int(ssel.sum()), int(tsel.sum())
+    shape = f"{bits} bits, 1.3% live"
+    return [
+        ("bloom_build", dict(
+            shape=shape, n=ns, live=slive,
+            ms=cuda_ms(lambda: rf.filter_build(src, ssel, bits)),
+            plain_ms=cuda_ms(lambda: rf.filter_build_plain(src, ssel, bits),
+                             3),
+            bound_ms=_bound_ms(ns * (_key_bytes(src) + 9) + words))),
+        ("bloom_apply", dict(
+            shape=shape, n=nt, live=tlive, kept=int(kept.sum()),
+            ms=cuda_ms(lambda: rf.apply(res, tgt, tsel)),
+            plain_ms=cuda_ms(lambda: rf.filter_apply_plain(res, tgt, tsel),
+                             3),
+            bound_ms=_bound_ms(nt * 2 + tlive * (_key_bytes(tgt) - 1)
+                               + words)))]
+
+
+def _filter_entry(name: str, shapes: list) -> dict:
+    main = shapes[0]
+    return dict(name=name, source="sail_tpu_torch/csrc/bloom.cu",
+                replaces="sail_tpu/ops/runtime_filter.py:"
+                + ("62" if name == "bloom_build" else "94"),
+                max_abs_err=0.0, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], library_ms=None, shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
@@ -501,36 +633,79 @@ def check_q1(result: pa.Table, want) -> None:
             raise AssertionError(f"Q1 row {i}: count differs")
 
 
-def profile_query(spark, sql: str) -> dict:
-    """One more run of ``sql`` under torch.profiler: device time by kernel
-    and the device's busy share of the wall time (profiler overhead
-    included in the wall)."""
-    from torch.profiler import ProfilerActivity, profile
+def _sort_ms(roots) -> float:
+    """Device ms of the torch sorts run inside the ``roots`` events (an
+    outer sort's time includes any sort it calls)."""
+    total, stack = 0.0, list(roots)
+    while stack:
+        e = stack.pop()
+        if e.name == "aten::sort":
+            total += e.device_time_total / 1e3
+        else:
+            stack.extend(e.cpu_children)
+    return total
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        spark.sql(sql).toArrow()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
+
+def profile_query(spark, sql: str) -> dict:
+    """One more run of ``sql`` under torch.profiler: device time by kernel,
+    the device's busy share of the wall time (profiler overhead included
+    in the wall), and the device time of the sorts of the joins' build
+    sides and of the runtime filters' ndv counts (their calls run inside
+    named ranges for this run)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from sail_tpu_torch.ops import join as jn
+    from sail_tpu_torch.ops import runtime_filter as rf
+
+    def labelled(fn, label):
+        def run(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return run
+
+    build_side, rtf_build = jn.build_side, rf.build
+    jn.build_side = labelled(build_side, "sail.build_side")
+    rf.build = labelled(rtf_build, "sail.runtime_filter_build")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            spark.sql(sql).toArrow()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        jn.build_side, rf.build = build_side, rtf_build
     # device-side events only (kernels, copies): a CPU op's own entry
-    # would count its kernels a second time
+    # would count its kernels a second time, and so would the device-side
+    # spans of the named ranges
     events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")]
+              if str(e.device_type).endswith("CUDA")
+              and not e.key.startswith("sail.")]
     by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in events if e.self_device_time_total > 0),
                      key=lambda x: -x[1])
     busy_ms = sum(ms for _, ms, _ in by_name)
-    kernel_ms = {k: sum(ms for name, ms, _ in by_name
-                        if any(sym in name for sym in syms))
-                 for k, syms in PROFILED_KERNELS.items()}
+    kernel_ms = {k: sum(ms for name, ms, _ in by_name if pat.search(name))
+                 for k, pat in PROFILED_KERNELS.items()}
+    kernel_launches = {k: sum(c for name, _, c in by_name
+                              if pat.search(name))
+                       for k, pat in PROFILED_KERNELS.items()}
+    fevents = prof.events()
+    sort_ms = {"all": _sort_ms(e for e in fevents if e.cpu_parent is None)}
+    for key, label in (("build_side", "sail.build_side"),
+                       ("runtime_filter_ndv", "sail.runtime_filter_build")):
+        sort_ms[key] = _sort_ms(e for e in fevents if e.name == label)
     print(f"  profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%), {len(by_name)} kernels; "
-          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kernel_ms.items()))
+          + ", ".join(f"{k} {ms:.3f} ms x{kernel_launches[k]}"
+                      for k, ms in kernel_ms.items())
+          + "; sorts " + ", ".join(f"{k} {ms:.3f} ms"
+                                   for k, ms in sort_ms.items()))
     for name, ms, count in by_name[:15]:
         print(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "kernel_ms": kernel_ms,
+            "kernel_ms": kernel_ms, "kernel_launches": kernel_launches,
+            "sort_ms": sort_ms,
             "top": [[n[:90], ms, c] for n, ms, c in by_name[:15]]}
 
 
@@ -709,7 +884,7 @@ def _counters():
             "order_keys": srt.order_keys, "join_keys": hsh.join_keys,
             "probe_ranges": jn.probe_ranges_kernel,
             "join_expand": jn.expand_indices,
-            "bloom_build": rf.bloom_build, "bloom_apply": rf.bloom_apply}
+            "bloom_build": rf.filter_build, "bloom_apply": rf.apply}
 
 
 def run_main_path(sf: float, runs: int, small, profile: bool) -> dict:
@@ -874,14 +1049,11 @@ def main() -> int:
     phases["main_path"] = time.perf_counter() - t
     print(f"phase wall times (s): {phases}", flush=True)
     on_path = report["launches_on_path"]
-    counts = {"bloom": ("bloom_build", "bloom_apply")}
     kernels = [dict(name=e["name"], route="cuda", source=e["source"],
                     replaces=e["replaces"],
-                    launches=sum(c[k] for c in on_path.values()
-                                 for k in counts.get(e["name"],
-                                                     (e["name"],))),
-                    launches_on_path={q: sum(c[k] for k in counts.get(
-                        e["name"], (e["name"],))) for q, c in on_path.items()},
+                    launches=sum(c[e["name"]] for c in on_path.values()),
+                    launches_on_path={q: c[e["name"]]
+                                      for q, c in on_path.items()},
                     max_abs_err=e["max_abs_err"], ms=e["ms"],
                     plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
                     bound_by="bytes", library_ms=e["library_ms"],

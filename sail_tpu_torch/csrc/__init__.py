@@ -26,7 +26,7 @@ import torch
 _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
            "join_keys.cu", "join_probe.cu", "join_expand.cu", "bloom.cu")
-_HEADERS = ("common.cuh",)
+_HEADERS = ("common.cuh", "join_keys.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -45,8 +45,10 @@ _ENTRY = {
                                           P]},
     "join_expand.cu": {"sail_join_expand": [P, P, P, LL, LL, P, LL, P, LL,
                                             P, P, P, P]},
-    "bloom.cu": {"sail_bloom_build": [P, P, LL, LL, P, I, P],
-                 "sail_bloom_apply": [P, LL, P, P, P, P, P, LL, P, I, P]},
+    "bloom.cu": {"sail_bloom_build": [P, P, LL, I, ULL, LL, ULL, P, P, P,
+                                      P, P],
+                 "sail_bloom_apply": [P, P, LL, I, ULL, P, LL, ULL, P, P,
+                                      P, P]},
 }
 
 

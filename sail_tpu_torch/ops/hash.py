@@ -139,7 +139,7 @@ _DTYPE_CODES = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
 
 
 class _KeyCols(ctypes.Structure):
-    """Mirror of ``struct KeyCols`` in csrc/join_keys.cu."""
+    """Mirror of ``struct KeyCols`` in csrc/join_keys.cuh."""
 
     _fields_ = [("data", ctypes.c_void_p * _MAX_KEY_COLS),
                 ("valid", ctypes.c_void_p * _MAX_KEY_COLS),
@@ -163,6 +163,43 @@ def join_keys_plain(cols: Sequence[Column], sel: torch.Tensor, seed: int = 0
     return keys ^ _MIN64, usable, exact
 
 
+def key_spec(cols: Sequence[Column], sel: torch.Tensor
+             ) -> Tuple[_KeyCols, list, bool]:
+    """The C description of key columns on the card, for K4 and K7: (spec,
+    the buffers it points to, which the caller keeps alive while a kernel
+    reads them, with ``sel`` first; exact)."""
+    if not 1 <= len(cols) <= _MAX_KEY_COLS:
+        raise TypeError(f"join keys: 1..{_MAX_KEY_COLS} key columns, "
+                        f"got {len(cols)}")
+    n = sel.shape[0]
+    if sel.dtype != torch.bool or sel.shape != (n,):
+        raise TypeError(f"join keys: sel must be a 1-D bool tensor, got "
+                        f"{sel.dtype}{tuple(sel.shape)}")
+    spec = _KeyCols(ncols=len(cols))
+    held = [sel.contiguous()]
+    for i, c in enumerate(cols):
+        # the key's declared type fixes its bit width, as in the reference
+        data = c.data.to(physical_torch_dtype(c.dtype))
+        if data.shape != (n,) or data.device != sel.device or \
+                data.dtype not in _DTYPE_CODES:
+            raise TypeError(f"join keys: column {i} is {data.dtype}"
+                            f"{tuple(data.shape)} on {data.device}, needs "
+                            f"({n},) on {sel.device}")
+        data = data.contiguous()
+        held.append(data)
+        spec.data[i] = data.data_ptr()
+        spec.dtype[i] = _DTYPE_CODES[data.dtype]
+        if c.validity is not None:
+            v = c.validity.contiguous()
+            if v.dtype != torch.bool or v.shape != (n,) or \
+                    v.device != sel.device:
+                raise TypeError(f"join keys: validity of column {i} must be "
+                                f"bool ({n},) on {sel.device}")
+            held.append(v)
+            spec.valid[i] = v.data_ptr()
+    return spec, held, can_pack([c.dtype for c in cols], reserve_bits=0)
+
+
 def join_keys(cols: Sequence[Column], sel: torch.Tensor, seed: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor, bool]:
     """K4: ``join_keys_plain`` as one kernel pass on the card.
@@ -174,30 +211,8 @@ def join_keys(cols: Sequence[Column], sel: torch.Tensor, seed: int = 0
     raises."""
     if sel.device.type == "cpu":
         return join_keys_plain(cols, sel, seed)
-    types = [c.dtype for c in cols]
-    if not 1 <= len(cols) <= _MAX_KEY_COLS:
-        raise TypeError(f"join_keys: 1..{_MAX_KEY_COLS} key columns, "
-                        f"got {len(cols)}")
+    spec, held, exact = key_spec(cols, sel)
     n = sel.shape[0]
-    spec = _KeyCols(ncols=len(cols))
-    held = [sel.contiguous()]  # keep every passed buffer alive
-    for i, c in enumerate(cols):
-        # the key's declared type fixes its bit width, as in the reference
-        data = c.data.to(physical_torch_dtype(c.dtype))
-        if data.shape != (n,) or data.device != sel.device or \
-                data.dtype not in _DTYPE_CODES:
-            raise TypeError(f"join_keys: column {i} is {data.dtype}"
-                            f"{tuple(data.shape)} on {data.device}, needs "
-                            f"({n},) on {sel.device}")
-        data = data.contiguous()
-        held.append(data)
-        spec.data[i] = data.data_ptr()
-        spec.dtype[i] = _DTYPE_CODES[data.dtype]
-        if c.validity is not None:
-            v = c.validity.contiguous()
-            held.append(v)
-            spec.valid[i] = v.data_ptr()
-    exact = can_pack(types, reserve_bits=0)
     keys = torch.empty(n, dtype=torch.int64, device=sel.device)
     usable = torch.empty(n, dtype=torch.bool, device=sel.device)
     if n:

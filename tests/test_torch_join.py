@@ -418,19 +418,23 @@ def test_probe_and_expand_kernels_match_plain(cuda, keyset):
 @pytest.mark.gpu
 def test_bloom_kernels_match_plain(cuda):
     rng = np.random.default_rng(17)
-    keys = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, 300_000,
-                                         dtype=np.int64))
+    vals = rng.integers(-2**63, 2**63 - 1, 300_000, dtype=np.int64)
+    cols = [(vals, rng.random(300_000) < 0.95, "int64")]
     usable = torch.from_numpy(rng.random(300_000) < 0.9)
     sel = torch.from_numpy(rng.random(300_000) < 0.9)
     for num_bits in (1000, 1 << 20):
-        words = trtf.bloom_build(keys.to(cuda), usable.to(cuda), num_bits)
-        _eq(words, trtf.bloom_build_plain(keys, usable, num_bits).numpy())
-        lo, hi = keys[:100].min(), keys[:100].max()
-        got = trtf.bloom_apply(words, num_bits, lo.to(cuda), hi.to(cuda),
-                               keys.to(cuda), usable.to(cuda), sel.to(cuda))
-        want = trtf.bloom_apply_plain(words.cpu(), num_bits, lo, hi, keys,
-                                      usable, sel)
-        _eq(got, want.numpy())
+        got = trtf.filter_build(_tcols(cols, cuda), usable.to(cuda), num_bits)
+        want = trtf.filter_build_plain(_tcols(cols), usable, num_bits)
+        _eq(got.words, want.words.numpy())
+        # the bounds of 100 source keys: they decide for most rows
+        keys = thash.join_keys_plain(_tcols(cols), usable)[0][:100]
+        lo, hi = keys.min(), keys.max()
+        res = trtf.BuildResult(got.words, num_bits, lo.to(cuda), hi.to(cuda),
+                               got.n_build, got.n_build, got.exact)
+        mask = trtf.apply(res, _tcols(cols, cuda), sel.to(cuda))
+        plain = trtf.BuildResult(want.words, num_bits, lo, hi, want.n_build,
+                                 want.n_build, want.exact)
+        _eq(mask, trtf.filter_apply_plain(plain, _tcols(cols), sel).numpy())
 
 
 # K5's builds on the card, (capacity, usable rows): the splitter table in
