@@ -5,29 +5,35 @@
     python3 chip_smoke.py --sf 1 --check-sf 0.1 --kernel-rows 2000000 --runs 1
                                      # a smaller, quicker run
     python3 chip_smoke.py --profile  # also trace each query once, with
-                                     # its K1 (global path), K4, K5, K6
-                                     # and K7 device ms and its sorts
+                                     # its K1 (all launches, then by entry
+                                     # point), K4, K5, K6 and K7 device ms,
+                                     # its sorts and its host split
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Device: the card's name, count and power limit.
 2. Build: compile the CUDA kernels (sail_tpu_torch/csrc, one nvcc per
    source, all at once) and print the compiler's register report.
-3. Kernels: run K1 (seg_reduce), K2 (direct_group_ids), K3 (order_keys),
-   K4 (join_keys), K5 (probe_ranges), K6 (join_expand) and K7's build
-   and apply (bloom_build, bloom_apply) on the card at the main path's
-   shapes (lineitem's ``--kernel-rows``, 60M at SF10, and the tables
-   joined with it at their sizes), hold each against its plain PyTorch
-   version on the same inputs, and time kernel, plain version and, where
-   one exists, the one PyTorch call computing the same function. K1 runs
-   at two shapes (Q1's 13 segments; l_orderkey's n/4, Q3's and Q18's
-   grouping), K5 at five (lineitem's l_orderkey into orders; l_partkey
+3. Kernels: run K1's two entry points (seg_reduce, binned;
+   seg_reduce_runs, for sort-based grouping), K2 (direct_group_ids), K3
+   (order_keys), K4 (join_keys), K5 (probe_ranges), K6 (join_expand) and
+   K7's build and apply (bloom_build, bloom_apply) on the card at the
+   main path's shapes (lineitem's ``--kernel-rows``, 60M at SF10, and the
+   tables joined with it at their sizes), hold each against its plain
+   PyTorch version on the same inputs, and time kernel, plain version
+   and, where one exists, the one PyTorch call computing the same
+   function. K1 runs at six shapes, each through the entry point its
+   grouping takes: the runs kernel at the groupings of phase 5's lineitem
+   that Q20, Q15, Q17 and Q18 make (group_rows as the executor calls it)
+   and at l_orderkey's n/4 segments, the binned kernel at Q1's 12 bins;
+   K5 at five (lineitem's l_orderkey into orders; l_partkey
    into part, with 98.5% and 1.3% of the probes live; into part filtered
    to 0.1%; l_suppkey into supplier), K6 at three (Q21's self-join, 1% of
    the probes live, a build key with 100,000 duplicates), K7 at the three
    filter sizes of ``FILTER_BITS`` (a filter of Q3's filtered orders
    applied to lineitem); the JSON entry carries each shape under
-   ``shapes`` and the first shape's numbers as its own.
+   ``shapes`` and the first shape's numbers as its own (the runs
+   kernel's: those of the shape where ``index_add_`` comes closest).
 4. Correctness: all 22 TPC-H queries at ``--check-sf`` (default 1, from
    ``generate_tpch_sf(sf, seed=0)``) through ``spark.sql(...).toArrow()``
    against the pandas oracle of tests/tpch_oracle.py, compared as the
@@ -84,10 +90,18 @@ PATH_KERNELS.update({
     "q13": _JOIN + ("join_expand",),
     "q21": _JOIN + ("join_expand", "bloom_build", "bloom_apply"),
 })
+# the queries that group by sort: every aggregate there goes through K1's
+# runs entry point
+for _q in (2, 3, 7, 8, 9, 10, 11, 13, 15, 16, 17, 18, 20):
+    PATH_KERNELS[f"q{_q}"] += ("seg_reduce_runs",)
 # device functions of the kernels whose time and launches each profiled
-# query reports (K1's global-atomic path: more than 4,097 segments)
+# query reports: K1 over all its launches, then split by entry point (a
+# runs call launches its grid, then one block over the grid's records)
 PROFILED_KERNELS = {
-    "K1 seg_reduce, global": re.compile(r"seg_reduce_kernel<[^>]*false>"),
+    "K1 seg_reduce": re.compile(r"seg_reduce_kernel<|seg_runs_"),
+    "K1 binned": re.compile(r"seg_reduce_kernel<"),
+    "K1 runs": re.compile(r"seg_runs_kernel<"),
+    "K1 runs merge": re.compile(r"seg_runs_merge_kernel<"),
     "K4 join_keys": re.compile(r"join_keys_kernel\("),
     "K5 probe_ranges": re.compile(r"probe_kernel\(|splitter_kernel\("),
     "K6 join_expand": re.compile(r"expand_kernel\("),
@@ -149,7 +163,9 @@ def _max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(n: int, dev: torch.device) -> list:
+def check_kernels(n: int, dev: torch.device, lineitem: pa.Table) -> list:
+    """Every kernel at the main path's shapes; K1 also at the groupings
+    of ``lineitem`` (the main path's table) that four queries make."""
     from sail_tpu_torch.ops import aggregate as agg
     from sail_tpu_torch.ops import sort as srt
 
@@ -174,9 +190,11 @@ def check_kernels(n: int, dev: torch.device) -> list:
         bound_ms=_bound_ms(n * (4 + 4 + 1 + 4) + 12 * 8), library_ms=None))
     print(f"K2 direct_group_ids n={n}: exact", flush=True)
 
-    # K1 at Q1's segments (12 groups + the dead bin), every type and kind
+    # K1's binned entry point at Q1's grouping (12 bins; dead rows carry
+    # id 12, which the kernel drops), every type and kind, with and
+    # without a validity
     seg = gid
-    S = 13
+    S = 12
     vals = {
         "int64": torch.randint(0, 10_500_000 * 10_800, (n,), generator=gen,
                                device=dev, dtype=torch.int64),
@@ -187,18 +205,28 @@ def check_kernels(n: int, dev: torch.device) -> list:
     }
     nan_vals = vals["float64"].clone()
     nan_vals[torch.rand(n, generator=gen, device=dev) < 1e-7] = float("nan")
+    # the draws added since the other kernels' shapes were fixed take a
+    # generator of their own, so those shapes keep their data
+    k1_gen = torch.Generator(device=dev).manual_seed(3)
+    valid = torch.rand(n, generator=k1_gen, device=dev) < 0.9
     k1_err = 0.0
     for label, v in list(vals.items()) + [("float64+NaN", nan_vals)]:
         for kind in ("sum", "min", "max"):
-            got = agg.seg_reduce(v, seg, S, kind)
-            want = agg.seg_reduce_plain(v, seg, S, kind)
-            k1_err = max(k1_err, _max_abs_err(got, want))
-            print(f"K1 seg_reduce {kind} {label} n={n} S={S}: ok", flush=True)
-    # times at the dominant case of the path: int64 sums, at Q1's 13
-    # segments (in shared memory) and at Q3's and Q18's grouping on
-    # l_orderkey (~n/4 segments, global atomics)
+            for m in (None, valid):
+                got = agg.seg_reduce(v, seg, S, kind, m)
+                want = agg.seg_reduce_plain(v, seg, S, kind, m)
+                k1_err = max(k1_err, _max_abs_err(got, want))
+            print(f"K1 seg_reduce {kind} {label} n={n} S={S}, with and "
+                  f"without validity: ok", flush=True)
+    # times at each shape, int64 sums, through the entry point its
+    # grouping takes: the binned kernel at Q1's 12 bins (direct grouping);
+    # the runs kernel at the four sort-mode groupings of lineitem
+    # (k1_query_shapes) and at l_orderkey's n/4 segments (Q3's and Q18's
+    # grouping as the kernel phase has always timed it; perm the identity)
     v = vals["int64"]
-    k1 = [check_seg_reduce_shape(f"Q1, {S} segments", v, seg, S)]
+    binned = check_binned_shape("Q1, 12 bins", v, seg, S)
+    del valid
+    runs_err, shapes = k1_query_shapes(lineitem, dev, k1_gen)
     # a generator of its own, so the later phases' data do not depend on
     # this shape
     lines = torch.randint(1, 8, (n // 4,), device=dev,
@@ -207,14 +235,24 @@ def check_kernels(n: int, dev: torch.device) -> list:
         torch.arange(n // 4, device=dev, dtype=torch.int32), lines)[:n]
     order_seg = torch.cat([order_seg, order_seg[-1:].repeat(
         n - order_seg.shape[0])])
-    k1.append(check_seg_reduce_shape("l_orderkey, n/4 segments", v,
-                                     order_seg, n // 4))
+    shapes.append(check_runs_shape("l_orderkey, n/4 segments", v,
+                                   _sorted_layout(order_seg, n // 4), n // 4,
+                                   counts=False))
     del lines, order_seg
     entries.append(dict(
         name="seg_reduce", source="sail_tpu_torch/csrc/seg_reduce.cu",
         replaces="sail_tpu/ops/aggregate.py:208", max_abs_err=k1_err,
-        ms=k1[0]["ms"], plain_ms=k1[0]["plain_ms"], bound_ms=k1[0]["bound_ms"],
-        library_ms=k1[0]["library_ms"], shapes=k1))
+        ms=binned["ms"], plain_ms=binned["plain_ms"],
+        bound_ms=binned["bound_ms"], library_ms=binned["library_ms"],
+        shapes=[binned]))
+    # the runs kernel's own numbers: those of the shape where index_add_
+    # comes closest to it
+    near = min(shapes, key=lambda x: x["library_ms"] / x["ms"])
+    entries.append(dict(
+        name="seg_reduce_runs", source="sail_tpu_torch/csrc/seg_reduce.cu",
+        replaces="sail_tpu/ops/aggregate.py:208", max_abs_err=runs_err,
+        ms=near["ms"], plain_ms=near["plain_ms"], bound_ms=near["bound_ms"],
+        library_ms=near["library_ms"], shapes=shapes))
 
     # K3 over the main path's key types, both directions
     keys = {
@@ -244,31 +282,191 @@ def check_kernels(n: int, dev: torch.device) -> list:
     return entries + check_join_kernels(n, dev, gen)
 
 
-def check_seg_reduce_shape(label, v, seg, S) -> dict:
-    """K1's int64 sum at one shape: exact against its plain version and
-    index_add_, then timed with both. Bound: values and ids read once, the
-    segments written once."""
+def _sorted_layout(seg, S):
+    """(ids, perm, n_live) of a sort-based grouping of row-order ids
+    ``seg`` (dead rows at S): a stable sort, the groups renumbered densely
+    in sort order, as group_rows numbers them."""
+    ids, perm = torch.sort(seg, stable=True)
+    live = ids < S
+    new = live.clone()
+    new[1:] &= ids[1:] != ids[:-1]
+    dense = torch.cumsum(new.to(torch.int64), 0) - 1
+    return torch.where(live, dense, S).to(torch.int32), perm, live.sum()
+
+
+def _k1_line(out: dict) -> None:
+    share = 100 * out["bound_ms"] / out["ms"]
+    gather = f", gather {out['gather_ms']:.3f} ms" if "gather_ms" in out \
+        else ""
+    print(f"K1 {out['shape']}: n={out['n']} live={out['live']} groups="
+          f"{out['groups']} S={out['segments']}"
+          f"{' + counts' if out['counts'] else ''}: exact; {out['entry']} "
+          f"{out['ms']:.3f} ms (bound {out['bound_ms']:.3f}, {share:.0f}%), "
+          f"index_add_ {out['library_ms']:.3f} ms{gather}, plain "
+          f"{out['plain_ms']:.3f} ms", flush=True)
+
+
+def check_binned_shape(label, v, seg, S) -> dict:
+    """K1's binned entry point on ids in row order (dead rows at S), an
+    int64 sum, exact against its plain version and against index_add_
+    into S + 1 slots (the dead rows into the last, cut off); then timed
+    with both. Bound: the bytes it needs, each read once: n x 4 B ids +
+    live rows x 8 B + S x 8 B written."""
     from sail_tpu_torch.ops import aggregate as agg
+
+    n = v.shape[0]
+
+    def binned():
+        return agg.seg_reduce(v, seg, S, "sum")
+
+    def plain():
+        return agg.seg_reduce_plain(v, seg, S, "sum")
+
+    def lib():
+        return torch.zeros(S + 1, dtype=v.dtype, device=v.device).index_add_(
+            0, seg, v)[:S]
+    got = binned()
+    _exact(f"seg_reduce {label}", [got], [plain()])
+    if not torch.equal(got, lib()):
+        raise AssertionError(f"seg_reduce {label} differs from index_add_")
+    live = int((seg < S).sum())
+    out = dict(shape=label, entry="binned", n=n, live=live,
+               groups=int(torch.unique(seg[seg < S]).numel()), segments=S,
+               counts=False, ms=cuda_ms(binned), library_ms=cuda_ms(lib),
+               plain_ms=cuda_ms(plain, 3),
+               bound_ms=_bound_ms(n * 4 + live * 8 + S * 8))
+    _k1_line(out)
+    return out
+
+
+def check_runs_shape(label, v, layout, S, counts: bool) -> dict:
+    """K1's runs entry point on one sort-based grouping (``layout``: the
+    sorted ids, perm and n_live), an int64 sum and, when ``counts``, its
+    count (as agg_sum takes them), exact against its plain version and
+    the sum against index_add_ over the same layout (the live rows'
+    values gathered through perm, added at their sorted ids); then timed
+    with both and with that gather alone (``gather_ms``: the kernel's
+    value reads as one PyTorch index, random where perm is). index_add_
+    makes the sum alone. Bound: the bytes the kernel needs, each read
+    once: live rows x (4 B id + 8 B perm + 8 B value) + S x (8 B + 8 B
+    count) written."""
+    from sail_tpu_torch.ops import aggregate as agg
+
+    ids, perm, n_live = layout
+    n = v.shape[0]
+    live = int(n_live)
+    args = (ids, perm, n_live, S, "sum", v, None, counts)
+
+    def runs():
+        return agg.seg_reduce_runs(*args)
+
+    def plain():
+        return agg.seg_reduce_runs_plain(*args)
 
     def lib():
         return torch.zeros(S, dtype=v.dtype, device=v.device).index_add_(
-            0, seg, v)
-    got = agg.seg_reduce(v, seg, S, "sum")
-    if not torch.equal(got, agg.seg_reduce_plain(v, seg, S, "sum")) or \
-            not torch.equal(got, lib()):
-        raise AssertionError(f"seg_reduce {label} differs")
-    n = v.shape[0]
-    out = dict(shape=label, n=n, segments=S,
-               ms=cuda_ms(lambda: agg.seg_reduce(v, seg, S, "sum")),
-               plain_ms=cuda_ms(lambda: agg.seg_reduce_plain(v, seg, S,
-                                                             "sum"), 3),
-               library_ms=cuda_ms(lib),
-               bound_ms=_bound_ms(n * (8 + 4) + S * 8))
-    print(f"K1 seg_reduce sum int64 {label}: n={n} S={S}: exact, "
-          f"{out['ms']:.3f} ms, index_add_ {out['library_ms']:.3f} ms, plain "
-          f"{out['plain_ms']:.3f} ms, bound {out['bound_ms']:.3f} ms",
-          flush=True)
+            0, ids[:live], v[perm[:live]])
+    got = runs()
+    _exact(f"seg_reduce_runs {label}", [t for t in got if t is not None],
+           [t for t in plain() if t is not None])
+    if not torch.equal(got[0], lib()):
+        raise AssertionError(f"seg_reduce_runs {label} differs from "
+                             f"index_add_")
+    out = dict(shape=label, entry="runs", n=n, live=live,
+               groups=int(ids[live - 1]) + 1 if live else 0, segments=S,
+               counts=counts, ms=cuda_ms(runs), library_ms=cuda_ms(lib),
+               gather_ms=cuda_ms(lambda: v[perm[:live]]),
+               plain_ms=cuda_ms(plain, 3),
+               bound_ms=_bound_ms(live * (4 + 8 + 8) + S * (8 + 8 * counts)))
+    _k1_line(out)
     return out
+
+
+def _days(iso: str) -> int:
+    return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
+
+
+def k1_query_shapes(lineitem: pa.Table, dev, gen):
+    """K1 at the sort-mode groupings of lineitem that Q20, Q15, Q17 and
+    Q18 aggregate, made by agg.group_rows as _exec_AggregateExec calls it
+    (max_groups = n): Q20 live in 1994 by (l_partkey, l_suppkey), sum of
+    l_quantity; Q15 live in 1996-01..03 by l_suppkey, sum of
+    l_extendedprice * (1 - l_discount); Q17 every row by l_partkey and
+    Q18 every row by l_orderkey, sum of l_quantity; each with its count.
+    First, at Q20's grouping, the runs kernel against its plain version
+    for every type and kind, with and without a validity and counts, and
+    for the row index (first/last, the group keys). Returns (largest
+    float error, the shape rows)."""
+    from sail_tpu_torch.columnar.batch import Column
+    from sail_tpu_torch.ops import aggregate as agg
+    from sail_tpu_torch.spec import data_type as dt
+
+    def col(name):
+        arr = lineitem.column(name)
+        if pa.types.is_decimal(arr.type):
+            data = _unscaled(arr)
+        elif pa.types.is_date(arr.type):
+            data = np.asarray(arr.combine_chunks().view(pa.int32()))
+        else:
+            data = arr.to_numpy()
+        return torch.from_numpy(data).to(dev)
+
+    def key(name):
+        return Column(col(name), None, dt.LongType())
+    ship, qty = col("l_shipdate"), col("l_quantity")
+    n = qty.shape[0]
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    q20 = (ship >= _days("1994-01-01")) & (ship < _days("1995-01-01"))
+    q15 = (ship >= _days("1996-01-01")) & (ship < _days("1996-04-01"))
+    revenue = col("l_extendedprice") * (100 - col("l_discount"))
+    groupings = (
+        ("Q20", [key("l_partkey"), key("l_suppkey")], q20, qty),
+        ("Q15", [key("l_suppkey")], q15, revenue),
+        ("Q17", [key("l_partkey")], every, qty),
+        ("Q18", [key("l_orderkey")], every, qty))
+    shapes, err = [], 0.0
+    for label, keys, sel, v in groupings:
+        ctx, _ = agg.group_rows(keys, sel, n)
+        layout = (ctx.sorted_ids, ctx.perm, ctx.n_live)
+        if label == "Q20":
+            err = _check_runs_kinds(layout, n, dev, gen)
+        shapes.append(check_runs_shape(label, v, layout, n, counts=True))
+        del ctx, layout
+    del ship, qty, revenue, every, q20, q15, groupings
+    torch.cuda.empty_cache()
+    return err, shapes
+
+
+def _check_runs_kinds(layout, n, dev, gen) -> float:
+    """The runs kernel on one sorted grouping against its plain version:
+    int32, int64, float64 (positive, so no sum cancels; and with NaNs) and
+    the row index, sum, min and max, with and without a validity."""
+    from sail_tpu_torch.ops import aggregate as agg
+
+    pos = torch.rand(n, generator=gen, device=dev, dtype=torch.float64) * 1e4
+    nan = pos.clone()
+    nan[torch.rand(n, generator=gen, device=dev) < 1e-4] = float("nan")
+    vals = {
+        "int32": torch.randint(-2**31, 2**31 - 1, (n,), generator=gen,
+                               device=dev, dtype=torch.int32),
+        "int64": torch.randint(-2**62, 2**62, (n,), generator=gen,
+                               device=dev, dtype=torch.int64),
+        "float64": pos, "float64+NaN": nan, "row index": None}
+    valid = torch.rand(n, generator=gen, device=dev) < 0.9
+    err = 0.0
+    for label, v in vals.items():
+        for kind in ("sum", "min", "max"):
+            if v is None and kind == "sum":
+                continue
+            for m in (None, valid):
+                args = (*layout, n, kind, v, m, True)
+                got = agg.seg_reduce_runs(*args)
+                want = agg.seg_reduce_runs_plain(*args)
+                err = max(err, _max_abs_err(got[0], want[0]))
+                _exact("seg_reduce_runs count", got[1:], want[1:])
+            print(f"K1 seg_reduce_runs {kind} {label} n={n} at Q20's "
+                  f"grouping, with and without validity: ok", flush=True)
+    return err
 
 
 def _exact(name: str, got, want) -> None:
@@ -649,9 +847,11 @@ def _sort_ms(roots) -> float:
 def profile_query(spark, sql: str) -> dict:
     """One more run of ``sql`` under torch.profiler: device time by kernel,
     the device's busy share of the wall time (profiler overhead included
-    in the wall), and the device time of the sorts of the joins' build
-    sides and of the runtime filters' ndv counts (their calls run inside
-    named ranges for this run)."""
+    in the wall), the device time of the sorts of the joins' build sides
+    and of the runtime filters' ndv counts (their calls run inside named
+    ranges for this run), and the host's split: the self time on the
+    host of each operator and CUDA runtime call (the wall less their sum
+    is Python and the profiler)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from sail_tpu_torch.ops import join as jn
@@ -690,6 +890,12 @@ def profile_query(spark, sql: str) -> dict:
     kernel_launches = {k: sum(c for name, _, c in by_name
                               if pat.search(name))
                        for k, pat in PROFILED_KERNELS.items()}
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if not str(e.device_type).endswith("CUDA")
+                   and not e.key.startswith("sail.")
+                   and e.self_cpu_time_total > 0), key=lambda x: -x[1])
+    host_ms = sum(ms for _, ms, _ in host)
     fevents = prof.events()
     sort_ms = {"all": _sort_ms(e for e in fevents if e.cpu_parent is None)}
     for key, label in (("build_side", "sail.build_side"),
@@ -703,10 +909,16 @@ def profile_query(spark, sql: str) -> dict:
                                    for k, ms in sort_ms.items()))
     for name, ms, count in by_name[:15]:
         print(f"    {ms:8.3f} ms  x{count:<4d} {name[:90]}")
+    print(f"  host: operators and runtime calls {host_ms:.2f} ms of "
+          f"{wall_ms:.2f} ms wall (self time); "
+          + ", ".join(f"{name} {ms:.2f} ms x{count}"
+                      for name, ms, count in host[:10]))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "kernel_ms": kernel_ms, "kernel_launches": kernel_launches,
             "sort_ms": sort_ms,
-            "top": [[n[:90], ms, c] for n, ms, c in by_name[:15]]}
+            "top": [[n[:90], ms, c] for n, ms, c in by_name[:15]],
+            "host_ms": host_ms,
+            "host_top": [[n[:90], ms, c] for n, ms, c in host[:15]]}
 
 
 # ---------------------------------------------------------------------------
@@ -880,6 +1092,7 @@ def _counters():
     from sail_tpu_torch.ops import runtime_filter as rf
     from sail_tpu_torch.ops import sort as srt
     return {"seg_reduce": agg.seg_reduce,
+            "seg_reduce_runs": agg.seg_reduce_runs,
             "direct_group_ids": agg.direct_group_ids,
             "order_keys": srt.order_keys, "join_keys": hsh.join_keys,
             "probe_ranges": jn.probe_ranges_kernel,
@@ -887,18 +1100,15 @@ def _counters():
             "bloom_build": rf.filter_build, "bloom_apply": rf.apply}
 
 
-def run_main_path(sf: float, runs: int, small, profile: bool) -> dict:
-    """``small``: (session, tables, scale factor) of phase 4, where a query
-    whose cross join is too large at ``sf`` runs."""
+def run_main_path(tables: dict, sf: float, runs: int, small,
+                  profile: bool) -> dict:
+    """``tables``: TPC-H at ``sf``; ``small``: (session, tables, scale
+    factor) of phase 4, where a query whose cross join is too large at
+    ``sf`` runs."""
     from sail_tpu_torch import SparkSession
-    from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
     from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
     from sail_tpu_torch.columnar import arrow_interop
 
-    t0 = time.perf_counter()
-    tables = generate_tpch_sf(sf, seed=0)
-    print(f"generated TPC-H SF{sf}: lineitem {tables['lineitem'].num_rows} "
-          f"rows in {time.perf_counter() - t0:.1f} s", flush=True)
     want_q1, want_q6 = oracle(tables["lineitem"])
 
     # time every upload (Arrow -> card) the scans make
@@ -1032,7 +1242,14 @@ def main() -> int:
                 print(f"  {src}: {line.strip()}")
 
     t = time.perf_counter()
-    entries = check_kernels(args.kernel_rows, dev)
+    tables = generate_tpch_sf(args.sf, seed=0)
+    phases["generate"] = time.perf_counter() - t
+    print(f"generated TPC-H SF{args.sf}: lineitem "
+          f"{tables['lineitem'].num_rows} rows in {phases['generate']:.1f} s",
+          flush=True)
+
+    t = time.perf_counter()
+    entries = check_kernels(args.kernel_rows, dev, tables["lineitem"])
     phases["kernels"] = time.perf_counter() - t
     torch.cuda.empty_cache()
 
@@ -1044,7 +1261,7 @@ def main() -> int:
     phases["correctness"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    report = run_main_path(args.sf, args.runs,
+    report = run_main_path(tables, args.sf, args.runs,
                            (small, small_tables, args.check_sf), args.profile)
     phases["main_path"] = time.perf_counter() - t
     print(f"phase wall times (s): {phases}", flush=True)

@@ -36,7 +36,9 @@ LL = ctypes.c_longlong
 ULL = ctypes.c_ulonglong
 # C signature of each library's entry points: {name: argtypes}
 _ENTRY = {
-    "seg_reduce.cu": {"sail_seg_reduce": [P, P, LL, I, I, I, P, P, I, P]},
+    "seg_reduce.cu": {"sail_seg_reduce": [P, P, P, LL, I, I, I, P, P, I, P],
+                      "sail_seg_reduce_runs": [P, P, P, P, P, I, I, I, P, P,
+                                               P, P, I, P]},
     "direct_group.cu": {"sail_direct_group":
                         [P, P, P, P, I, P, LL, I, P, P, I, P]},
     "order_keys.cu": {"sail_order_keys": [P, I, LL, I, P, I, P]},
