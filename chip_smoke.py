@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the sail_tpu_torch port on one CUDA card and check every part of it.
 
-    python3 chip_smoke.py            # TPC-H SF10, kernels at SF10 shapes
-    python3 chip_smoke.py --sf 1 --check-sf 0.1 --kernel-rows 2000000 --runs 1
-                                     # a smaller, quicker run
+    python3 chip_smoke.py            # TPC-H SF10, kernels at SF10 shapes,
+                                     # ClickBench at 99,997,497 rows
+    python3 chip_smoke.py --sf 1 --check-sf 0.1 --kernel-rows 2000000
+        --runs 1 --cb-rows 5000000 --cb-check-rows 200000
+                                     # (one command) a smaller, quicker run
     python3 chip_smoke.py --profile  # also trace each query once, with
                                      # its K1 (all launches, then by entry
-                                     # point), K4, K5, K6 and K7 device ms,
-                                     # its sorts and its host split
+                                     # point), K2-K7 device ms, its sorts
+                                     # and its host split
 
 Phases, each of which fails the script (non-zero exit, no result line):
 
@@ -50,18 +52,44 @@ Phases, each of which fails the script (non-zero exit, no result line):
    arithmetic. The launch counts are set to 0 before each query's warm-up
    and again before its first timed run, and read after that run: every
    query must launch the kernels ``PATH_KERNELS`` names for it.
+6. ClickBench correctness: the 43 queries and the mechanism queries
+   (``clickbench.MECHANISM_QUERIES``: string MIN/MAX, DISTINCT beside
+   other aggregates, the time fields and truncation, bool_and/bool_or,
+   and Q28, Q29, Q39 and Q40 cut to what this size reaches, in queries
+   that return rows) over ``generate_hits(--cb-check-rows, --seed)`` on
+   the card against the port's CPU session, by
+   ``clickbench.check_answer``: the same rows, float64 within 1e-12;
+   where a LIMIT (or Q18's LIMIT without ORDER BY) cuts through rows that
+   tie on the ORDER BY keys, the keys in order and each row one of its
+   tie in the CPU's whole answer (the query without its LIMIT). No answer
+   may be empty unless the CPU's is.
+7. ClickBench main path: the 43 queries over ``generate_hits(--cb-rows,
+   --seed)``, the published dataset's 99,997,497 rows by default, no
+   cut: its string columns dictionary-encoded once, as a Parquet reader
+   with dictionary pages gives them, so no query encodes 100M URLs at
+   upload. Each query runs in a fresh session, so in a fresh scan cache:
+   the cache is keyed by projection (exec/local.py), and 43 projections
+   of hits would otherwise pile up on the card. One warm-up (the upload
+   and the session's dictionary tables) and ``--runs`` timed runs; first
+   run, upload, steady times, rows and peak device memory per query. Q1,
+   Q5 and Q10 match numpy; every query launches the kernels its
+   ``PATH_KERNELS`` entry names (``CB_PLANS``, from its plan), and no
+   steady run builds a dictionary table.
 
 It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
-over the queries of their one-run counts, ``launches_on_path`` gives
-each), the ``nvidia-smi`` name and power limit line, and last
+over the TPC-H and ClickBench queries of their one-run counts,
+``launches_on_path`` gives each, ``qN`` and ``cbN``), the ``nvidia-smi``
+name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
 import decimal
+import gc
 import json
 import pathlib
 import re
@@ -102,6 +130,8 @@ PROFILED_KERNELS = {
     "K1 binned": re.compile(r"seg_reduce_kernel<"),
     "K1 runs": re.compile(r"seg_runs_kernel<"),
     "K1 runs merge": re.compile(r"seg_runs_merge_kernel<"),
+    "K2 direct_group": re.compile(r"direct_group_kernel\("),
+    "K3 order_keys": re.compile(r"order_keys_kernel<"),
     "K4 join_keys": re.compile(r"join_keys_kernel\("),
     "K5 probe_ranges": re.compile(r"probe_kernel\(|splitter_kernel\("),
     "K6 join_expand": re.compile(r"expand_kernel\("),
@@ -851,8 +881,11 @@ def profile_query(spark, sql: str) -> dict:
     and of the runtime filters' ndv counts (their calls run inside named
     ranges for this run), and the host's split: the self time on the
     host of each operator and CUDA runtime call (the wall less their sum
-    is Python and the profiler)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    is Python and the profiler). The traced run follows a run in which
+    the profiler warms up and records nothing kept: a trace that starts
+    cold misses the first kernels of its window."""
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
 
     from sail_tpu_torch.ops import join as jn
     from sail_tpu_torch.ops import runtime_filter as rf
@@ -866,21 +899,29 @@ def profile_query(spark, sql: str) -> dict:
     build_side, rtf_build = jn.build_side, rf.build
     jn.build_side = labelled(build_side, "sail.build_side")
     rf.build = labelled(rtf_build, "sail.runtime_filter_build")
+    traced = {}
+
+    def keep(prof):
+        traced["averages"], traced["events"] = prof.key_averages(), \
+            prof.events()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            spark.sql(sql).toArrow()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=keep) as prof:
+            for _ in range(2):
+                t = time.perf_counter()
+                spark.sql(sql).toArrow()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+                prof.step()
     finally:
         jn.build_side, rf.build = build_side, rtf_build
+    averages = [e for e in traced["averages"]
+                if not e.key.startswith(("sail.", "ProfilerStep"))]
     # device-side events only (kernels, copies): a CPU op's own entry
     # would count its kernels a second time, and so would the device-side
     # spans of the named ranges
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and not e.key.startswith("sail.")]
+    events = [e for e in averages if str(e.device_type).endswith("CUDA")]
     by_name = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in events if e.self_device_time_total > 0),
                      key=lambda x: -x[1])
@@ -891,12 +932,11 @@ def profile_query(spark, sql: str) -> dict:
                               if pat.search(name))
                        for k, pat in PROFILED_KERNELS.items()}
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in averages
                    if not str(e.device_type).endswith("CUDA")
-                   and not e.key.startswith("sail.")
                    and e.self_cpu_time_total > 0), key=lambda x: -x[1])
     host_ms = sum(ms for _, ms, _ in host)
-    fevents = prof.events()
+    fevents = traced["events"]
     sort_ms = {"all": _sort_ms(e for e in fevents if e.cpu_parent is None)}
     for key, label in (("build_side", "sail.build_side"),
                        ("runtime_filter_ndv", "sail.runtime_filter_build")):
@@ -1100,18 +1140,12 @@ def _counters():
             "bloom_build": rf.filter_build, "bloom_apply": rf.apply}
 
 
-def run_main_path(tables: dict, sf: float, runs: int, small,
-                  profile: bool) -> dict:
-    """``tables``: TPC-H at ``sf``; ``small``: (session, tables, scale
-    factor) of phase 4, where a query whose cross join is too large at
-    ``sf`` runs."""
-    from sail_tpu_torch import SparkSession
-    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
+@contextlib.contextmanager
+def timed_uploads():
+    """Time every upload (Arrow -> card) the scans make while the block
+    runs: yields {"s": seconds, "bytes": Arrow bytes}, which grow."""
     from sail_tpu_torch.columnar import arrow_interop
 
-    want_q1, want_q6 = oracle(tables["lineitem"])
-
-    # time every upload (Arrow -> card) the scans make
     upload = {"s": 0.0, "bytes": 0}
     from_arrow = arrow_interop.from_arrow
 
@@ -1125,6 +1159,26 @@ def run_main_path(tables: dict, sf: float, runs: int, small,
         return out
 
     arrow_interop.from_arrow = timed_from_arrow
+    try:
+        yield upload
+    finally:
+        arrow_interop.from_arrow = from_arrow
+
+
+def run_main_path(tables: dict, sf: float, runs: int, small,
+                  profile: bool) -> dict:
+    """``tables``: TPC-H at ``sf``; ``small``: (session, tables, scale
+    factor) of phase 4, where a query whose cross join is too large at
+    ``sf`` runs."""
+    with timed_uploads() as upload:
+        return _run_main_path(tables, sf, runs, small, profile, upload)
+
+
+def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
+    from sail_tpu_torch import SparkSession
+    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
+
+    want_q1, want_q6 = oracle(tables["lineitem"])
     spark = SparkSession.builder.getOrCreate()
     if spark.device.type != "cuda":
         raise AssertionError(f"session runs on {spark.device}, not cuda")
@@ -1194,11 +1248,208 @@ def run_main_path(tables: dict, sf: float, runs: int, small,
     print(f"peak device memory {report['peak_bytes'] / 2**30:.2f} GiB; "
           f"uploaded {upload['bytes'] / 2**30:.2f} GiB", flush=True)
     spark.stop()
-    arrow_interop.from_arrow = from_arrow
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: ClickBench
+# ---------------------------------------------------------------------------
+
+_KEYLESS = ("seg_reduce",)
+_DIRECT = ("direct_group_ids", "seg_reduce")
+_SORTED = ("order_keys", "seg_reduce_runs")
+_ORDER = ("order_keys",)
+# the kernels each ClickBench query's plan launches, from the plan: a
+# keyless aggregate launches the binned K1; a grouping over small
+# dictionary domains (SearchPhrase, MobilePhoneModel, Q29's Referer
+# host) launches K2 and the binned K1; any other grouping sorts (K3) and
+# reduces through K1's runs entry point; COUNT(DISTINCT) beside other
+# aggregates (Q10, Q23) sorts by (group, value) through K3; a lone
+# COUNT(DISTINCT x) groups by x first, then counts; an ORDER BY launches
+# K3 over the rows it sorts (none in Q22, whose groups are empty at any
+# size: no generated URL holds "google"). Q20 filters and projects only.
+CB_PLANS = {1: _KEYLESS, 2: _KEYLESS, 3: _KEYLESS, 4: _KEYLESS,
+            5: _SORTED + _KEYLESS, 6: _DIRECT + _KEYLESS, 7: _KEYLESS,
+            8: _SORTED, 9: _SORTED, 10: _SORTED, 11: _SORTED + _DIRECT,
+            12: _SORTED, 13: _DIRECT + _ORDER, 14: _SORTED + _DIRECT,
+            20: (), 21: _KEYLESS, 22: _DIRECT, 23: _DIRECT + _ORDER,
+            24: _ORDER, 25: _ORDER, 26: _ORDER, 27: _ORDER,
+            29: _DIRECT + _ORDER, 30: _KEYLESS}
+for _q in range(1, 44):
+    PATH_KERNELS[f"cb{_q}"] = CB_PLANS.get(_q, _SORTED)
+
+
+def _cb_queries(mechanisms: bool) -> dict:
+    from sail_tpu_torch.benchmarks import clickbench as cb
+
+    queries = {f"cb{q}": sql for q, sql in enumerate(cb.load_queries(), 1)}
+    if mechanisms:
+        queries.update(cb.MECHANISM_QUERIES)
+    return queries
+
+
+def _hits_session(hits: pa.Table, device: str):
+    from sail_tpu_torch import SparkSession
+
+    spark = SparkSession({"spark.sail.device": device})
+    spark.createDataFrame(hits).createOrReplaceTempView("hits")
+    return spark
+
+
+def check_clickbench(n: int, seed: int) -> dict:
+    """The 43 queries and the mechanism queries over generate_hits(n,
+    seed) on the card against the port's CPU session (the plain versions,
+    which the tier-1 tests hold to the reference), compared by
+    clickbench.check_answer: where a LIMIT cuts through a tie, each row
+    must belong to the tie in the CPU's whole answer (the query without
+    its LIMIT)."""
+    from sail_tpu_torch.benchmarks import clickbench as cb
+
+    hits = cb.generate_hits(n, seed, dictionary=True)
+    card, cpu = _hits_session(hits, "cuda"), _hits_session(hits, "cpu")
+    report = {}
+    for name, sql in _cb_queries(mechanisms=True).items():
+        t = time.perf_counter()
+        got = card.sql(sql).toArrow()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        try:
+            cb.check_answer(got, cpu, sql)
+        except AssertionError as e:
+            raise AssertionError(f"ClickBench {name} at {n} rows: the card's "
+                                 f"answer differs from the CPU's: {e}") from e
+        report[name] = dict(rows=got.num_rows, first_s=card_s)
+        print(f"ClickBench {name} at {n} rows: {got.num_rows} rows agree "
+              f"with the CPU session's (first run on the card "
+              f"{card_s:.2f} s)", flush=True)
+    card.stop()
+    cpu.stop()
+    return report
+
+
+def check_cb_oracle(q: int, result: pa.Table, hits: pa.Table) -> None:
+    """Q1's count, Q5's distinct users (np.unique) and Q10's rows (counts
+    and sums by np.bincount, the distinct users of its regions by a numpy
+    lexsort of (RegionID, UserID)) against the card's answers."""
+    if q == 1:
+        got, want = result.column(0)[0].as_py(), hits.num_rows
+    elif q == 5:
+        got = result.column(0)[0].as_py()
+        want = int(np.unique(hits.column("UserID").to_numpy()).size)
+    else:
+        rid = hits.column("RegionID").to_numpy()
+        counts = np.bincount(rid)
+        regions = result.column(0).to_numpy()
+        rows = (np.isin(rid, regions))
+        r, u = rid[rows], hits.column("UserID").to_numpy()[rows]
+        order = np.lexsort((u, r))
+        r, u = r[order], u[order]
+        new = np.ones(r.size, dtype=bool)
+        new[1:] = (r[1:] != r[:-1]) | (u[1:] != u[:-1])
+        users = np.bincount(r[new], minlength=counts.size)
+        adv = np.bincount(rid, weights=hits.column("AdvEngineID").to_numpy())
+        width = np.bincount(
+            rid, weights=hits.column("ResolutionWidth").to_numpy())
+        got = [list(map(float, row)) for row in zip(
+            *(result.column(i).to_numpy() for i in range(5)))]
+        want = [[float(x), adv[x], counts[x], width[x] / counts[x],
+                 users[x]] for x in regions]
+        top = sorted(counts)[::-1][:10]
+        if [row[2] for row in got] != top or not all(
+                abs(g - w) <= FLOAT_RTOL * abs(w)
+                for gr, wr in zip(got, want) for g, w in zip(gr, wr)):
+            raise AssertionError(f"ClickBench Q10: {got} != numpy {want}")
+        print(f"ClickBench Q10: its rows match numpy (counts {top})",
+              flush=True)
+        return
+    if got != want:
+        raise AssertionError(f"ClickBench Q{q}: {got} != numpy {want}")
+    print(f"ClickBench Q{q}: {got} matches numpy", flush=True)
+
+
+def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
+    """All 43 queries over generate_hits(n, seed), its string columns
+    dictionary-encoded once, as a Parquet reader with dictionary pages
+    gives them: a fresh session for each query (so its scan cache, keyed
+    by projection, holds one query's columns at a time), one warm-up and
+    ``runs`` timed runs, the launches counted in the first timed run."""
+    from sail_tpu_torch.benchmarks import clickbench as cb
+
+    t = time.perf_counter()
+    hits = cb.generate_hits(n, seed, dictionary=True)
+    report = {"generate_s": time.perf_counter() - t, "rows": n,
+              "dictionary_entries": {
+                  name: len(col.chunk(0).dictionary)
+                  for name, col in zip(hits.column_names, hits.columns)
+                  if pa.types.is_dictionary(col.type)},
+              "launches_on_path": {}}
+    print(f"generated hits: {n} rows, {hits.nbytes / 2**30:.2f} GiB of "
+          f"Arrow, in {report['generate_s']:.1f} s; dictionary entries "
+          f"{report['dictionary_entries']}", flush=True)
+    counters = _counters()
+
+    def zero_counts():
+        for fn in counters.values():
+            fn.launches = 0
+
+    with timed_uploads() as upload:
+        for name, sql in _cb_queries(mechanisms=False).items():
+            q = int(name[2:])
+            spark = _hits_session(hits, "cuda")
+            torch.cuda.reset_peak_memory_stats()
+            upload_before = upload["s"]
+            zero_counts()
+            t = time.perf_counter()
+            result = spark.sql(sql).toArrow()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t
+            built = spark.dict_tables.builds
+            times = []
+            for i in range(runs):
+                if i == 0:
+                    zero_counts()
+                t = time.perf_counter()
+                result = spark.sql(sql).toArrow()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+                if i == 0:
+                    launches = {k: fn.launches for k, fn in counters.items()}
+            if spark.dict_tables.builds != built:
+                raise AssertionError(f"ClickBench Q{q}: a steady run built "
+                                     f"{spark.dict_tables.builds - built} "
+                                     f"dictionary tables")
+            entry = dict(first_s=first, upload_s=upload["s"] - upload_before,
+                         query_s=times, rows=result.num_rows,
+                         peak_bytes=torch.cuda.max_memory_allocated(),
+                         dict_tables=built)
+            report["launches_on_path"][name] = launches
+            if profile:
+                entry["profile"] = profile_query(spark, sql)
+            report[name] = entry
+            ms = sorted(x * 1e3 for x in times)
+            print(f"ClickBench Q{q} at {n} rows: first run {first:.3f} s "
+                  f"(upload {entry['upload_s']:.3f} s, {built} dictionary "
+                  f"tables built), then {', '.join(f'{x:.1f}' for x in ms)} "
+                  f"ms; {result.num_rows} rows; peak "
+                  f"{entry['peak_bytes'] / 2**30:.2f} GiB; launches in one "
+                  f"run { {k: v for k, v in launches.items() if v} }",
+                  flush=True)
+            if q in (1, 5, 10):
+                check_cb_oracle(q, result, hits)
+            for kernel in PATH_KERNELS[name]:
+                if launches[kernel] == 0:
+                    raise AssertionError(f"{kernel} never launched on "
+                                         f"ClickBench Q{q}'s path")
+            spark.stop()
+            del spark, result
+            torch.cuda.empty_cache()
+        report["upload_bytes"] = upload["bytes"]
     return report
 
 
 def main() -> int:
+    from sail_tpu_torch.benchmarks.clickbench import PUBLISHED_ROWS
+
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=10.0,
                     help="TPC-H scale factor of the main path (default 10)")
@@ -1209,6 +1460,14 @@ def main() -> int:
                          "SF10's)")
     ap.add_argument("--runs", type=int, default=3,
                     help="timed runs of each query (default 3)")
+    ap.add_argument("--cb-rows", type=int, default=PUBLISHED_ROWS,
+                    help="hits rows of the ClickBench main path (default "
+                         f"{PUBLISHED_ROWS:,}, the published dataset's)")
+    ap.add_argument("--cb-check-rows", type=int, default=1_000_000,
+                    help="hits rows of the ClickBench check against the CPU "
+                         "(default 1,000,000)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the generated hits tables (default 0)")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one more run of each query with "
                          "torch.profiler and print device time by kernel")
@@ -1264,8 +1523,21 @@ def main() -> int:
     report = run_main_path(tables, args.sf, args.runs,
                            (small, small_tables, args.check_sf), args.profile)
     phases["main_path"] = time.perf_counter() - t
+    small.stop()
+    del tables, small_tables, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    cb_checks = check_clickbench(args.cb_check_rows, args.seed)
+    phases["clickbench_correctness"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    cb_report = run_clickbench(args.cb_rows, args.seed, args.runs,
+                               args.profile)
+    phases["clickbench_main_path"] = time.perf_counter() - t
     print(f"phase wall times (s): {phases}", flush=True)
-    on_path = report["launches_on_path"]
+    on_path = {**report["launches_on_path"], **cb_report["launches_on_path"]}
     kernels = [dict(name=e["name"], route="cuda", source=e["source"],
                     replaces=e["replaces"],
                     launches=sum(c[e["name"]] for c in on_path.values()),
@@ -1280,13 +1552,18 @@ def main() -> int:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} launched on no query's path")
     full = {"main_path": report, "checks": checks, "sf": args.sf,
-            "check_sf": args.check_sf, "phases_s": phases,
-            "kernel_rows": args.kernel_rows, "kernels": kernels, "smi": smi}
+            "check_sf": args.check_sf, "clickbench": cb_report,
+            "clickbench_checks": cb_checks, "cb_rows": args.cb_rows,
+            "cb_check_rows": args.cb_check_rows, "seed": args.seed,
+            "phases_s": phases, "kernel_rows": args.kernel_rows,
+            "kernels": kernels, "smi": smi}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(full, indent=1))
-    print(json.dumps({k: full[k] for k in ("main_path", "checks", "sf",
-                                           "check_sf", "phases_s")}))
+    print(json.dumps({k: full[k] for k in (
+        "main_path", "checks", "sf", "check_sf", "clickbench",
+        "clickbench_checks", "cb_rows", "cb_check_rows", "seed",
+        "phases_s")}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -249,7 +249,9 @@ def _column_to_arrow(data, validity, d, dictionary, has_dict) -> pa.Array:
     if isinstance(d, (dt.StringType, dt.BinaryType)) and has_dict:
         codes = pa.array(data.astype(np.int32),
                          mask=None if validity is None else ~validity)
-        arr = pa.DictionaryArray.from_arrays(codes, dictionary).cast(
+        # only the rows' values: a dictionary may be too large for the
+        # result's 32-bit offsets
+        arr = dictionary.take(codes).cast(
             pa.string() if isinstance(d, dt.StringType) else pa.binary())
     elif isinstance(d, dt.DecimalType) and d.physical_dtype == "int64":
         arr = _unscaled_int64_to_decimal(data, validity, d)

@@ -38,7 +38,7 @@ from ..plan import join_reorder as jr
 from ..plan import nodes as pn
 from ..plan import rex as rx
 from ..plan import runtime_filters as rtfp
-from ..plan.compiler import ExprCompiler
+from ..plan.compiler import DictTables, ExprCompiler
 from ..spec import data_type as dt
 from ..spec.literal import Literal as LV
 
@@ -79,20 +79,24 @@ class _Rtf(NamedTuple):
 class LocalExecutor:
     """Runs one plan on ``device``. The session passes the same
     ``scan_cache`` (a memory scan's key → its uploaded batch, so a table's
-    columns upload once) and ``rtf_history`` (a join's runtime-filter key
+    columns upload once), ``rtf_history`` (a join's runtime-filter key
     → the prune ratio it last observed; joins whose filters proved useless
-    skip the build on later runs) to every executor it makes. ``config``
-    is the session's conf. ``runtime_filters`` logs, for each filter this
-    executor built, the rows it saw and kept at the scans and at the
-    join."""
+    skip the build on later runs) and ``dict_tables`` (the lookup and
+    rank tables made from string dictionaries) to every executor it
+    makes. ``config`` is the session's conf. ``runtime_filters`` logs, for
+    each filter this executor built, the rows it saw and kept at the
+    scans and at the join."""
 
     def __init__(self, device, scan_cache: Optional[dict] = None,
                  config: Optional[dict] = None,
-                 rtf_history: Optional[dict] = None):
+                 rtf_history: Optional[dict] = None,
+                 dict_tables: Optional[DictTables] = None):
         self.device = torch.device(device)
         self.scan_cache = {} if scan_cache is None else scan_cache
         self.config = config or {}
         self.rtf_history = {} if rtf_history is None else rtf_history
+        self.dict_tables = DictTables() if dict_tables is None \
+            else dict_tables
         self.runtime_filters: List[dict] = []
         self._subquery_cache: Dict[int, LV] = {}
         # per-fid (rows before, rows after as a device scalar) of the
@@ -123,7 +127,7 @@ class LocalExecutor:
 
     def _eval_scalar(self, sub: rx.RScalarSubquery) -> LV:
         inner = LocalExecutor(self.device, self.scan_cache, self.config,
-                              self.rtf_history)
+                              self.rtf_history, self.dict_tables)
         inner._subquery_cache = self._subquery_cache
         table = inner.execute(sub.plan)
         self.runtime_filters.extend(inner.runtime_filters)
@@ -139,7 +143,20 @@ class LocalExecutor:
         by_index = {i: dicts[_col_name(i)] for i in range(len(schema))
                     if _col_name(i) in dicts}
         return ExprCompiler([f.dtype for f in schema], by_index, self.device,
-                            self._subquery_cache)
+                            self._subquery_cache, self.dict_tables)
+
+    def _dict_order(self, dictionary: pa.Array
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(rank of each code by value, code of each rank) on the device,
+        kept in ``dict_tables``."""
+        def build():
+            ranks = ai.dictionary_ranks(dictionary)
+            inverse = np.empty_like(ranks)
+            inverse[ranks] = np.arange(len(ranks), dtype=ranks.dtype)
+            return (torch.from_numpy(ranks).to(self.device),
+                    torch.from_numpy(inverse).to(self.device))
+        return self.dict_tables.get((dictionary,), ("order", self.device),
+                                    build)
 
     def _eval_mask(self, cond: rx.Rex, batch: HostBatch,
                    schema: pn.Schema) -> torch.Tensor:
@@ -278,9 +295,7 @@ class LocalExecutor:
             kdt = rx.rex_type(k.expr)
             if c.dictionary is not None and len(c.dictionary) > 0:
                 # order dictionary codes by VALUE through a rank table
-                ranks = torch.from_numpy(
-                    ai.dictionary_ranks(c.dictionary)).to(self.device)
-                data = ranks[data.long()]
+                data = self._dict_order(c.dictionary)[0][data.long()]
                 kdt = dt.IntegerType()
             keys.append((data, validity, kdt, k.ascending, k.nulls_first))
         perm = sortk.lexsort_perm(keys, sel)
@@ -294,9 +309,9 @@ class LocalExecutor:
 
     # -- aggregation ----------------------------------------------------------
     def _exec_AggregateExec(self, p: pn.AggregateExec) -> HostBatch:
-        if any(a.fn.startswith("__host__") or a.distinct for a in p.aggs):
+        if any(a.fn.startswith("__host__") for a in p.aggs):
             raise NotImplementedError(
-                "host-evaluated and DISTINCT aggregates are not ported yet")
+                "host-evaluated aggregates are not ported yet")
         cols, sel, dicts, _ = self._run_chain(p.input)
         in_schema = p.input.schema
         n = sel.shape[0]
@@ -332,24 +347,38 @@ class LocalExecutor:
             if _col_name(gi) in dicts:
                 out_dicts[_col_name(j)] = dicts[_col_name(gi)]
         ng = len(p.group_indices)
+        distinct: Dict[int, torch.Tensor] = {}  # arg → its distinct rows
         for j, a in enumerate(p.aggs):
             arg = None if a.arg is None else \
                 Column(cols[a.arg][0], cols[a.arg][1], in_schema[a.arg].dtype)
+            if a.distinct and arg is not None:
+                if a.arg not in distinct:
+                    distinct[a.arg] = aggk.distinct_rows(ctx, arg)
+                arg = Column(arg.data, distinct[a.arg], arg.dtype)
             src_dict = None if a.arg is None else dicts.get(_col_name(a.arg))
             col = self._run_agg(ctx, a, arg, src_dict)
             out_cols[_col_name(ng + j)] = Column(col.data, col.validity,
                                                  a.out_dtype)
-            if src_dict is not None and a.fn in ("first", "last"):
+            if src_dict is not None and a.fn in ("min", "max", "first",
+                                                 "last"):
                 out_dicts[_col_name(ng + j)] = src_dict
         out = sortk.compact(DeviceBatch(out_cols, aggk.group_sel(ctx)))
         return HostBatch(out, out_dicts)
 
     def _run_agg(self, ctx, a: pn.AggSpec, arg: Optional[Column],
                  dictionary: Optional[pa.Array]) -> Column:
-        if a.fn in ("min", "max") and dictionary is not None:
-            # needs an order-by-value rank table over the codes
-            raise NotImplementedError(
-                "MIN/MAX over strings is not ported yet")
+        if a.fn in ("min", "max") and dictionary is not None and \
+                len(dictionary) > 1:
+            # MIN/MAX of strings order by VALUE: the codes go through the
+            # dictionary's rank table, K1 reduces the ranks, and the
+            # inverse table turns them back into codes of the dictionary
+            ranks, inverse = self._dict_order(dictionary)
+            col = aggk.agg_min_max(
+                ctx, Column(ranks[arg.data.long()], arg.validity, arg.dtype),
+                is_min=a.fn == "min")
+            top = len(dictionary) - 1  # an empty group holds K1's identity
+            return Column(inverse[torch.clamp(col.data, 0, top).long()],
+                          col.validity, col.dtype)
         if a.fn == "count":
             return aggk.agg_count(ctx, arg)
         if a.fn == "sum":
@@ -359,6 +388,8 @@ class LocalExecutor:
         if a.fn in ("first", "last"):
             return aggk.agg_first_last(ctx, arg, is_first=a.fn == "first",
                                        ignore_nulls=a.ignore_nulls)
+        if a.fn in ("bool_and", "bool_or"):
+            return aggk.agg_bool(ctx, arg, is_any=a.fn == "bool_or")
         raise NotImplementedError(f"aggregate {a.fn!r} is not ported yet")
 
     # -- joins ----------------------------------------------------------------

@@ -11,6 +11,8 @@ run of the sort order, reading values through the permutation
 NULL semantics follow Spark: null group keys form their own group; null
 values are skipped by aggregates; COUNT(*) counts rows, COUNT(x) counts
 non-null x; SUM over an all-null group is NULL; MIN/MAX ignore nulls.
+A DISTINCT aggregate reduces the rows ``distinct_rows`` keeps: one of
+each (group, value) pair.
 """
 
 from __future__ import annotations
@@ -553,6 +555,47 @@ def agg_min_max(ctx: GroupContext, value: Column, is_min: bool) -> Column:
     if value.data.dtype == torch.bool:
         out = out.to(torch.bool)
     return Column(out, has, value.dtype)
+
+
+def agg_bool(ctx: GroupContext, value: Column, is_any: bool) -> Column:
+    """bool_or (``is_any``) or bool_and of a boolean column: K1's max or
+    min over it as int8, NULL where a group has no non-null value."""
+    return agg_min_max(ctx, value, is_min=not is_any)
+
+
+def distinct_rows(ctx: GroupContext, value: Column) -> torch.Tensor:
+    """bool[n] in row order: True at one row of each distinct (group,
+    value) pair among the live rows whose value is non-null.
+
+    A DISTINCT aggregate is the plain aggregate of its argument with this
+    as the validity: every row that repeats its pair counts as null (the
+    reference's ``_host_agg_one`` drops nulls, then dedupes the values of
+    a group). The rows sort by (group id, value): the value's K3 order
+    keys, in the grouping's order (``perm`` in sort mode, row order
+    otherwise), then a stable sort by group id. A row is kept where its
+    pair differs from its neighbour's. Values compare by their order keys,
+    so all NaNs are one value and -0.0 is 0.0, as Spark's keys are. No
+    host sync; dead and null rows carry the dead id and sort last."""
+    n = ctx.alive.shape[0]
+    dev = ctx.alive.device
+    if ctx.perm is not None:
+        rows, ids = ctx.perm, ctx.sorted_ids
+    else:
+        rows, ids = torch.arange(n, device=dev), ctx.seg_ids
+    dead = ctx.max_groups
+    keep = ids < dead
+    if value.validity is not None:
+        keep = keep & value.validity[rows]
+    ids = torch.where(keep, ids, dead)
+    bits = order_keys(value.data)[rows]
+    order = torch.sort(bits, stable=True).indices
+    order = order[torch.sort(ids[order], stable=True).indices]
+    ids, bits = ids[order], bits[order]
+    first = ids < dead
+    first[1:] &= (ids[1:] != ids[:-1]) | (bits[1:] != bits[:-1])
+    out = torch.zeros(n, dtype=torch.bool, device=dev)
+    out[rows[order]] = first
+    return out
 
 
 def agg_first_last(ctx: GroupContext, value: Column, is_first: bool,

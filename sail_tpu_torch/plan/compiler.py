@@ -9,14 +9,18 @@ tensors that broadcast against columns.
 Ported subset: column refs, literals, pre-evaluated scalar subqueries,
 casts between numeric, decimal, boolean and date types and from strings,
 CASE (over strings too), decimal ``+ - *`` with rescale, ``/``,
-comparisons (of strings through unified dictionaries), Kleene
-AND/OR/NOT, the null-handling functions, IN, LIKE/ILIKE/RLIKE, the
-date fields, date ± interval arithmetic and the dictionary transforms
-(``substring`` among them). Strings stay int32 dictionary codes on the
-device; every string function runs on the host over the dictionary at
-bind time and reaches the device as a lookup table. Anything else raises
-``NotImplementedError`` naming the expression; nothing falls back
-silently.
+comparisons (of strings through unified dictionaries, or against a
+literal), Kleene AND/OR/NOT, the null-handling functions, IN,
+LIKE/ILIKE/RLIKE, the date and time fields, ``trunc``/``date_trunc``,
+date ± interval arithmetic and the dictionary transforms (``substring``
+among them). Strings stay int32 dictionary codes on the device; every
+string function runs on the host over the dictionary at bind time
+(Arrow's kernels where their result is Spark's: LIKE, the lengths,
+comparisons with a literal) and reaches the device as a lookup table.
+Those tables are kept from one query to the next in a ``DictTables``
+(the session's), keyed by the dictionary objects they were made from: a
+steady query builds none. Anything else raises ``NotImplementedError``
+naming the expression; nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import datetime
 import decimal
 import re
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pyarrow as pa
@@ -37,6 +41,7 @@ from ..columnar.batch import physical_torch_dtype
 from ..functions import kernels as K
 from ..spec import data_type as dt
 from ..spec.literal import Literal as LV
+from ..utils.tz import session_timezone_name
 from . import rex as rx
 
 CV = K.CV
@@ -52,6 +57,35 @@ class Compiled:
     dictionary: Optional[pa.Array] = None  # for string/binary outputs
 
 
+class DictTables:
+    """What queries derive from string dictionaries (lookup tables on the
+    device, rank tables, transformed dictionaries), kept for the session's
+    life as the scan cache beside it keeps uploaded columns, and as the
+    reference's ``_OP_CACHE`` keeps its compiled operators with their
+    tables; ``clear()`` (``SparkSession.stop``) drops them.
+
+    An entry is keyed by the identity of the dictionaries it was made
+    from and by what was made (``key``); it holds those dictionaries, so
+    the ids in its key stay theirs. ``builds`` counts the entries made."""
+
+    def __init__(self):
+        self.builds = 0
+        self._entries: dict = {}
+
+    def get(self, dictionaries: Tuple[pa.Array, ...], key, build):
+        """The entry for (dictionaries, key), made by ``build()`` if it is
+        not kept."""
+        k = (tuple(id(d) for d in dictionaries), key)
+        hit = self._entries.get(k)
+        if hit is None:
+            hit = self._entries[k] = (tuple(dictionaries), build())
+            self.builds += 1
+        return hit[1]
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
 def _is_str(d: dt.DataType) -> bool:
     return isinstance(d, (dt.StringType, dt.BinaryType))
 
@@ -60,26 +94,34 @@ def _unported(r: rx.Rex, why: str) -> NotImplementedError:
     return NotImplementedError(f"{why} is not ported yet: {r!r}")
 
 
+def _text(dictionary: pa.Array) -> pa.Array:
+    """A dictionary's values as Arrow text (binary decodes as UTF-8)."""
+    if pa.types.is_string(dictionary.type) or \
+            pa.types.is_large_string(dictionary.type):
+        return dictionary
+    return dictionary.cast(pa.large_string() if
+                           pa.types.is_large_binary(dictionary.type)
+                           else pa.string())
+
+
 def _dict_strings(dictionary: pa.Array) -> List[Optional[str]]:
-    return dictionary.cast(pa.string()).to_pylist()
+    return _text(dictionary).to_pylist()
 
 
-def like_pattern_to_regex(pattern: str, escape: Optional[str] = None) -> str:
+def _arrow_like(pattern: str, escape: Optional[str] = None) -> str:
+    """A LIKE pattern with escape character ``escape`` (Spark's default:
+    backslash) in Arrow's ``match_like`` syntax, whose escape is the
+    backslash: an escaped character matches itself."""
     esc = escape or "\\"
     out = []
     i = 0
     while i < len(pattern):
         c = pattern[i]
         if c == esc and i + 1 < len(pattern):
-            out.append(re.escape(pattern[i + 1]))
+            out.append("\\" + pattern[i + 1])
             i += 2
             continue
-        if c == "%":
-            out.append(".*")
-        elif c == "_":
-            out.append(".")
-        else:
-            out.append(re.escape(c))
+        out.append("\\\\" if c == "\\" else c)
         i += 1
     return "".join(out)
 
@@ -115,12 +157,20 @@ class ExprCompiler:
 
     def __init__(self, column_types: Sequence[dt.DataType],
                  dictionaries: Dict[int, pa.Array], device,
-                 subquery_values: Optional[Dict[int, LV]] = None):
+                 subquery_values: Optional[Dict[int, LV]] = None,
+                 tables: Optional[DictTables] = None):
         self.column_types = list(column_types)
         self.dicts = dictionaries  # column index → dictionary
         self.device = torch.device(device)
         # id(RScalarSubquery) → its value, evaluated before the plan runs
         self.subquery_values = subquery_values or {}
+        self.tables = DictTables() if tables is None else tables
+
+    def _cached(self, dictionaries: Sequence[pa.Array], key, build):
+        """``build()``'s value for tables on this compiler's device, kept
+        in ``self.tables`` under the dictionaries and ``key``."""
+        return self.tables.get(tuple(dictionaries), (key, self.device),
+                               build)
 
     def compile(self, r: rx.Rex) -> Compiled:
         if isinstance(r, rx.BoundRef):
@@ -151,13 +201,20 @@ class ExprCompiler:
             data = torch.zeros((), dtype=tdt, device=self.device)
             invalid = torch.zeros((), dtype=torch.bool, device=self.device)
             return Compiled(lambda cols: (data, invalid), d,
-                            pa.array([""]) if _is_str(d) else None)
+                            self._literal_dict("") if _is_str(d) else None)
         if _is_str(d):
             code = torch.zeros((), dtype=torch.int32, device=self.device)
-            return Compiled(lambda cols: (code, None), d, pa.array([v.value]))
+            return Compiled(lambda cols: (code, None), d,
+                            self._literal_dict(v.value))
         value = torch.tensor(v.physical_value(), dtype=physical_torch_dtype(d),
                              device=self.device)
         return Compiled(lambda cols: (value, None), d)
+
+    def _literal_dict(self, value) -> pa.Array:
+        """A string literal's one-entry dictionary: one object for each
+        value, so the tables made from it are kept like a column's."""
+        return self.tables.get((), ("literal", type(value), value),
+                               lambda: pa.array([value]))
 
     # -- casts -----------------------------------------------------------
     def _compile_cast(self, r: rx.RCast) -> Compiled:
@@ -209,10 +266,17 @@ class ExprCompiler:
                           ) -> Compiled:
         """Parse each dictionary value on the host; the device gathers the
         parsed value (NULL where it does not parse) by code."""
-        parsed = [_parse_string_value(v, dst)
-                  for v in _dict_strings(child.dictionary)]
-        lut = self._lut([v for v, _ in parsed], physical_torch_dtype(dst))
-        ok = self._lut([good for _, good in parsed], torch.bool)
+        def build():
+            parsed = [_parse_string_value(v, dst)
+                      for v in _dict_strings(child.dictionary)]
+            return (self._lut([v for v, _ in parsed],
+                              physical_torch_dtype(dst)),
+                    self._lut([good for _, good in parsed], torch.bool))
+
+        # a timestamp parses in the session's zone
+        zone = session_timezone_name() \
+            if isinstance(dst, dt.TimestampType) else None
+        lut, ok = self._cached([child.dictionary], ("cast", dst, zone), build)
 
         def fn(cols):
             data, validity = child.fn(cols)
@@ -225,8 +289,44 @@ class ExprCompiler:
     def _lut(self, values, tdt: torch.dtype) -> torch.Tensor:
         """A per-dictionary-code lookup table on the device (one neutral
         entry for an empty dictionary, whose codes are never valid)."""
+        if isinstance(values, np.ndarray):
+            if not values.size:
+                values = np.zeros(1, dtype=values.dtype)
+            return torch.from_numpy(np.require(values, requirements="CW")
+                                    ).to(device=self.device, dtype=tdt)
         return torch.tensor(list(values) or [0], dtype=tdt,
                             device=self.device)
+
+    def _compare_with_literal(self, name: str, col: Compiled, lit: str
+                              ) -> Compiled:
+        """``col <name> lit`` for a non-null string literal: Arrow compares
+        each dictionary value with it (bytewise, as Spark orders strings)
+        into a table of booleans."""
+        def build():
+            values = _text(col.dictionary)
+            hits = _ARROW_CMP[name](values, pa.scalar(lit, values.type))
+            return self._lut(np.asarray(hits.fill_null(False)), torch.bool)
+
+        lut = self._cached([col.dictionary], ("cmp", name, lit), build)
+
+        def fn(cols):
+            d, v = col.fn(cols)
+            hit = lut[d.long()]
+            if name == "<=>":  # never null: a null value is not the literal
+                return (hit if v is None else hit & v), None
+            return hit, v
+
+        return Compiled(fn, dt.BooleanType())
+
+    def _unified_luts(self, dict_a: pa.Array, dict_b: pa.Array,
+                      ordering: bool):
+        """Both sides' codes into one dictionary's codes (its ranks when
+        ``ordering``), as device tables."""
+        merged, ra, rb = unify_dictionaries(dict_a, dict_b)
+        if ordering:
+            ranks = dictionary_ranks(merged)
+            ra, rb = ranks[ra], ranks[rb]
+        return self._lut(ra, torch.int32), self._lut(rb, torch.int32)
 
     # -- case ------------------------------------------------------------
     def _compile_case(self, r: rx.RCase) -> Compiled:
@@ -265,8 +365,13 @@ class ExprCompiler:
         dicts = [v.dictionary for _, v in branches]
         if else_c is not None:
             dicts.append(else_c.dictionary)
-        merged, remaps = _merge_dicts(dicts)
-        luts = [self._lut(rm, torch.int32) for rm in remaps]
+
+        def build():
+            merged, remaps = _merge_dicts(dicts)
+            return merged, [self._lut(rm, torch.int32) for rm in remaps]
+        merged, luts = self._cached([d for d in dicts if d is not None],
+                                    ("merge", tuple(d is None for d in dicts)),
+                                    build)
 
         def fn(cols):
             if else_c is not None:
@@ -297,7 +402,8 @@ class ExprCompiler:
             out = self._compile_string_call(r, args)
             if out is not None:
                 return out
-            raise _unported(r, f"function {r.fn!r} over strings")
+            if r.fn not in _FORMAT_ARG_FNS:
+                raise _unported(r, f"function {r.fn!r} over strings")
         builder = _BUILDERS.get(r.fn)
         if builder is None:
             raise _unported(r, f"function {r.fn!r}")
@@ -329,12 +435,19 @@ class ExprCompiler:
         if name in _CMP_OPS or name == "<=>":
             a, b = args
             if _is_str(a.dtype) and _is_str(b.dtype):
-                merged, ra, rb = unify_dictionaries(dict_of(a), dict_of(b))
-                if name not in ("==", "!=", "<=>"):
-                    ranks = dictionary_ranks(merged)
-                    ra, rb = ranks[ra], ranks[rb]
-                lut_a = self._lut(ra, torch.int32)
-                lut_b = self._lut(rb, torch.int32)
+                lit = _string_literal(r.args[1]) if a.dictionary is not None \
+                    else None
+                if lit is not None:
+                    return self._compare_with_literal(name, a, lit)
+                lit = _string_literal(r.args[0]) if b.dictionary is not None \
+                    else None
+                if lit is not None:
+                    return self._compare_with_literal(
+                        _FLIPPED.get(name, name), b, lit)
+                lut_a, lut_b = self._cached(
+                    [dict_of(a), dict_of(b)], ("unify", name in _ORDERING),
+                    lambda: self._unified_luts(a.dictionary, b.dictionary,
+                                               name in _ORDERING))
 
                 def fn(cols):
                     (ad, av), (bd, bv) = a.fn(cols), b.fn(cols)
@@ -364,16 +477,21 @@ class ExprCompiler:
             pat_dict = _dict_strings(dict_of(pat))
             if len(pat_dict) != 1:
                 raise _unported(r, "a LIKE pattern that is not a literal")
-            pattern = pat_dict[0]
-            if name == "rlike":
-                match = re.compile(_jre(pattern)).search
-            else:
-                flags = re.IGNORECASE if name == "ilike" else 0
-                match = re.compile(like_pattern_to_regex(
-                    pattern, opts.get("escape")), flags).fullmatch
-            lut = self._lut([bool(v is not None and match(v))
-                             for v in _dict_strings(dict_of(child))],
-                            torch.bool)
+            pattern, escape = pat_dict[0], opts.get("escape")
+            values = dict_of(child)
+
+            def build():
+                if name == "rlike":
+                    match = re.compile(_jre(pattern)).search
+                    hits = [bool(v is not None and match(v))
+                            for v in _dict_strings(values)]
+                else:
+                    hits = pc.match_like(
+                        _text(values), _arrow_like(pattern, escape),
+                        ignore_case=name == "ilike").fill_null(False)
+                return self._lut(np.asarray(hits, dtype=bool), torch.bool)
+
+            lut = self._cached([values], (name, pattern, escape), build)
             return by_code(child, lut, dt.BooleanType())
 
         if name == "in":
@@ -383,9 +501,25 @@ class ExprCompiler:
             items = set()
             for a in args[1:]:
                 items.update(_dict_strings(dict_of(a)))
-            lut = self._lut([v in items for v in
-                             _dict_strings(dict_of(child))], torch.bool)
+            values = dict_of(child)
+
+            def build():
+                text = _text(values)
+                return self._lut(np.asarray(pc.is_in(
+                    text, value_set=pa.array(sorted(items), type=text.type))),
+                    torch.bool)
+
+            lut = self._cached([values], ("in", tuple(sorted(items))), build)
             return by_code(child, lut, dt.BooleanType())
+
+        length = _ARROW_LENGTHS.get(name)
+        if length is not None:
+            values = dict_of(args[0])
+            tdt = physical_torch_dtype(r.dtype)
+            # no dictionary value is null
+            lut = self._cached([values], name, lambda: self._lut(
+                np.asarray(length(_text(values))), tdt))
+            return by_code(args[0], lut, r.dtype)
 
         # dictionary transforms: apply to the dictionary values on the host
         transform = _STRING_TRANSFORMS.get(name)
@@ -405,23 +539,35 @@ class ExprCompiler:
                         raise _unported(r, f"a non-literal argument to "
                                            f"{name!r}")
                     extra.append(lit)
-            out_vals = [None if v is None else transform(v, *extra)
-                        for v in _dict_strings(dict_of(child))]
+            values = dict_of(child)
             if _is_str(r.dtype):
                 # canonicalize: transforms can map distinct inputs to equal
                 # outputs (substring!), and equality/grouping runs on codes —
                 # re-encode and remap so equal strings share one code.
-                new_dict, remap, null_out = _canonical_dict(out_vals)
-                out = by_code(child, self._lut(remap, torch.int32), r.dtype,
-                              None if null_out is None else
-                              self._lut(null_out, torch.bool))
-                return Compiled(out.fn, r.dtype, new_dict)
+                def build():
+                    new_dict, remap, null_out = _canonical_dict(
+                        [None if v is None else transform(v, *extra)
+                         for v in _dict_strings(values)])
+                    return new_dict, self._lut(remap, torch.int32), \
+                        None if null_out is None else \
+                        self._lut(null_out, torch.bool)
+
+                new_dict, lut, ok = self._cached([values],
+                                                 (name, tuple(extra)), build)
+                return Compiled(by_code(child, lut, r.dtype, ok).fn, r.dtype,
+                                new_dict)
             tdt = physical_torch_dtype(r.dtype)
-            return by_code(child,
-                           self._lut([0 if v is None else v
-                                      for v in out_vals], tdt), r.dtype,
-                           self._lut([v is not None for v in out_vals],
-                                     torch.bool))
+
+            def build():
+                out_vals = [None if v is None else transform(v, *extra)
+                            for v in _dict_strings(values)]
+                return (self._lut([0 if v is None else v for v in out_vals],
+                                  tdt),
+                        self._lut([v is not None for v in out_vals],
+                                  torch.bool))
+
+            lut, ok = self._cached([values], (name, tuple(extra)), build)
+            return by_code(child, lut, r.dtype, ok)
 
         if name == "concat":
             return self._compile_concat(r, args, dict_of)
@@ -437,25 +583,34 @@ class ExprCompiler:
         parts = []
         col = None
         for a in args:
-            vals = _dict_strings(dict_of(a))
-            if len(vals) == 1:
-                parts.append(("lit", vals[0]))
+            if len(dict_of(a)) == 1:
+                parts.append(("lit", _dict_strings(a.dictionary)[0]))
             else:
                 col = a
                 parts.append(("col", None))
         if col is None:
             return self._compile_literal(
                 LV.string("".join(p[1] or "" for p in parts)), r)
-        out_vals = [None if v is None else
-                    "".join(v if p[0] == "col" else (p[1] or "")
-                            for p in parts)
-                    for v in _dict_strings(col.dictionary)]
+        out_dict = self._cached(
+            [col.dictionary], ("concat", tuple(parts)),
+            lambda: pa.array([None if v is None else
+                              "".join(v if p[0] == "col" else (p[1] or "")
+                                      for p in parts)
+                              for v in _dict_strings(col.dictionary)],
+                             type=pa.string()))
 
         def fn(cols):
             validity = K.merge_validity(*[a.fn(cols)[1] for a in args])
             return col.fn(cols)[0], validity
 
-        return Compiled(fn, r.dtype, pa.array(out_vals, type=pa.string()))
+        return Compiled(fn, r.dtype, out_dict)
+
+
+def _string_literal(r: rx.Rex) -> Optional[str]:
+    """The value of a non-null string literal, else None."""
+    if isinstance(r, rx.RLit) and isinstance(r.dtype, dt.StringType):
+        return r.value.value
+    return None
 
 
 def _extract_literal(c: Compiled):
@@ -562,15 +717,31 @@ def _substring(v: str, start: int, length: Optional[int] = None) -> str:
     return v[i: i + int(length)]
 
 
+_ARROW_CMP = {"==": pc.equal, "!=": pc.not_equal, "<": pc.less,
+              "<=": pc.less_equal, ">": pc.greater, ">=": pc.greater_equal,
+              "<=>": pc.equal}
+_ORDERING = frozenset(("<", "<=", ">", ">="))
+_FLIPPED = {"<": ">", "<=": ">=", ">": "<", ">=": "<="}
+# the lengths of a dictionary's values, by Arrow's kernels: code points
+# (Spark's length), UTF-8 bytes
+_ARROW_LENGTHS: Dict[str, Callable] = {
+    "length": pc.utf8_length,
+    "char_length": pc.utf8_length,
+    "character_length": pc.utf8_length,
+    "octet_length": pc.binary_length,
+    "bit_length": lambda a: pc.multiply(pc.binary_length(a), 8),
+}
+# functions whose string argument is a literal format, which their builder
+# reads at bind time
+_FORMAT_ARG_FNS = frozenset(("trunc", "date_trunc"))
+
+
 # string dictionary transforms: name → fn(value, *extra) → value
 _STRING_TRANSFORMS: Dict[str, Callable] = {
     "upper": lambda v: v.upper(),
     "ucase": lambda v: v.upper(),
     "lower": lambda v: v.lower(),
     "lcase": lambda v: v.lower(),
-    "length": lambda v: len(v),
-    "char_length": lambda v: len(v),
-    "character_length": lambda v: len(v),
     "trim": lambda v, chars=None: v.strip(chars),
     "ltrim": lambda v, chars=None: v.lstrip(chars),
     "rtrim": lambda v, chars=None: v.rstrip(chars),
@@ -597,8 +768,6 @@ _STRING_TRANSFORMS: Dict[str, Callable] = {
     "regexp_replace": lambda v, pat, rep: re.sub(pat, rep, v),
     "translate": lambda v, frm, to: v.translate(
         str.maketrans(frm[: len(to)], to[: len(frm)])),
-    "bit_length": lambda v: len(v.encode()) * 8,
-    "octet_length": lambda v: len(v.encode()),
     "space_trimmed_length": lambda v: len(v.rstrip()),
 }
 
@@ -654,11 +823,16 @@ def _utc_offset(us: torch.Tensor, d: dt.DataType) -> torch.Tensor:
     return offsets[torch.searchsorted(starts, us, right=True) - 1]
 
 
+def _local_us(data: torch.Tensor, d: dt.DataType) -> torch.Tensor:
+    """Session-zone local microseconds for tz-aware timestamps."""
+    us = data.to(torch.int64)
+    return us + _utc_offset(us, d)
+
+
 def _to_days(data: torch.Tensor, d: dt.DataType) -> torch.Tensor:
     if isinstance(d, dt.TimestampType):
-        us = data.to(torch.int64)
         # floor-div towards -inf for pre-epoch correctness
-        return torch.floor_divide(us + _utc_offset(us, d), 86_400_000_000)
+        return torch.floor_divide(_local_us(data, d), 86_400_000_000)
     return data.to(torch.int64)
 
 
@@ -826,6 +1000,88 @@ def _temporal_field(which: str):
     return build
 
 
+def _time_field(which: str):
+    """hour, minute or second of a timestamp, in the session zone."""
+    def build(args, r):
+        a = args[0]
+
+        def fn(cols):
+            xd, xv = a.fn(cols)
+            sec_of_day = torch.floor_divide(_local_us(xd, a.dtype),
+                                            1_000_000) % 86_400
+            if which == "hour":
+                out = sec_of_day // 3600
+            elif which == "minute":
+                out = (sec_of_day // 60) % 60
+            else:
+                out = sec_of_day % 60
+            return out.to(torch.int32), xv
+
+        return fn
+
+    return build
+
+
+_DATE_TRUNC_FMTS = {"year", "yyyy", "yy", "quarter", "month", "mon", "mm",
+                    "week", "day", "dd"}
+_TIME_TRUNC_US = {"hour": 3_600_000_000, "minute": 60_000_000,
+                  "second": 1_000_000, "millisecond": 1_000, "microsecond": 1}
+
+
+def _trunc_builder(args, r):
+    """trunc(date, fmt) / date_trunc(fmt, ts); fmt must be a literal and is
+    read at bind time."""
+    def build_fn(date_arg, fmt_arg, out_is_ts):
+        fmt_vals = [] if fmt_arg.dictionary is None else \
+            _dict_strings(fmt_arg.dictionary)
+        if len(fmt_vals) != 1 or fmt_vals[0] is None:
+            raise _unported(r, "a trunc format that is not a literal")
+        fmt = fmt_vals[0].lower()
+        if fmt not in _DATE_TRUNC_FMTS and \
+                not (out_is_ts and fmt in _TIME_TRUNC_US):
+            raise _unported(r, f"trunc format {fmt!r}")
+
+        def fn(cols):
+            xd, xv = date_arg.fn(cols)
+            if out_is_ts and fmt in _TIME_TRUNC_US:
+                unit = _TIME_TRUNC_US[fmt]
+                us = xd.to(torch.int64)
+                # truncate in LOCAL time (matters for fractional-offset
+                # zones); the offset is constant within any sub-day unit
+                off0 = _utc_offset(us, date_arg.dtype)
+                return torch.floor_divide(us + off0, unit) * unit - off0, xv
+            days = _to_days(xd, date_arg.dtype)
+            y, m, d = civil_from_days(days)
+            if fmt in ("year", "yyyy", "yy"):
+                out_days = days_from_civil(y, torch.ones_like(m),
+                                           torch.ones_like(d))
+            elif fmt == "quarter":
+                out_days = days_from_civil(y, ((m - 1) // 3) * 3 + 1,
+                                           torch.ones_like(d))
+            elif fmt in ("month", "mon", "mm"):
+                out_days = days_from_civil(y, m, torch.ones_like(d))
+            elif fmt == "week":
+                out_days = days - (days + 3) % 7
+            else:  # day / dd
+                out_days = days
+            if out_is_ts:
+                # local midnight back to UTC with the offset AT THE
+                # TRUNCATED BOUNDARY (one fixed-point step handles windows
+                # that span a DST transition)
+                local_mid = out_days * 86_400_000_000
+                guess = local_mid - _utc_offset(xd.to(torch.int64),
+                                                date_arg.dtype)
+                return local_mid - _utc_offset(guess, date_arg.dtype), xv
+            return out_days.to(torch.int32), xv
+
+        return fn
+
+    if isinstance(args[0].dtype, dt.TimestampType) or _is_str(args[0].dtype):
+        # date_trunc(fmt, ts): fmt first
+        return build_fn(args[1], args[0], out_is_ts=True)
+    return build_fn(args[0], args[1], out_is_ts=False)
+
+
 def _in_builder(args, r):
     child, items = args[0], args[1:]
     s = _decimal_scale(child.dtype)
@@ -923,5 +1179,10 @@ _BUILDERS: Dict[str, Callable] = {
     "dayofweek": _temporal_field("dayofweek"),
     "weekday": _temporal_field("weekday"),
     "dayofyear": _temporal_field("dayofyear"),
+    "hour": _time_field("hour"),
+    "minute": _time_field("minute"),
+    "second": _time_field("second"),
+    "trunc": _trunc_builder,
+    "date_trunc": _trunc_builder,
     "rtf_member": _rtf_member_builder,
 }

@@ -20,6 +20,7 @@ import pyarrow as pa
 import torch
 
 from .catalog import CatalogManager
+from .plan.compiler import DictTables
 from .spec import plan as sp
 
 
@@ -79,6 +80,9 @@ class SparkSession:
         # each join's last observed runtime-filter prune ratio
         # (LocalExecutor._rtf_finish)
         self._rtf_history: dict = {}
+        # the lookup and rank tables made from string dictionaries, reused
+        # by every query (plan/compiler.py DictTables)
+        self.dict_tables = DictTables()
         # the runtime filters the last query built, with the rows each saw
         # and kept (LocalExecutor.runtime_filters)
         self.last_runtime_filters: list = []
@@ -98,6 +102,7 @@ class SparkSession:
     def stop(self) -> None:
         self._scan_cache.clear()
         self._rtf_history.clear()
+        self.dict_tables.clear()
         with SparkSession._lock:
             if SparkSession._active is self:
                 SparkSession._active = None
@@ -112,7 +117,7 @@ class SparkSession:
         try:
             node = optimize(Resolver(self.catalog_manager).resolve(plan))
             executor = LocalExecutor(self.device, self._scan_cache, self.conf,
-                                     self._rtf_history)
+                                     self._rtf_history, self.dict_tables)
             try:
                 return executor.execute(node)
             finally:

@@ -1,0 +1,25 @@
+"""The TPC-H timing and host-split script of the port, run on the CPU at
+a small scale factor."""
+
+import json
+
+from sail_tpu_torch.benchmarks import tpch_profile
+
+
+def test_parse_queries():
+    assert tpch_profile.parse_queries("1-4,6,11") == [1, 2, 3, 4, 6, 11]
+
+
+def test_profile_reports_times_and_host_split(tmp_path):
+    out = tmp_path / "report.json"
+    assert tpch_profile.main(["--sf", "0.01", "--queries", "6,1", "--runs",
+                              "3", "--profile", "1", "--device", "cpu",
+                              "--report", str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert report["device"] == "cpu"
+    assert list(report["queries"]) == ["q6", "q1"]
+    assert len(report["queries"]["q6"]["ms"]) == 3
+    assert "torch" not in report["queries"]["q6"]
+    q1 = report["queries"]["q1"]
+    assert q1["torch"]["host_ops_ms"] > 0 and q1["torch"]["host_top"]
+    assert q1["python"]["calls"] > 0 and q1["python"]["top"]
