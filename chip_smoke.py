@@ -8,7 +8,7 @@
                                      # (one command) a smaller, quicker run
     python3 chip_smoke.py --profile  # also trace each query once, with
                                      # its K1 (all launches, then by entry
-                                     # point), K2-K7 device ms, its sorts
+                                     # point), K2-K11 device ms, its sorts
                                      # and its host split
 
 Phases, each of which fails the script (non-zero exit, no result line):
@@ -76,10 +76,34 @@ Phases, each of which fails the script (non-zero exit, no result line):
    ``PATH_KERNELS`` entry names (``CB_PLANS``, from its plan), and no
    steady run builds a dictionary table.
 
+Then, after phase 5 and before the ClickBench phases (on phase 5's
+SF10 tables and phase 4's tables):
+
+8. Window kernels: K8 (window_bounds), K9 (window_ranks), K10's two entry
+   points (window_scan, window_frame) and K11 (window_extreme) at the
+   contexts the window queries build at ``--sf``: lineitem's rows by
+   (l_suppkey; l_shipdate, l_orderkey, l_linenumber), orders' by
+   (o_custkey; o_orderdate), and orders in one segment; K11 at frames of
+   5 and 10,001 rows (past the shared-memory halo). Each against its
+   plain version, then timed beside it and, where one exists, a PyTorch
+   call computing as much (``unique_consecutive`` for K8, ``cumsum`` over
+   the sorted values for K10's scan, ``unfold(...).amin`` for K11 at 5
+   rows).
+9. Window correctness: the queries of ``benchmarks/window_queries.py``
+   (W1-W8, U1, U2) over the tables at ``--check-sf`` on the card
+   against the port's CPU session: integers, decimals, dates and strings
+   exactly, float64 within
+   ``WINDOW_FLOAT_RTOL``; no answer empty unless the CPU's is.
+10. Window main path: the same queries at ``--sf``, one warm-up and
+   ``--runs`` timed runs each, with rows and peak device memory; W1
+   against numpy (the three most expensive orders of each customer), W7
+   against Q17's answer; every query launches what ``PATH_KERNELS``
+   names for it.
+
 It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
-over the TPC-H and ClickBench queries of their one-run counts,
-``launches_on_path`` gives each, ``qN`` and ``cbN``), the ``nvidia-smi``
-name and power limit line, and last
+over the TPC-H, window and ClickBench queries of their one-run counts,
+``launches_on_path`` gives each, ``qN``, ``wN``/``uN`` and ``cbN``), the
+``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -136,6 +160,11 @@ PROFILED_KERNELS = {
     "K5 probe_ranges": re.compile(r"probe_kernel\(|splitter_kernel\("),
     "K6 join_expand": re.compile(r"expand_kernel\("),
     "K7 bloom": re.compile(r"bloom_(build|apply)_kernel[<(]"),
+    "K8 window_bounds": re.compile(r"bounds_(flags|tiles|carry|finish)_kernel"),
+    "K9 window_ranks": re.compile(r"ranks_kernel\("),
+    "K10 window_scan": re.compile(r"scan_(tiles|carry|finish)_kernel<|"
+                                  r"frame_kernel<"),
+    "K11 window_extreme": re.compile(r"extreme_(narrow|chunks|wide)_kernel<"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -1131,13 +1160,18 @@ def _counters():
     from sail_tpu_torch.ops import join as jn
     from sail_tpu_torch.ops import runtime_filter as rf
     from sail_tpu_torch.ops import sort as srt
+    from sail_tpu_torch.ops import window as win
     return {"seg_reduce": agg.seg_reduce,
             "seg_reduce_runs": agg.seg_reduce_runs,
             "direct_group_ids": agg.direct_group_ids,
             "order_keys": srt.order_keys, "join_keys": hsh.join_keys,
             "probe_ranges": jn.probe_ranges_kernel,
             "join_expand": jn.expand_indices,
-            "bloom_build": rf.filter_build, "bloom_apply": rf.apply}
+            "bloom_build": rf.filter_build, "bloom_apply": rf.apply,
+            "window_bounds": win.window_bounds,
+            "window_ranks": win.window_ranks, "window_scan": win.window_scan,
+            "window_frame": win.window_frame,
+            "window_extreme": win.window_extreme}
 
 
 @contextlib.contextmanager
@@ -1247,6 +1281,342 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
     report["upload_bytes"] = upload["bytes"]
     print(f"peak device memory {report['peak_bytes'] / 2**30:.2f} GiB; "
           f"uploaded {upload['bytes'] / 2**30:.2f} GiB", flush=True)
+    spark.stop()
+    return report
+
+
+# ---------------------------------------------------------------------------
+# phases 8-10: windows and unions
+# ---------------------------------------------------------------------------
+
+_K8, _K9 = ("window_bounds",), ("window_ranks",)
+_K10 = ("window_scan", "window_frame")
+# the kernels each window/union query must launch (W4's lag and lead are
+# gathers; the unions group their merged dictionary codes directly)
+WINDOW_PATH = {
+    "w1": _K8 + _K9, "w2": _K8 + _K10, "w3": _K8 + _K10 + ("window_extreme",),
+    "w4": _K8, "w5": _K8 + _K9, "w6": _K8 + _K9 + _JOIN,
+    "w7": _K8 + _K10 + _JOIN, "w8": _K8 + _K9 + _K10,
+    "u1": ("direct_group_ids", "seg_reduce"),
+    "u2": ("direct_group_ids", "seg_reduce"),
+}
+PATH_KERNELS.update(WINDOW_PATH)
+# float64 answers of a window query on the card against the CPU session:
+# the tile scans and K1 add in another order than the CPU's sequential
+# passes (relative)
+WINDOW_FLOAT_RTOL = 1e-9
+# the widths K11 runs at: the queries' 5-row band, and a frame past the
+# shared-memory halo (the chunked path)
+EXTREME_WIDTHS = (5, 10_001)
+
+
+def _device_column(table: pa.Table, name: str, dev) -> torch.Tensor:
+    """A TPC-H column on the card: decimals unscaled, dates as days."""
+    col = table.column(name)
+    if pa.types.is_decimal(col.type):
+        values = _unscaled(col)
+    elif pa.types.is_date(col.type):
+        values = np.asarray(col.combine_chunks().view(pa.int32()))
+    else:
+        values = col.to_numpy()
+    return torch.from_numpy(np.ascontiguousarray(values)).to(dev)
+
+
+def _window_shapes(tables: dict, dev):
+    """(label, partition columns, order columns, values) of the contexts the
+    queries build at this scale: lineitem by (l_suppkey; ORD), orders by
+    (o_custkey; o_orderdate), orders in one segment."""
+    li, od = tables["lineitem"], tables["orders"]
+    c = lambda t, n: _device_column(t, n, dev)  # noqa: E731
+    return [
+        ("lineitem by l_suppkey; l_shipdate, l_orderkey, l_linenumber",
+         [c(li, "l_suppkey")],
+         [c(li, "l_shipdate"), c(li, "l_orderkey"), c(li, "l_linenumber")],
+         c(li, "l_extendedprice")),
+        ("orders by o_custkey; o_orderdate", [c(od, "o_custkey")],
+         [c(od, "o_orderdate")], c(od, "o_totalprice")),
+        ("orders in one segment; o_totalprice, o_orderkey", [],
+         [c(od, "o_totalprice"), c(od, "o_orderkey")], c(od, "o_totalprice")),
+    ]
+
+
+def _timed(label, n, fn, plain, bound_bytes, library=None, compare=None):
+    """One kernel at one shape: its result against its plain version's
+    (``compare``, exact by default), then kernel, plain and library ms."""
+    got, want = fn(), plain()
+    got = got if isinstance(got, (tuple, list)) else [got]
+    want = want if isinstance(want, (tuple, list)) else [want]
+    err = 0.0
+    for g, w in zip(got, want):
+        if g is None:
+            continue
+        err = max(err, compare(g, w) if compare else _max_abs_err(g, w))
+    row = dict(shape=label, n=n, max_abs_err=err, ms=cuda_ms(fn),
+               plain_ms=cuda_ms(plain, 3), bound_ms=_bound_ms(bound_bytes),
+               library_ms=None if library is None else cuda_ms(library))
+    print(f"  {label}: n={n}, max abs err {err:g}, {row['ms']:.3f} ms, "
+          f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms"
+          + ("" if library is None else
+             f", library {row['library_ms']:.3f} ms"), flush=True)
+    return row
+
+
+def _segment_sum_err(got, want, vals, ctx) -> float:
+    """float64 scans: within 1e-12 of the sum of |v| over the segment."""
+    from sail_tpu_torch.ops import window as win
+    scale = win.window_scan_plain(ctx, vals.abs(), None, "sum",
+                                  backward=False)
+    seg_total = scale[ctx.seg_end.clamp(min=0).long()]
+    diff = (got - want).abs()
+    if bool((diff > FLOAT_RTOL * seg_total + 1e-300).any()):
+        raise AssertionError("float64 scan beyond 1e-12 of its segment's "
+                             "sum of |v|")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_window_kernels(tables: dict, dev) -> list:
+    """K8-K11 at the contexts the window queries build from ``tables``
+    (phase 8): each against its plain version, then timed beside it and
+    a PyTorch call that computes as much (the port never calls it).
+    Bounds: bytes once at HBM_BYTES_PER_S."""
+    from sail_tpu_torch.columnar.batch import Column
+    from sail_tpu_torch.ops import window as win
+    from sail_tpu_torch.ops.sort import order_keys
+    from sail_tpu_torch.spec import data_type as dt
+
+    rows = {name: [] for name in ("window_bounds", "window_ranks",
+                                  "window_scan", "window_frame",
+                                  "window_extreme")}
+    for label, part, order, vals in _window_shapes(tables, dev):
+        n = vals.shape[0]
+        sel = torch.ones(n, dtype=torch.bool, device=dev)
+        ctx = win.build_window_context(
+            [Column(p, None, dt.LongType()) for p in part],
+            [(o, None, dt.LongType(), True, None) for o in order], sel)
+        pk = [(order_keys(p), None) for p in part]
+        ok = [(order_keys(o), None) for o in order]
+        perm, n_live = ctx.perm, ctx.n_live
+        print(f"K8-K11 at {label}:", flush=True)
+        first = (pk or ok)[0][0][perm]
+        rows["window_bounds"].append(_timed(
+            f"K8 {label}", n,
+            lambda: win.window_bounds(perm, n_live, pk, ok),
+            lambda: win.window_bounds_plain(perm, n_live, pk, ok),
+            n * (8 + 8 * len(pk + ok) + 5 * 4),
+            lambda: torch.unique_consecutive(first, return_inverse=True,
+                                             return_counts=True)))
+        del first
+        ranks = win._RANKS
+        rows["window_ranks"].append(_timed(
+            f"K9 {label}", n, lambda: list(win.window_ranks(ctx, ranks, 4)
+                                           .values()),
+            lambda: list(win.window_ranks_plain(ctx, ranks, 4).values()),
+            n * (8 + 5 * 4 + 6 * 8)))
+        fvals = vals.to(torch.float64) / 100
+        sorted_vals = vals[perm]
+        rows["window_scan"].append(_timed(
+            f"K10 scan, int64 sum, {label}", n,
+            lambda: win.window_scan(ctx, vals, None, "sum"),
+            lambda: win.window_scan_plain(ctx, vals, None, "sum"),
+            n * (8 + 8 + 4 + 8), lambda: torch.cumsum(sorted_vals, 0)))
+        rows["window_scan"].append(_timed(
+            f"K10 scan, float64 sum, {label}", n,
+            lambda: win.window_scan(ctx, fvals, None, "sum"),
+            lambda: win.window_scan_plain(ctx, fvals, None, "sum"),
+            n * (8 + 8 + 4 + 8), None,
+            lambda g, w: _segment_sum_err(g, w, fvals, ctx)))
+        for backward in (False, True):
+            rows["window_scan"].append(_timed(
+                f"K10 scan, {'backward max' if backward else 'min'}, {label}",
+                n,
+                lambda: win.window_scan(ctx, vals, None, "max" if backward
+                                        else "min", backward),
+                lambda: win.window_scan_plain(ctx, vals, None, "max"
+                                              if backward else "min",
+                                              backward),
+                n * (8 + 8 + 4 + 8)))
+        scan = win.window_scan(ctx, vals, None, "sum")
+        rows["window_frame"].append(_timed(
+            f"K10 frame, avg over rows -6..0, {label}", n,
+            lambda: win.window_frame(ctx, scan, None, "avg", -6, 0),
+            lambda: win.window_frame_plain(ctx, scan, None, "avg", -6, 0),
+            n * (8 + 4 + 4 + 8 + 8 + 1)))
+        rows["window_frame"].append(_timed(
+            f"K10 frame, sum to the last peer, {label}", n,
+            lambda: win.window_frame(ctx, scan, None, "sum", None, 0,
+                                     ctx.peer_end),
+            lambda: win.window_frame_plain(ctx, scan, None, "sum", None, 0,
+                                           ctx.peer_end),
+            n * (8 + 4 + 4 + 4 + 8 + 8 + 1)))
+        del scan, fvals
+        if part:  # K11 at the moving frames of the partitioned contexts
+            for width in EXTREME_WIDTHS:
+                lo, hi = -(width // 2), width // 2
+                # unfold reads width values a row: at 10,001 that is TBs
+                library = None
+                if width <= 16:
+                    pad = sorted_vals.new_full((hi,), torch.iinfo(
+                        torch.int64).max)
+                    library = lambda: torch.cat(  # noqa: E731
+                        [pad, sorted_vals, pad]).unfold(0, width, 1).amin(1)
+                rows["window_extreme"].append(_timed(
+                    f"K11 min over rows {lo}..{hi}, {label}", n,
+                    lambda: win.window_extreme(ctx, vals, None, None, lo, hi,
+                                               "min"),
+                    lambda: win.window_extreme_plain(ctx, vals, None, None,
+                                                     lo, hi, "min"),
+                    n * (8 + 8 + 4 + 4 + 8 + 1), library))
+        del ctx, pk, ok, perm, sorted_vals, part, order, vals, sel
+        torch.cuda.empty_cache()
+    sources = {"window_bounds": ("window_bounds.cu", "sail_tpu/ops/window.py:52"),
+               "window_ranks": ("window_ranks.cu", "sail_tpu/ops/window.py:108"),
+               "window_scan": ("window_scan.cu", "sail_tpu/ops/window.py:328"),
+               "window_frame": ("window_scan.cu", "sail_tpu/ops/window.py:207"),
+               "window_extreme": ("window_extreme.cu",
+                                  "sail_tpu/ops/window.py:293")}
+    entries = []
+    for name, shapes in rows.items():
+        main = shapes[0]
+        src, replaces = sources[name]
+        entries.append(dict(
+            name=name, source=f"sail_tpu_torch/csrc/{src}", replaces=replaces,
+            max_abs_err=max(s["max_abs_err"] for s in shapes),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], library_ms=main["library_ms"],
+            shapes=shapes))
+    return entries
+
+
+def _answers_agree(name: str, got: pa.Table, want: pa.Table) -> None:
+    """Window/union answers: the same rows in the same order; integers,
+    decimals, dates and strings exactly, float64 within
+    WINDOW_FLOAT_RTOL."""
+    if got.schema != want.schema or got.num_rows != want.num_rows:
+        raise AssertionError(f"{name}: {got.num_rows} rows {got.schema} != "
+                             f"{want.num_rows} rows {want.schema}")
+    for i, cname in enumerate(want.column_names):
+        g, w = got.column(i), want.column(i)
+        if pa.types.is_floating(w.type):
+            gv, wv = g.to_numpy(zero_copy_only=False), \
+                w.to_numpy(zero_copy_only=False)
+            ok = np.isclose(gv, wv, rtol=WINDOW_FLOAT_RTOL, atol=0,
+                            equal_nan=True)
+            if not ok.all():
+                raise AssertionError(f"{name} column {cname}: "
+                                     f"{gv[~ok][:3]} != {wv[~ok][:3]}")
+        elif g.to_pylist() != w.to_pylist():
+            raise AssertionError(f"{name} column {cname} differs")
+
+
+def check_window_queries(tables: dict, sf: float) -> dict:
+    """Phase 9: the window and union queries over ``tables`` on the card
+    against the port's CPU session."""
+    from sail_tpu_torch import SparkSession
+    from sail_tpu_torch.benchmarks.window_queries import QUERIES
+
+    card = SparkSession({"spark.sail.device": "cuda"})
+    cpu = SparkSession({"spark.sail.device": "cpu"})
+    _register(card, tables)
+    _register(cpu, tables)
+    report = {}
+    for name, sql in QUERIES.items():
+        t = time.perf_counter()
+        got = card.sql(sql).toArrow()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = cpu.sql(sql).toArrow()
+        cpu_s = time.perf_counter() - t
+        if got.num_rows == 0 and want.num_rows:
+            raise AssertionError(f"{name}: empty answer, the CPU's has "
+                                 f"{want.num_rows} rows")
+        _answers_agree(name, got, want)
+        report[name] = dict(rows=got.num_rows, card_first_s=card_s,
+                            cpu_s=cpu_s)
+        print(f"{name.upper()} SF{sf}: {got.num_rows} rows agree with the "
+              f"CPU session (card {card_s:.2f} s, CPU {cpu_s:.2f} s)",
+              flush=True)
+    card.stop()
+    cpu.stop()
+    return report
+
+
+def _check_w1(result: pa.Table, orders: pa.Table) -> None:
+    """W1 against numpy: the three most expensive orders of each customer
+    (ties by order key), ordered by customer and rank."""
+    cust = orders.column("o_custkey").to_numpy()
+    key = orders.column("o_orderkey").to_numpy()
+    price = _unscaled(orders.column("o_totalprice"))
+    order = np.lexsort((key, -price, cust))
+    c = cust[order]
+    start = np.r_[True, c[1:] != c[:-1]]
+    pos = np.arange(len(c)) - np.maximum.accumulate(
+        np.where(start, np.arange(len(c)), 0))
+    keep = order[pos < 3]
+    want = (cust[keep], key[keep], price[keep], pos[pos < 3] + 1)
+    got = (result.column(0).to_numpy(), result.column(1).to_numpy(),
+           _unscaled(result.column(2)), result.column(3).to_numpy())
+    for g, w, label in zip(got, want, ("custkey", "orderkey", "totalprice",
+                                       "rn")):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"W1: {label} differs from numpy")
+
+
+def run_window_path(tables: dict, sf: float, runs: int,
+                    profile: bool) -> dict:
+    """Phase 10: the window and union queries at ``sf``, one warm-up and
+    ``runs`` timed runs each; W1 against numpy, W7 against Q17's answer,
+    and every query's launches against PATH_KERNELS."""
+    from sail_tpu_torch import SparkSession
+    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES as TPCH
+    from sail_tpu_torch.benchmarks.window_queries import QUERIES
+
+    spark = SparkSession({"spark.sail.device": "cuda"})
+    _register(spark, tables)
+    counters = _counters()
+    report = {"launches_on_path": {}}
+    for name, sql in QUERIES.items():
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        result = spark.sql(sql).toArrow()
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        times = []
+        for i in range(runs):
+            if i == 0:
+                for fn in counters.values():
+                    fn.launches = 0
+            t = time.perf_counter()
+            result = spark.sql(sql).toArrow()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                launches = {k: fn.launches for k, fn in counters.items()}
+        report["launches_on_path"][name] = launches
+        entry = dict(first_s=first, query_s=times, rows=result.num_rows,
+                     peak_bytes=torch.cuda.max_memory_allocated())
+        if profile:
+            entry["profile"] = profile_query(spark, sql)
+        if name == "w1":
+            _check_w1(result, tables["orders"])
+        elif name == "w7":
+            q17 = spark.sql(TPCH[17]).toArrow()
+            if result.column(0).to_pylist() != q17.column(0).to_pylist():
+                raise AssertionError(f"W7 {result.column(0).to_pylist()} != "
+                                     f"Q17 {q17.column(0).to_pylist()}")
+            entry["q17"] = q17.column(0).to_pylist()
+        report[name] = entry
+        print(f"{name.upper()} SF{sf}: first run {first:.3f} s, then "
+              f"{', '.join(f'{x * 1e3:.1f} ms' for x in times)}; "
+              f"{result.num_rows} rows; peak "
+              f"{entry['peak_bytes'] / 2**30:.2f} GiB; launches in one run "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for kernel in PATH_KERNELS[name]:
+            if launches[kernel] == 0:
+                raise AssertionError(f"{kernel} never launched on "
+                                     f"{name.upper()}'s path")
     spark.stop()
     return report
 
@@ -1523,6 +1893,19 @@ def main() -> int:
     report = run_main_path(tables, args.sf, args.runs,
                            (small, small_tables, args.check_sf), args.profile)
     phases["main_path"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    entries += check_window_kernels(tables, dev)
+    phases["window_kernels"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    win_checks = check_window_queries(small_tables, args.check_sf)
+    phases["window_correctness"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    win_report = run_window_path(tables, args.sf, args.runs, args.profile)
+    phases["window_main_path"] = time.perf_counter() - t
     small.stop()
     del tables, small_tables, small
     gc.collect()
@@ -1537,7 +1920,8 @@ def main() -> int:
                                args.profile)
     phases["clickbench_main_path"] = time.perf_counter() - t
     print(f"phase wall times (s): {phases}", flush=True)
-    on_path = {**report["launches_on_path"], **cb_report["launches_on_path"]}
+    on_path = {**report["launches_on_path"], **win_report["launches_on_path"],
+               **cb_report["launches_on_path"]}
     kernels = [dict(name=e["name"], route="cuda", source=e["source"],
                     replaces=e["replaces"],
                     launches=sum(c[e["name"]] for c in on_path.values()),
@@ -1552,7 +1936,9 @@ def main() -> int:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']} launched on no query's path")
     full = {"main_path": report, "checks": checks, "sf": args.sf,
-            "check_sf": args.check_sf, "clickbench": cb_report,
+            "check_sf": args.check_sf, "window": win_report,
+            "window_checks": win_checks,
+            "clickbench": cb_report,
             "clickbench_checks": cb_checks, "cb_rows": args.cb_rows,
             "cb_check_rows": args.cb_check_rows, "seed": args.seed,
             "phases_s": phases, "kernel_rows": args.kernel_rows,
@@ -1561,7 +1947,8 @@ def main() -> int:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(full, indent=1))
     print(json.dumps({k: full[k] for k in (
-        "main_path", "checks", "sf", "check_sf", "clickbench",
+        "main_path", "checks", "sf", "check_sf", "window", "window_checks",
+        "clickbench",
         "clickbench_checks", "cb_rows", "cb_check_rows", "seed",
         "phases_s")}))
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,9 @@
 """Local executor: physical plan → tensors on one device → Arrow.
 
 The PyTorch counterpart of ``sail_tpu/exec/local.py`` for Scan (in-memory
-tables), Filter, Project, Aggregate, Sort, Limit and Join (equi-joins of
+tables), OneRow, Values, Range, Filter, Project, Aggregate, Sort, Limit,
+Window, Union (UNION ALL; UNION DISTINCT, INTERSECT and EXCEPT resolve
+to aggregates and semi/anti joins above it) and Join (equi-joins of
 every type, cross joins, NOT IN), with runtime join filters and scalar
 subqueries. Any other operator raises ``NotImplementedError``.
 
@@ -34,6 +36,7 @@ from ..ops import hash as hashk
 from ..ops import join as joink
 from ..ops import runtime_filter as rtfk
 from ..ops import sort as sortk
+from ..ops import window as wink
 from ..plan import join_reorder as jr
 from ..plan import nodes as pn
 from ..plan import rex as rx
@@ -41,6 +44,13 @@ from ..plan import runtime_filters as rtfp
 from ..plan.compiler import DictTables, ExprCompiler
 from ..spec import data_type as dt
 from ..spec.literal import Literal as LV
+
+
+# window functions computed by K9, and those whose output keeps the
+# argument's dictionary
+_RANK_FNS = ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
+             "ntile")
+_DICT_KEEPING = ("lag", "lead", "min", "max", "first", "last", "nth_value")
 
 
 def _col_name(i: int) -> str:
@@ -257,6 +267,30 @@ class LocalExecutor:
             self._rtf_scan_stats[t.fid] = (hb.capacity, sel.sum())
         return HostBatch(hb.device.with_sel(sel), hb.dicts)
 
+    def _exec_OneRowExec(self, p: pn.OneRowExec) -> HostBatch:
+        return HostBatch(DeviceBatch({}, torch.ones(
+            1, dtype=torch.bool, device=self.device)), {})
+
+    def _exec_ValuesExec(self, p: pn.ValuesExec) -> HostBatch:
+        arrays = []
+        for j, f in enumerate(p.out_schema):
+            vals = [row[j].value for row in p.rows]
+            at = ai.spec_type_to_arrow(f.dtype)
+            if isinstance(f.dtype, dt.YearMonthIntervalType):
+                vals = [None if v is None else (int(v), 0, 0) for v in vals]
+            arrays.append(pa.array(vals, type=at))
+        table = pa.table({_col_name(j): a for j, a in enumerate(arrays)})
+        return ai.from_arrow(table, self.device)
+
+    def _exec_RangeExec(self, p: pn.RangeExec) -> HostBatch:
+        ids = torch.arange(p.start, p.end, p.step, dtype=torch.int64,
+                           device=self.device) if p.step else \
+            torch.empty(0, dtype=torch.int64, device=self.device)
+        return HostBatch(DeviceBatch(
+            {_col_name(0): Column(ids, None, dt.LongType())},
+            torch.ones(ids.shape[0], dtype=torch.bool, device=self.device)),
+            {})
+
     # -- unary operators ----------------------------------------------------
     def _exec_ProjectExec(self, p: pn.ProjectExec) -> HostBatch:
         return self._chain_batch(p)
@@ -391,6 +425,160 @@ class LocalExecutor:
         if a.fn in ("bool_and", "bool_or"):
             return aggk.agg_bool(ctx, arg, is_any=a.fn == "bool_or")
         raise NotImplementedError(f"aggregate {a.fn!r} is not ported yet")
+
+    # -- windows --------------------------------------------------------------
+    def _exec_WindowExec(self, p: pn.WindowExec) -> HostBatch:
+        """One context (a sort and one K8 launch) per (partition, order)
+        key; each context's rank functions in one K9 launch (one more
+        per further ntile bucket count); the aggregates through K10 and
+        K11; lag, lead, nth_value, first and last by gathers."""
+        child = self.run(p.input)
+        in_schema = p.input.schema
+        cols = self._cols(child)
+        sel = child.device.sel
+
+        def ctx_key(s: pn.WindowSpec):
+            return (tuple(s.partition_indices),
+                    tuple((k.expr.index, k.ascending, k.nulls_first)
+                          for k in s.order_keys))
+
+        contexts: Dict[tuple, wink.WindowContext] = {}
+        ranks: Dict[tuple, torch.Tensor] = {}  # (ctx key, fn, ntile n)
+        for s in p.windows:
+            ck = ctx_key(s)
+            if ck in contexts:
+                continue
+            order = []
+            for k in s.order_keys:
+                i = k.expr.index
+                d, v = cols[i]
+                kdt = in_schema[i].dtype
+                dictionary = child.dicts.get(_col_name(i))
+                if dictionary is not None and len(dictionary) > 0:
+                    # order dictionary codes by VALUE through a rank table
+                    d = self._dict_order(dictionary)[0][d.long()]
+                    kdt = dt.IntegerType()
+                order.append((d, v, kdt, k.ascending, k.nulls_first))
+            ctx = wink.build_window_context(
+                [Column(cols[i][0], cols[i][1], in_schema[i].dtype)
+                 for i in s.partition_indices], order, sel)
+            contexts[ck] = ctx
+            mine = [w for w in p.windows if ctx_key(w) == ck]
+            names = sorted({w.function for w in mine
+                            if w.function in _RANK_FNS})
+            tiles = sorted({int(dict(w.options)["n"]) for w in mine
+                            if w.function == "ntile"})
+            for j, n_tiles in enumerate(tiles or [1]):
+                wanted = [f for f in names if f != "ntile" and j == 0] + \
+                    (["ntile"] if tiles else [])
+                if wanted:
+                    for f, t in wink.window_ranks(ctx, wanted,
+                                                  n_tiles).items():
+                        ranks[(ck, f, n_tiles if f == "ntile" else None)] = t
+
+        out_cols = dict(child.device.columns)
+        out_dicts = dict(child.dicts)
+        n_in = len(in_schema)
+        for j, s in enumerate(p.windows):
+            ck = ctx_key(s)
+            ctx = contexts[ck]
+            opts = dict(s.options)
+            f = s.function
+            src_dict = None if s.arg is None else \
+                child.dicts.get(_col_name(s.arg))
+            arg = None if s.arg is None else \
+                Column(cols[s.arg][0], cols[s.arg][1], in_schema[s.arg].dtype)
+            out_dict = src_dict if f in _DICT_KEEPING else None
+            if f in _RANK_FNS:
+                n_tiles = int(opts["n"]) if f == "ntile" else None
+                d, v = ranks[(ck, f, n_tiles)], None
+            elif f in ("lag", "lead"):
+                default = opts.get("default")
+                if isinstance(default, str):
+                    if src_dict is None:
+                        raise ValueError(f"{f}() string default over a "
+                                         f"non-string column")
+                    vals = src_dict.cast(pa.string()).to_pylist()
+                    if default not in vals:  # extend the dictionary
+                        out_dict = pa.array(vals + [default])
+                        vals.append(default)
+                    default = vals.index(default)
+                elif default is not None and \
+                        isinstance(arg.dtype, dt.DecimalType):
+                    # the column holds unscaled decimals: scale the default
+                    default = LV(arg.dtype, default).physical_value()
+                d, v = wink.shift(ctx, arg, int(opts["offset"]), default)
+            elif f == "nth_value":
+                peer = ctx.peer_end if s.frame_type == "range" or \
+                    s.frame_lower is None else None
+                d, v = wink.nth(ctx, arg, int(opts["n"]), peer)
+            else:
+                d, v = self._framed_window(ctx, s, arg, src_dict)
+            tdt = physical_torch_dtype(s.out_dtype)
+            name = _col_name(n_in + j)
+            out_cols[name] = Column(d.to(tdt), v, s.out_dtype)
+            if out_dict is not None:
+                out_dicts[name] = out_dict
+        return HostBatch(DeviceBatch(out_cols, sel), out_dicts)
+
+    def _framed_window(self, ctx, s: pn.WindowSpec, arg: Optional[Column],
+                       dictionary: Optional[pa.Array]):
+        f = s.function
+        inverse = None
+        if f in ("min", "max") and dictionary is not None and \
+                len(dictionary) > 0:
+            # strings compare by VALUE: ranks in, the code of the rank out
+            rank_of, inverse = self._dict_order(dictionary)
+            arg = Column(rank_of[arg.data.long()], arg.validity,
+                         dt.IntegerType())
+        peer = None
+        if s.frame_type == "range":
+            if s.frame_lower is None and s.frame_upper == 0:
+                peer = ctx.peer_end
+            elif not (s.frame_lower is None and s.frame_upper is None):
+                raise NotImplementedError(
+                    "RANGE frames with value offsets are not supported yet")
+        d, v = wink.framed_agg(ctx, arg, f, s.frame_lower, s.frame_upper,
+                               peer)
+        if inverse is not None:
+            d = inverse[torch.clamp(d, 0, len(dictionary) - 1).long()]
+        if f == "avg" and isinstance(arg.dtype, dt.DecimalType):
+            d = d / (10.0 ** arg.dtype.scale)
+        return d, v
+
+    # -- union ----------------------------------------------------------------
+    def _exec_UnionExec(self, p: pn.UnionExec) -> HostBatch:
+        """UNION ALL: the branches' rows one after another. String columns
+        merge their dictionaries and remap each branch's codes on the
+        device; numeric columns take the union's physical type. (UNION
+        DISTINCT, INTERSECT and EXCEPT resolve to an aggregate or a
+        semi/anti join above this.)"""
+        parts = [self.run(c) for c in p.inputs]
+        cols, dicts = {}, {}
+        for i, f in enumerate(p.schema):
+            key = _col_name(i)
+            branch = [b.device.columns[key] for b in parts]
+            if any(key in b.dicts for b in parts):
+                if isinstance(f.dtype, (dt.ArrayType, dt.MapType,
+                                        dt.StructType)):
+                    raise NotImplementedError(
+                        "UNION of nested types is not ported yet (ROADMAP "
+                        "Queue A item 4: nested Arrow types)")
+                from ..plan.compiler import _merge_dicts
+                merged, remaps = _merge_dicts([b.dicts.get(key)
+                                               for b in parts])
+                datas = [torch.from_numpy(rm).to(self.device)[c.data.long()]
+                         if len(rm) else torch.zeros_like(c.data,
+                                                          dtype=torch.int32)
+                         for rm, c in zip(remaps, branch)]
+                dicts[key] = merged
+            else:
+                tdt = physical_torch_dtype(f.dtype)
+                datas = [c.data.to(tdt) for c in branch]
+            cols[key] = Column(torch.cat(datas), _cat_validity(branch),
+                               f.dtype)
+        sel = torch.cat([b.device.sel for b in parts])
+        return HostBatch(DeviceBatch(cols, sel), dicts)
 
     # -- joins ----------------------------------------------------------------
     def _exec_JoinExec(self, p: pn.JoinExec) -> HostBatch:

@@ -87,14 +87,23 @@ def lexsort_perm(keys, sel=None) -> torch.Tensor:
     ascending, last when descending). Dead rows (sel == False) always sort
     last. Returns the int64 permutation of row indices.
     """
+    if not keys:
+        return lexsort_keys([], sel)
+    return lexsort_keys([(order_keys(data, asc), validity,
+                          asc if nf is None else nf)
+                         for data, validity, _d, asc, nf in keys], sel)
+
+
+def lexsort_keys(keys, sel=None) -> torch.Tensor:
+    """``lexsort_perm`` over keys already mapped to K3 order keys:
+    ``keys`` is a sequence of (int64 key, validity, nulls_first), most
+    significant first."""
     n = keys[0][0].shape[0] if keys else sel.shape[0]
     device = keys[0][0].device if keys else sel.device
     perm = torch.arange(n, dtype=torch.int64, device=device)
-    for data, validity, _d, asc, nf in reversed(list(keys)):
-        bits = order_keys(data, asc)
+    for bits, validity, nulls_first in reversed(list(keys)):
         perm = perm[_stable_argsort(bits[perm])]
         if validity is not None:
-            nulls_first = asc if nf is None else nf
             null_rank = (validity if nulls_first else ~validity).to(torch.uint8)
             perm = perm[_stable_argsort(null_rank[perm])]
     if sel is not None:
@@ -111,6 +120,11 @@ def take_column(col: Column, perm: torch.Tensor) -> Column:
 def take_batch(batch: DeviceBatch, perm: torch.Tensor) -> DeviceBatch:
     cols = {n: take_column(c, perm) for n, c in batch.columns.items()}
     return DeviceBatch(cols, batch.sel[perm])
+
+
+def compact_perm(sel: torch.Tensor) -> torch.Tensor:
+    """Permutation moving live rows to the front, preserving order."""
+    return _stable_argsort((~sel).to(torch.uint8))
 
 
 def compact(batch: DeviceBatch) -> DeviceBatch:

@@ -1,0 +1,871 @@
+"""Window functions over tensors: one sort, then segmented passes.
+
+The PyTorch counterpart of ``sail_tpu/ops/window.py``. One sort by
+(partition keys, order keys) gives every window of that key its row
+order; K8 (``window_bounds``) then marks, for each sorted position, its
+segment's and its peer group's first and last positions and its dense
+rank, in one pass over the sorted keys. The window functions read those
+bounds:
+
+- K9 (``window_ranks``): the rank family, each output selected by the
+  caller, in one elementwise pass;
+- K10 (``window_scan``, ``window_frame``): segmented scans (sum, count,
+  min, max; forward or backward) and the frame evaluation of sum, count,
+  avg and the running extremes;
+- K11 (``window_extreme``): MIN/MAX, and float SUM/AVG, over ROWS
+  frames whose two offsets are finite;
+- lag, lead, nth_value, first and last: one gather through the sort
+  permutation each.
+
+Every output is written in ROW order straight from its sorted position,
+``out[perm[i]] = f(i)``, so no inverse permutation is built (the
+reference gathers each output back through one). Every row is written:
+dead rows (``sel`` false; they sort last) get 0, invalid where the output
+has a validity.
+
+Each kernel's wrapper takes the ``*_plain`` version for a CPU tensor; a
+CUDA tensor launches the kernel or raises. Each keeps a ``.launches``
+count. The live-row count stays on the device (no host sync).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from .. import csrc
+from ..columnar.batch import Column
+from .sort import compact_perm, lexsort_keys, order_keys
+
+# kernels' limits (window.cuh: kMaxKeys, kTile; window_extreme.cu:
+# kNarrowMax)
+MAX_KEYS = 16
+TILE = 1024
+NARROW_MAX = 1025
+
+_RANKS = ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
+          "ntile")
+_SCAN_OPS = {"sum": 0, "count": 1, "min": 2, "max": 3}
+_FRAME_FNS = {"sum": 0, "count": 1, "avg": 2, "min": 3, "max": 3}
+_EXTREME_FNS = {"max": 0, "min": 1, "sum": 2, "avg": 3}
+# value types the scan and extreme kernels read (window.cuh: DType)
+_VALUE_TYPES = {torch.int32: 1, torch.int64: 2, torch.float32: 3,
+                torch.float64: 4}
+
+
+class WindowContext:
+    """Sorted row order + segment and peer-group bounds, shared by all
+    windows with the same (partition_by, order_by). Positions are sorted
+    positions; the bounds are int32[n]. Peer groups are those of the order
+    keys the context was built with."""
+
+    def __init__(self, perm, n_live, seg_start, seg_end, peer_start,
+                 peer_end, dense):
+        self.perm = perm              # int64[n] sorted order, live rows first
+        self.n_live = n_live          # 0-d int64: the live rows (on device)
+        self.seg_start = seg_start    # first position of the row's segment
+        self.seg_end = seg_end        # last (live) position of its segment
+        self.peer_start = peer_start  # first position of its peer group
+        self.peer_end = peer_end      # last position of its peer group
+        self.dense = dense            # peer groups of its segment up to it
+        self._counts: Dict[int, tuple] = {}  # id(validity) → (it, its scan)
+
+    @property
+    def alive(self) -> torch.Tensor:
+        """bool[n]: sorted position i holds a live row."""
+        return _positions(self.perm) < self.n_live
+
+    @property
+    def seg_len(self) -> torch.Tensor:
+        return torch.clamp(self.seg_end - self.seg_start + 1, min=0)
+
+    @property
+    def pos(self) -> torch.Tensor:
+        """0-based position of each sorted row in its segment."""
+        return (_positions(self.perm) - self.seg_start).to(torch.int32)
+
+    def count_scan(self, valid: Optional[torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+        """K10's count scan of ``valid`` (row order), made once per
+        validity; None when every live row counts."""
+        if valid is None:
+            return None
+        hit = self._counts.get(id(valid))
+        if hit is None or hit[0] is not valid:
+            hit = (valid, window_scan(self, None, valid, "count"))
+            self._counts[id(valid)] = hit
+        return hit[1]
+
+
+def _positions(like: torch.Tensor) -> torch.Tensor:
+    return torch.arange(like.shape[0], dtype=torch.int64, device=like.device)
+
+
+def _scatter(perm: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tensor:
+    """out[perm[i]] = sorted_vals[i]."""
+    out = torch.empty_like(sorted_vals)
+    out[perm] = sorted_vals
+    return out
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.contiguous()
+
+
+def _check_rows(name: str, n: int, dev: torch.device, **tensors) -> None:
+    for label, t in tensors.items():
+        if t is not None and (t.dim() != 1 or t.shape[0] != n or
+                              t.device != dev):
+            raise TypeError(f"{name}: {label} must be 1-D with {n} rows on "
+                            f"{dev}, got {tuple(t.shape)} on {t.device}")
+
+
+def _check_n_live(name: str, n_live: torch.Tensor, dev) -> torch.Tensor:
+    if n_live.dtype != torch.int64 or n_live.numel() != 1 or \
+            n_live.device != dev:
+        raise TypeError(f"{name}: n_live must be one int64 on {dev}, got "
+                        f"{n_live.dtype}{tuple(n_live.shape)} on "
+                        f"{n_live.device}")
+    return n_live.reshape(1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# K8: segment and peer-group bounds
+# ---------------------------------------------------------------------------
+
+def window_bounds_plain(perm: torch.Tensor, n_live: torch.Tensor,
+                        part_keys: Sequence[Tuple[torch.Tensor,
+                                                  Optional[torch.Tensor]]],
+                        order_keys_: Sequence[Tuple[torch.Tensor,
+                                                    Optional[torch.Tensor]]]
+                        ) -> Tuple[torch.Tensor, ...]:
+    """(seg_start, seg_end, peer_start, peer_end, dense), int32[n] over
+    sorted positions. Keys are (K3 order key, validity or None) in row
+    order, read through ``perm``. Over the live prefix (i < n_live): a
+    segment starts where a partition key or its validity differs from the
+    previous sorted row, a peer group where a segment starts or an order
+    key or its validity differs; ends are the next start - 1 (at most
+    n_live - 1); dense counts the peer groups of the segment up to the
+    row. A dead row i: seg_start = peer_start = peer_end = i, seg_end =
+    n_live - 1 (an empty segment), dense 0."""
+    n = perm.shape[0]
+    idx = _positions(perm)
+    live = idx < n_live
+
+    def changed(keys):
+        ch = torch.zeros(n, dtype=torch.bool, device=perm.device)
+        for key, valid in keys:
+            s = key[perm]
+            ch[1:] |= s[1:] != s[:-1]
+            if valid is not None:
+                v = valid[perm]
+                ch[1:] |= v[1:] != v[:-1]
+        return ch
+
+    new_seg = changed(part_keys)
+    new_seg[:1] = True
+    new_peer = (new_seg | changed(order_keys_)) & live
+    new_seg &= live
+    big = torch.full_like(idx, n)
+
+    def starts(flags):
+        return torch.cummax(torch.where(flags, idx, 0), 0).values
+
+    def ends(flags):
+        # the next start after i, minus 1; n_live - 1 after the last
+        nxt = torch.where(flags, idx, big)
+        nxt = torch.cat([nxt[1:], big[:1]])
+        nxt = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+        return torch.minimum(nxt - 1, n_live - 1)
+
+    seg_start, peer_start = starts(new_seg), starts(new_peer)
+    seg_end, peer_end = ends(new_seg), ends(new_peer)
+    cnt = torch.cumsum(new_peer.to(torch.int64), 0)
+    dense = cnt - cnt[seg_start] + 1
+    dead_end = (n_live - 1).expand(n)
+    out = (torch.where(live, seg_start, idx),
+           torch.where(live, seg_end, dead_end),
+           torch.where(live, peer_start, idx),
+           torch.where(live, peer_end, idx),
+           torch.where(live, dense, 0))
+    return tuple(t.to(torch.int32) for t in out)
+
+
+def window_bounds(perm: torch.Tensor, n_live: torch.Tensor,
+                  part_keys: Sequence[Tuple[torch.Tensor,
+                                            Optional[torch.Tensor]]],
+                  order_keys_: Sequence[Tuple[torch.Tensor,
+                                              Optional[torch.Tensor]]]
+                  ) -> Tuple[torch.Tensor, ...]:
+    """K8: ``window_bounds_plain`` as a kernel on the card.
+
+    Replaces the segment and peer-group arithmetic of
+    ``sail_tpu/ops/window.py`` ``build_window_context`` (:52-78),
+    ``_peer_group_start`` and ``peer_group_end``; the kernel's source
+    (csrc/window_bounds.cu) states its bound and design. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (a flag
+    pass and a three-phase tile scan: four launches) or raises."""
+    if perm.device.type == "cpu":
+        return window_bounds_plain(perm, n_live, part_keys, order_keys_)
+    n, dev = perm.shape[0], perm.device
+    keys = list(part_keys) + list(order_keys_)
+    if perm.dtype != torch.int64 or len(keys) > MAX_KEYS:
+        raise TypeError(f"window_bounds: needs an int64 perm and at most "
+                        f"{MAX_KEYS} keys, got {perm.dtype} and {len(keys)}")
+    n_live = _check_n_live("window_bounds", n_live, dev)
+    keys = [(_contiguous(k), _contiguous(v)) for k, v in keys]
+    for k, v in keys:
+        if k.dtype != torch.int64 or (v is not None and v.dtype != torch.bool):
+            raise TypeError("window_bounds: keys must be int64 (K3 order "
+                            "keys) with bool validities")
+        _check_rows("window_bounds", n, dev, key=k, validity=v)
+    _check_rows("window_bounds", n, dev, perm=perm)
+    perm = perm.contiguous()
+    outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                 for _ in range(5))
+    if n == 0:
+        return outs
+    tiles = -(-n // TILE)
+    flags = torch.empty(n, dtype=torch.uint8, device=dev)
+    scratch = torch.empty(6 * tiles, dtype=torch.int32, device=dev)
+    key_ptrs = (ctypes.c_void_p * MAX_KEYS)(*[k.data_ptr() for k, _ in keys])
+    valid_ptrs = (ctypes.c_void_p * MAX_KEYS)(*[_ptr(v) for _, v in keys])
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_bounds.cu")(
+            perm.data_ptr(), n_live.data_ptr(), n,
+            ctypes.addressof(key_ptrs), ctypes.addressof(valid_ptrs),
+            len(part_keys), len(order_keys_),
+            *[o.data_ptr() for o in outs], flags.data_ptr(),
+            scratch.data_ptr(), csrc.stream_ptr(dev)), "window_bounds")
+    window_bounds.launches += 1
+    return outs
+
+
+window_bounds.launches = 0
+
+
+def build_window_context(partition_cols: Sequence[Column],
+                         order_keys_: Sequence[Tuple], sel) -> WindowContext:
+    """order_keys_: (data, validity, dtype, ascending, nulls_first) tuples.
+    One sort (K3 keys + stable ``torch.sort`` passes, dead rows last),
+    then one K8 launch over the same keys."""
+    keys = [(c.data, c.validity, True, None) for c in partition_cols]
+    keys += [(d, v, asc, nf) for d, v, _dt, asc, nf in order_keys_]
+    bits = [(order_keys(d, asc), v, asc if nf is None else nf)
+            for d, v, asc, nf in keys]
+    perm = lexsort_keys(bits, sel) if bits else compact_perm(sel)
+    n_live = sel.sum()
+    n_part = len(partition_cols)
+    bounds = window_bounds(perm, n_live,
+                           [(k, v) for k, v, _ in bits[:n_part]],
+                           [(k, v) for k, v, _ in bits[n_part:]])
+    return WindowContext(perm, n_live, *bounds)
+
+
+# ---------------------------------------------------------------------------
+# K9: the rank family
+# ---------------------------------------------------------------------------
+
+def window_ranks_plain(ctx: WindowContext, wanted: Sequence[str],
+                       n_tiles: int = 1) -> Dict[str, torch.Tensor]:
+    """The rank functions in ``wanted`` (int64, or float64 for
+    percent_rank and cume_dist), in row order; 0 at dead rows."""
+    live = ctx.alive
+    ss = ctx.seg_start.to(torch.int64)
+    seg_len = ctx.seg_end.to(torch.int64) - ss + 1
+    pos = _positions(ss) - ss
+    out = {}
+    for name in wanted:
+        if name == "row_number":
+            v = pos + 1
+        elif name == "rank":
+            v = ctx.peer_start.to(torch.int64) - ss + 1
+        elif name == "dense_rank":
+            v = ctx.dense.to(torch.int64)
+        elif name == "percent_rank":
+            r = (ctx.peer_start.to(torch.int64) - ss).to(torch.float64)
+            denom = torch.clamp(seg_len - 1, min=1).to(torch.float64)
+            v = torch.where(seg_len > 1, r / denom, 0.0)
+        elif name == "cume_dist":
+            v = (ctx.peer_end.to(torch.int64) - ss + 1).to(torch.float64) \
+                / torch.clamp(seg_len, min=1).to(torch.float64)
+        elif name == "ntile":
+            sl = torch.clamp(seg_len, min=1)
+            base = sl // n_tiles
+            rem = sl % n_tiles
+            big = rem * (base + 1)  # the first `rem` tiles have base+1 rows
+            tile = torch.where(pos < big,
+                               pos // torch.clamp(base + 1, min=1),
+                               rem + (pos - big) // torch.clamp(base, min=1))
+            v = torch.clamp(tile, 0, n_tiles - 1) + 1
+        else:
+            raise ValueError(f"window_ranks: unknown rank function {name!r}")
+        out[name] = _scatter(ctx.perm, torch.where(live, v, 0))
+    return out
+
+
+def window_ranks(ctx: WindowContext, wanted: Sequence[str],
+                 n_tiles: int = 1) -> Dict[str, torch.Tensor]:
+    """K9: ``window_ranks_plain`` as one kernel launch for every function
+    in ``wanted``.
+
+    Replaces ``sail_tpu/ops/window.py`` ``row_number`` (:108), ``rank``
+    (:112), ``dense_rank`` (:117), ``percent_rank`` (:137), ``cume_dist``
+    (:144) and ``ntile`` (:156); csrc/window_ranks.cu states its bound.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel or raises."""
+    bad = [w for w in wanted if w not in _RANKS]
+    if bad or n_tiles < 1:
+        raise ValueError(f"window_ranks: unknown {bad} or n_tiles {n_tiles}")
+    perm = ctx.perm
+    if perm.device.type == "cpu":
+        return window_ranks_plain(ctx, wanted, n_tiles)
+    n, dev = perm.shape[0], perm.device
+    n_live = _check_n_live("window_ranks", ctx.n_live, dev)
+    out = {w: torch.empty(n, dtype=torch.float64 if w in (
+        "percent_rank", "cume_dist") else torch.int64, device=dev)
+        for w in wanted}
+    if n == 0 or not out:
+        return out
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_ranks.cu")(
+            perm.data_ptr(), n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
+            ctx.seg_end.data_ptr(), ctx.peer_start.data_ptr(),
+            ctx.peer_end.data_ptr(), ctx.dense.data_ptr(), n_tiles,
+            *[_ptr(out.get(w)) for w in _RANKS],
+            csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "window_ranks")
+    window_ranks.launches += 1
+    return out
+
+
+window_ranks.launches = 0
+
+
+def row_number(ctx: WindowContext) -> torch.Tensor:
+    return window_ranks(ctx, ("row_number",))["row_number"]
+
+
+def rank(ctx: WindowContext, order_key_bits=None) -> torch.Tensor:
+    """``order_key_bits`` keeps the reference's signature: the peer groups
+    are the context's, which K8 drew from the same order keys."""
+    return window_ranks(ctx, ("rank",))["rank"]
+
+
+def dense_rank(ctx: WindowContext, order_key_bits=None) -> torch.Tensor:
+    return window_ranks(ctx, ("dense_rank",))["dense_rank"]
+
+
+def peer_group_end(ctx: WindowContext, order_key_bits=None) -> torch.Tensor:
+    """Last sorted position of each row's peer group (for RANGE frames)."""
+    return ctx.peer_end
+
+
+def percent_rank(ctx: WindowContext, order_key_bits=None) -> torch.Tensor:
+    return window_ranks(ctx, ("percent_rank",))["percent_rank"]
+
+
+def cume_dist(ctx: WindowContext, order_key_bits=None) -> torch.Tensor:
+    return window_ranks(ctx, ("cume_dist",))["cume_dist"]
+
+
+def ntile(ctx: WindowContext, n_tiles: int) -> torch.Tensor:
+    return window_ranks(ctx, ("ntile",), n_tiles)["ntile"]
+
+
+# ---------------------------------------------------------------------------
+# gathers: lag/lead, nth_value (torch, one gather through perm each)
+# ---------------------------------------------------------------------------
+
+def _gather_sorted(ctx: WindowContext, value: Column, src: torch.Tensor,
+                   ok: torch.Tensor):
+    """(data, validity) of value at sorted positions ``src`` where ``ok``,
+    written in row order; 0 and invalid elsewhere (dead rows too)."""
+    n = src.shape[0]
+    rows = ctx.perm[torch.clamp(src, 0, max(n - 1, 0))]
+    ok = ok & ctx.alive
+    data = torch.where(ok, value.data[rows], torch.zeros_like(value.data[:1]))
+    if value.validity is not None:
+        ok = ok & value.validity[rows]
+    return _scatter(ctx.perm, data), _scatter(ctx.perm, ok)
+
+
+def shift(ctx: WindowContext, value: Column, offset: int, default=None):
+    """lag (offset > 0 looks back) / lead (negative looks forward)."""
+    idx = _positions(ctx.perm)
+    src = idx - offset
+    in_seg = (src >= ctx.seg_start) & (src <= ctx.seg_end)
+    data, validity = _gather_sorted(ctx, value, src, in_seg)
+    if default is not None:
+        outside = _scatter(ctx.perm, ~in_seg & ctx.alive)
+        data = torch.where(outside, torch.full_like(data, default), data)
+        validity = validity | outside
+    return data, validity
+
+
+def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None):
+    """nth_value: the value at the n-th row of the frame (frame start =
+    partition start; the default RANGE frame ends at the current row's
+    LAST PEER, so pass peer_end from peer_group_end)."""
+    ss = ctx.seg_start.to(torch.int64)
+    src = ss + (n_th - 1)
+    end = _positions(ss) if peer_end is None else peer_end.to(torch.int64)
+    ok = (end - ss >= n_th - 1) & (src <= ctx.seg_end)
+    return _gather_sorted(ctx, value, src, ok)
+
+
+# ---------------------------------------------------------------------------
+# K10: segmented scans and the frame evaluation
+# ---------------------------------------------------------------------------
+
+def _identity(dtype: torch.dtype, op: str):
+    if op in ("sum", "count"):
+        return 0
+    if dtype.is_floating_point:
+        return float("inf") if op == "min" else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def _hs_scan(vals: torch.Tensor, start: torch.Tensor, op: str
+             ) -> torch.Tensor:
+    """out[i] = op over vals[start[i]..i] (start[i] > i: vals[i] alone):
+    a Hillis–Steele doubling scan, log2(n) passes."""
+    n = vals.shape[0]
+    idx = _positions(vals)
+    ident = torch.full_like(vals, _identity(vals.dtype, op))
+    out = vals
+    step = 1
+    while step < n:
+        prev = torch.where(idx - step >= start, torch.roll(out, step), ident)
+        if op in ("sum", "count"):
+            out = out + prev
+        else:
+            out = torch.minimum(out, prev) if op == "min" else \
+                torch.maximum(out, prev)
+        step *= 2
+    return out
+
+
+def _scan_values(ctx: WindowContext, vals: Optional[torch.Tensor],
+                 valid: Optional[torch.Tensor], op: str) -> torch.Tensor:
+    """The scan's inputs in sorted order: values through perm, the
+    identity where a row is dead or invalid."""
+    mask = ctx.alive
+    if valid is not None:
+        mask = mask & valid[ctx.perm]
+    if op == "count":
+        return mask.to(torch.int64)
+    v = vals[ctx.perm]
+    if op == "sum":
+        v = v.to(torch.float64 if v.is_floating_point() else torch.int64)
+    return torch.where(mask, v, torch.full_like(v, _identity(v.dtype, op)))
+
+
+def window_scan_plain(ctx: WindowContext, vals: Optional[torch.Tensor],
+                      valid: Optional[torch.Tensor], op: str,
+                      backward: bool = False) -> torch.Tensor:
+    """Segmented inclusive scan in sorted order of ``vals`` (row order,
+    read through perm; None for count) over live rows where ``valid``:
+    forward, out[i] = op over [seg_start[i], i]; backward, over
+    [i, seg_end[i]]. sum is int64 (ints, unscaled decimals) or float64;
+    count int64; min/max keep the value type (NaN propagates). Dead rows
+    hold the identity."""
+    v = _scan_values(ctx, vals, valid, op)
+    if not backward:
+        return _hs_scan(v, ctx.seg_start.to(torch.int64), op)
+    n = v.shape[0]
+    # reversed, a segment [s, e] becomes [n-1-e, n-1-s]; a dead row's
+    # reversed start lies past it, so it holds its identity
+    start = (n - 1 - ctx.seg_end.to(torch.int64)).flip(0)
+    return _hs_scan(v.flip(0), start, op).flip(0)
+
+
+def window_scan(ctx: WindowContext, vals: Optional[torch.Tensor],
+                valid: Optional[torch.Tensor], op: str,
+                backward: bool = False) -> torch.Tensor:
+    """K10's scan: ``window_scan_plain`` as a kernel on the card.
+
+    Replaces ``sail_tpu/ops/window.py`` ``_segmented_scan`` (:328), the
+    global ``cumsum`` of ``framed_agg`` (:207) and ``_segment_count``
+    (:321); csrc/window_scan.cu states its bound and design. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (a
+    three-phase tile scan: three launches) or raises."""
+    perm = ctx.perm
+    if perm.device.type == "cpu":
+        return window_scan_plain(ctx, vals, valid, op, backward)
+    n, dev = perm.shape[0], perm.device
+    if op not in _SCAN_OPS or (vals is None) != (op == "count"):
+        raise TypeError(f"window_scan: op {op!r} with "
+                        f"{'no ' if vals is None else ''}values")
+    n_live = _check_n_live("window_scan", ctx.n_live, dev)
+    code = 0
+    if vals is not None:
+        code = _VALUE_TYPES.get(vals.dtype)
+        if code is None:
+            raise TypeError(f"window_scan: values of {vals.dtype}")
+    if valid is not None and valid.dtype != torch.bool:
+        raise TypeError("window_scan: the validity must be bool")
+    _check_rows("window_scan", n, dev, vals=vals, valid=valid)
+    vals, valid = _contiguous(vals), _contiguous(valid)
+    if op == "count":
+        out_dtype = torch.int64
+    elif op == "sum":
+        out_dtype = torch.float64 if vals.is_floating_point() else torch.int64
+    else:
+        out_dtype = vals.dtype
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    if n == 0:
+        return out
+    scratch = torch.empty(2 * -(-n // TILE), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_scan.cu", "sail_window_scan")(
+            perm.data_ptr(), n_live.data_ptr(), n, _ptr(vals), _ptr(valid),
+            (ctx.seg_end if backward else ctx.seg_start).data_ptr(), code,
+            _SCAN_OPS[op], int(backward), out.data_ptr(), scratch.data_ptr(),
+            csrc.stream_ptr(dev)), "window_scan")
+    window_scan.launches += 1
+    return out
+
+
+window_scan.launches = 0
+
+
+def _frame_bounds(ctx: WindowContext, lower: Optional[int],
+                  upper: Optional[int], peer_end=None):
+    """(lo, hi) sorted positions of each row's frame, clipped to its
+    segment; peer_end (with upper 0) ends the frame at the last peer."""
+    idx = _positions(ctx.perm)
+    ss = ctx.seg_start.to(torch.int64)
+    se = ctx.seg_end.to(torch.int64)
+    lo = ss if lower is None else torch.maximum(idx + lower, ss)
+    if peer_end is not None and upper == 0:
+        hi = torch.minimum(peer_end.to(torch.int64), se)
+    else:
+        hi = se if upper is None else torch.minimum(idx + upper, se)
+    return lo, hi
+
+
+def _range_of(prefix: torch.Tensor, lo, hi, ss) -> torch.Tensor:
+    """prefix[hi] - prefix[lo - 1] inside a segment (prefix restarts at
+    each segment start)."""
+    n = prefix.shape[0]
+    top = max(n - 1, 0)
+    before = prefix[torch.clamp(lo - 1, 0, top)]
+    return prefix[torch.clamp(hi, 0, top)] - torch.where(
+        lo > ss, before, torch.zeros_like(before))
+
+
+def _range_back(suffix: torch.Tensor, lo, hi, se) -> torch.Tensor:
+    """suffix[lo] - suffix[hi + 1] inside a segment (a backward scan,
+    restarting at each segment end)."""
+    n = suffix.shape[0]
+    top = max(n - 1, 0)
+    after = suffix[torch.clamp(hi + 1, 0, top)]
+    return suffix[torch.clamp(lo, 0, top)] - torch.where(
+        hi < se, after, torch.zeros_like(after))
+
+
+def window_frame_plain(ctx: WindowContext, scan: Optional[torch.Tensor],
+                       counts: Optional[torch.Tensor], fn: str,
+                       lower: Optional[int], upper: Optional[int],
+                       peer_end=None, backward: bool = False):
+    """(out, validity) in row order of ``fn`` over each row's frame, from
+    K10's sorted scans: sum, avg from the sum scan (and count), as the
+    difference of the scan at the frame's two ends; count from the count
+    scan (None: every live row counts); min, max from the running extreme
+    at hi (forward scan, frame from the segment start) or at lo (backward
+    scan, frame to the segment end). validity: the frame holds a counted
+    row (None for count). 0, invalid at dead rows.
+
+    The difference is exact for integer sums. For a float sum it reads
+    the scan outside the frame, where a NaN or an infinity would make it
+    NaN: ``framed_agg`` gives it only frames that start at the segment
+    start (forward) or end at the segment end (backward)."""
+    lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
+    ss = ctx.seg_start.to(torch.int64)
+    live = ctx.alive
+    empty = (hi < lo) | ~live
+    cnt = hi - lo + 1 if counts is None else _range_of(counts, lo, hi, ss)
+    cnt = torch.where(empty, 0, cnt)
+    ok = cnt > 0
+    if fn == "count":
+        return _scatter(ctx.perm, cnt), None
+    if fn in ("sum", "avg"):
+        out = _range_back(scan, lo, hi, ctx.seg_end.to(torch.int64)) \
+            if backward else _range_of(scan, lo, hi, ss)
+        if fn == "avg":
+            out = out.to(torch.float64) / torch.clamp(cnt, min=1)
+    else:
+        at = lo if backward else hi
+        out = scan[torch.clamp(at, 0, max(scan.shape[0] - 1, 0))]
+    out = torch.where(ok, out, torch.zeros_like(out))
+    return _scatter(ctx.perm, out), _scatter(ctx.perm, ok)
+
+
+def window_frame(ctx: WindowContext, scan: Optional[torch.Tensor],
+                 counts: Optional[torch.Tensor], fn: str,
+                 lower: Optional[int], upper: Optional[int],
+                 peer_end=None, backward: bool = False):
+    """K10's frame evaluation: ``window_frame_plain`` as a kernel.
+
+    Replaces the frame arithmetic of ``sail_tpu/ops/window.py``
+    ``framed_agg`` (:207); csrc/window_scan.cu states its bound. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    perm = ctx.perm
+    if perm.device.type == "cpu":
+        return window_frame_plain(ctx, scan, counts, fn, lower, upper,
+                                  peer_end, backward)
+    n, dev = perm.shape[0], perm.device
+    if fn not in _FRAME_FNS or (scan is None) != (fn == "count"):
+        raise TypeError(f"window_frame: {fn!r} with "
+                        f"{'no ' if scan is None else ''}scan")
+    n_live = _check_n_live("window_frame", ctx.n_live, dev)
+    code = 0 if scan is None else _VALUE_TYPES.get(scan.dtype)
+    if code is None or (counts is not None and counts.dtype != torch.int64):
+        raise TypeError("window_frame: scans of int32, int64, float32 or "
+                        "float64 and an int64 count scan")
+    use_peer = peer_end is not None and upper == 0
+    _check_rows("window_frame", n, dev, scan=scan, counts=counts,
+                peer_end=peer_end if use_peer else None)
+    scan, counts = _contiguous(scan), _contiguous(counts)
+    peer_end = _contiguous(peer_end) if use_peer else None
+    if fn == "count":
+        out_dtype = torch.int64
+    elif fn == "avg":
+        out_dtype = torch.float64
+    else:
+        out_dtype = scan.dtype
+    out = torch.empty(n, dtype=out_dtype, device=dev)
+    valid = None if fn == "count" else \
+        torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, valid
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_scan.cu", "sail_window_frame")(
+            perm.data_ptr(), n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
+            ctx.seg_end.data_ptr(), _ptr(peer_end),
+            _ptr(scan), _ptr(counts), code, _FRAME_FNS[fn], int(backward),
+            0 if lower is None else lower, 0 if upper is None else upper,
+            int(lower is not None), int(upper is not None), out.data_ptr(),
+            _ptr(valid), csrc.grid_for(n, dev), csrc.stream_ptr(dev)),
+            "window_frame")
+    window_frame.launches += 1
+    return out, valid
+
+
+window_frame.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: MIN/MAX and float SUM/AVG over ROWS frames with two finite offsets
+# ---------------------------------------------------------------------------
+
+def _range_extreme(vals, lo, hi, n: int, is_min: bool, fill):
+    """Per-row extreme of vals[lo[i]..hi[i]] (sorted order) via a sparse
+    table: st[k, i] = extreme(vals[i : i + 2^k]); a query of length m
+    takes the two overlapping power-of-two blocks at lo and hi - 2^k + 1.
+    Only the levels the longest query needs are built."""
+    ex = torch.minimum if is_min else torch.maximum
+    if n == 0:
+        return vals
+    top = n - 1
+    lo_c = torch.clamp(lo, 0, top)
+    hi_c = torch.clamp(hi, 0, top)
+    length = torch.clamp(hi_c - lo_c + 1, min=1)
+    levels = max(1, int(length.max()).bit_length())
+    tables = [vals]
+    for k in range(1, levels):
+        half = 1 << (k - 1)
+        prev = tables[-1]
+        shifted = torch.cat([prev[half:], torch.full(
+            (min(half, n),), fill, dtype=prev.dtype, device=prev.device)])
+        tables.append(ex(prev, shifted[:n]))
+    st = torch.stack(tables)  # [levels, n]
+    # floor(log2(length)), exact: the float estimate corrected both ways
+    k = torch.floor(torch.log2(length.to(torch.float64))).to(torch.int64)
+    k = k + ((torch.ones_like(k) << (k + 1)) <= length).to(torch.int64)
+    k = k - ((torch.ones_like(k) << k) > length).to(torch.int64)
+    k = torch.clamp(k, 0, levels - 1)
+    block = torch.ones_like(k) << k
+    a = st[k, lo_c]
+    b = st[k, torch.clamp(hi_c - block + 1, 0, top)]
+    return ex(a, b)
+
+
+def _segment_count(valid, ctx: WindowContext, lo, hi, n: int):
+    """Rows of [lo, hi] (sorted) where ``valid`` (sorted) holds."""
+    ccnt = torch.cumsum(valid.to(torch.int64), 0)
+    top = max(n - 1, 0)
+    before = ccnt[torch.clamp(lo - 1, 0, top)]
+    return ccnt[torch.clamp(hi, 0, top)] - torch.where(
+        lo > 0, before, torch.zeros_like(before))
+
+
+def _segmented_scan(vals, seg_start, is_min: bool):
+    """Segmented running min/max over sorted values:
+    out[i] = extreme(vals[seg_start[i]..i])."""
+    return _hs_scan(vals, seg_start.to(torch.int64),
+                    "min" if is_min else "max")
+
+
+def _frame_sum(masked: torch.Tensor, lo, hi, lower: int, upper: int
+               ) -> torch.Tensor:
+    """Sum of masked[lo[i]..hi[i]] (sorted order; [lo, hi] within [i +
+    lower, i + upper]), added in frame order: one pass an offset."""
+    idx = _positions(masked)
+    top = max(masked.shape[0] - 1, 0)
+    out = torch.zeros_like(masked)
+    for k in range(lower, upper + 1):
+        p = idx + k
+        take = (p >= lo) & (p <= hi)
+        out = out + torch.where(take, masked[torch.clamp(p, 0, top)], 0.0)
+    return out
+
+
+def window_extreme_plain(ctx: WindowContext, vals: torch.Tensor,
+                         valid: Optional[torch.Tensor],
+                         counts: Optional[torch.Tensor], lower: int,
+                         upper: int, fn: str):
+    """(out, validity) in row order: ``fn`` of ``vals`` (row order, read
+    through perm) over the ROWS frame [i + lower, i + upper] clipped to
+    the row's segment. fn: "min", "max" (the value type; NaN
+    propagates), or "sum", "avg" of float64 values (added over the frame
+    alone, so a NaN or an infinity outside it does not reach it). Valid
+    where the frame holds a counted row (``counts``: K10's count scan of
+    ``valid``; None when every live row counts). 0, invalid at dead
+    rows."""
+    if fn not in _EXTREME_FNS or (fn in ("sum", "avg") and
+                                  vals.dtype != torch.float64):
+        raise TypeError(f"window_extreme: {fn!r} of {vals.dtype}")
+    lo, hi = _frame_bounds(ctx, lower, upper)
+    ss = ctx.seg_start.to(torch.int64)
+    empty = (hi < lo) | ~ctx.alive
+    cnt = hi - lo + 1 if counts is None else _range_of(counts, lo, hi, ss)
+    ok = ~empty & (cnt > 0)
+    if fn in ("min", "max"):
+        masked = _scan_values(ctx, vals, valid, fn)
+        out = _range_extreme(masked, lo, hi, masked.shape[0], fn == "min",
+                             _identity(vals.dtype, fn))
+    else:
+        out = _frame_sum(_scan_values(ctx, vals, valid, "sum"), lo, hi,
+                         lower, upper)
+        if fn == "avg":
+            out = out / torch.clamp(cnt, min=1)
+    out = torch.where(ok, out, torch.zeros_like(out))
+    return _scatter(ctx.perm, out), _scatter(ctx.perm, ok)
+
+
+def window_extreme(ctx: WindowContext, vals: torch.Tensor,
+                   valid: Optional[torch.Tensor],
+                   counts: Optional[torch.Tensor], lower: int, upper: int,
+                   fn: str):
+    """K11: ``window_extreme_plain`` as a kernel on the card.
+
+    Replaces ``sail_tpu/ops/window.py`` ``_range_extreme`` (:293), whose
+    sparse table holds ceil(log2 n) + 1 levels of n values, and the
+    prefix difference ``framed_agg`` (:207) takes of a float frame's sum;
+    csrc/window_extreme.cu states its bound and design. Frames up to
+    ``NARROW_MAX`` rows wide take one launch; wider ones three and 2n +
+    n/1024 values of scratch. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel or raises."""
+    perm = ctx.perm
+    if perm.device.type == "cpu":
+        return window_extreme_plain(ctx, vals, valid, counts, lower, upper,
+                                    fn)
+    n, dev = perm.shape[0], perm.device
+    code = _VALUE_TYPES.get(vals.dtype)
+    if code is None or (valid is not None and valid.dtype != torch.bool) \
+            or (counts is not None and counts.dtype != torch.int64) \
+            or fn not in _EXTREME_FNS or (fn in ("sum", "avg") and
+                                          vals.dtype != torch.float64):
+        raise TypeError(f"window_extreme: {fn!r} of {vals.dtype}, a bool "
+                        f"validity and an int64 count scan")
+    n_live = _check_n_live("window_extreme", ctx.n_live, dev)
+    _check_rows("window_extreme", n, dev, vals=vals, valid=valid,
+                counts=counts)
+    vals, valid, counts = (_contiguous(t) for t in (vals, valid, counts))
+    out = torch.empty(n, dtype=vals.dtype, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out, ok
+    wide = upper - lower + 1 > NARROW_MAX
+    chunks = -(-n // TILE)
+    scratch = torch.empty(2 * n + chunks if wide else 0, dtype=vals.dtype,
+                          device=dev)
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_extreme.cu")(
+            perm.data_ptr(), n_live.data_ptr(), n, vals.data_ptr(),
+            _ptr(valid), ctx.seg_start.data_ptr(), ctx.seg_end.data_ptr(),
+            _ptr(counts), code, _EXTREME_FNS[fn], lower, upper,
+            out.data_ptr(),
+            ok.data_ptr(), scratch.data_ptr() if wide else None,
+            csrc.stream_ptr(dev)), "window_extreme")
+    window_extreme.launches += 1
+    return out, ok
+
+
+window_extreme.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# framed aggregates
+# ---------------------------------------------------------------------------
+
+def _kernel_values(vals: torch.Tensor) -> torch.Tensor:
+    """Values in a type the scan and extreme kernels read (bool, int8 and
+    int16 widen to int32; the caller casts the result back)."""
+    return vals.to(torch.int32) if vals.dtype in (
+        torch.bool, torch.int8, torch.int16) else vals
+
+
+def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
+               lower: Optional[int], upper: Optional[int],
+               peer_end=None):
+    """Aggregate over a frame [lower, upper] relative to the current row
+    (None = unbounded), in row order. ROWS semantics by default; passing
+    ``peer_end`` (from peer_group_end) with upper 0 gives RANGE semantics
+    for the unbounded-preceding..current-row frame (it extends to the
+    last peer). Where both offsets are finite, min, max and a float sum
+    or avg go to K11, which combines the frame's own rows. Otherwise K10:
+    its frame evaluation of its scans, forward where the frame starts at
+    the segment start, backward where it ends at the segment end (a float
+    sum then subtracts nothing, so no NaN or infinity from outside the
+    frame reaches it). count: K10's count scan; first and last: one
+    gather."""
+    valid = None if value is None else value.validity
+    if fn in ("first", "last"):
+        lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
+        return _gather_sorted(ctx, value, lo if fn == "first" else hi,
+                              hi >= lo)
+    counts = ctx.count_scan(valid)
+    if fn == "count":
+        return window_frame(ctx, None, counts, "count", lower, upper,
+                            peer_end)
+    vals = _kernel_values(value.data)
+    bounded = lower is not None and upper is not None
+    backward = lower is not None and upper is None
+    if fn in ("sum", "avg"):
+        if bounded and vals.is_floating_point():
+            return window_extreme(ctx, vals.to(torch.float64), valid, counts,
+                                  lower, upper, fn)
+        scan = window_scan(ctx, vals, valid, "sum", backward)
+        return window_frame(ctx, scan, counts, fn, lower, upper, peer_end,
+                            backward)
+    if fn in ("min", "max"):
+        if bounded:
+            out, ok = window_extreme(ctx, vals, valid, counts, lower, upper,
+                                     fn)
+        else:
+            scan = window_scan(ctx, vals, valid, fn, backward)
+            out, ok = window_frame(ctx, scan, counts, fn, lower, upper,
+                                   peer_end, backward)
+        return out.to(value.data.dtype), ok
+    raise NotImplementedError(f"window aggregate {fn!r}")
+

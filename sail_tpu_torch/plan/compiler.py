@@ -7,7 +7,8 @@ the closure eagerly, one elementwise op at a time; literals are 0-d
 tensors that broadcast against columns.
 
 Ported subset: column refs, literals, pre-evaluated scalar subqueries,
-casts between numeric, decimal, boolean and date types and from strings,
+casts between numeric, decimal, boolean and date types, of timestamps to
+dates (in the session's zone) and from strings,
 CASE (over strings too), decimal ``+ - *`` with rescale, ``/``,
 comparisons (of strings through unified dictionaries, or against a
 literal), Kleene AND/OR/NOT, the null-handling functions, IN,
@@ -237,6 +238,13 @@ class ExprCompiler:
         tdt = physical_torch_dtype(dst)
         src_scale = _decimal_scale(src)
         dst_scale = _decimal_scale(dst)
+        if isinstance(src, dt.TimestampType) and isinstance(dst, dt.DateType):
+            def to_date(cols):
+                # days = floor((µs + the zone's offset at that instant) /
+                # 86,400,000,000)
+                x, validity = child.fn(cols)
+                return _to_days(x, src).to(tdt), validity
+            return Compiled(to_date, dst)
 
         def fn(cols):
             x, validity = child.fn(cols)

@@ -46,7 +46,10 @@ def utc_offset_transitions(name: str = None):
     """(starts_us, offsets_us) numpy arrays for the session zone: UTC→local
     offset as a step function over 1900–2100. Lets device kernels convert
     epoch-us to local time with a searchsorted + gather instead of per-row
-    host callbacks (DST-correct, TPU-friendly)."""
+    host callbacks. Each step starts at the UTC instant of the change: the
+    offset is asked of the instant (``astimezone``), not of its UTC wall
+    time (``zone.utcoffset`` of a UTC datetime reads its fields as local
+    and would place each change hours off)."""
     import numpy as np
 
     name = name or session_timezone_name()
@@ -64,18 +67,18 @@ def utc_offset_transitions(name: str = None):
     offsets = []
     t = datetime.datetime(1900, 1, 1, tzinfo=datetime.timezone.utc)
     end = datetime.datetime(2100, 1, 1, tzinfo=datetime.timezone.utc)
-    cur = zone.utcoffset(t)
+    cur = t.astimezone(zone).utcoffset()
     offsets.append(int(cur.total_seconds() * 1e6))
     # scan in 6h steps, bisect each change to the exact second
     step = datetime.timedelta(hours=6)
     while t < end:
         nxt = t + step
-        off = zone.utcoffset(nxt)
+        off = nxt.astimezone(zone).utcoffset()
         if off != cur:
             lo, hi = t, nxt
             while hi - lo > datetime.timedelta(seconds=1):
                 mid = lo + (hi - lo) / 2
-                if zone.utcoffset(mid) != cur:
+                if mid.astimezone(zone).utcoffset() != cur:
                     hi = mid
                 else:
                     lo = mid

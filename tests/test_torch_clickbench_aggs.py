@@ -7,7 +7,9 @@ The suite's own queries that use these return no rows at any test size
 generate_hits(200_000, 3) (``clickbench.MECHANISM_QUERIES``), over a small
 hand-made table with null values, null keys, an all-null group and
 string ties, and over timestamps that cross the 2013 daylight-saving
-changes, in UTC and in America/New_York. The tests marked ``gpu`` hold
+changes, in UTC and in America/New_York (there held to Python's
+``zoneinfo``: the reference places each zone change hours off, ROADMAP
+Queue C). The tests marked ``gpu`` hold
 the port on the card to its CPU session over the hand-made table (the
 mechanism queries run on the card in chip_smoke.py's ClickBench check).
 
@@ -15,6 +17,7 @@ Comparison rule: torch_clickbench_common.py.
 """
 
 import datetime
+import zoneinfo
 
 import jax  # noqa: F401  (the reference runs on the CPU, x64, per conftest)
 import pyarrow as pa
@@ -132,17 +135,74 @@ _TIME_EXPRS = (
        ("year", "yyyy", "yy", "quarter", "month", "mon", "mm", "week")])
 
 
+_EPOCH = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+_MIDNIGHT = dict(hour=0, minute=0, second=0, microsecond=0)
+
+
+def _zone_value(expr: str, local: datetime.datetime):
+    """``expr`` of the instant whose local time is ``local`` (a datetime
+    in the zone, from ``astimezone``): a field, or date_trunc's local
+    truncation as UTC microseconds. ``replace`` keeps ``fold``, so a
+    truncation in the repeated hour keeps the instant's own offset."""
+    if expr.startswith(("minute(", "hour(", "second(")):
+        return getattr(local, expr.split("(")[0])
+    unit = expr.split("'")[1]
+    if unit in ("year", "yyyy", "yy"):
+        t = local.replace(month=1, day=1, **_MIDNIGHT)
+    elif unit == "quarter":
+        t = local.replace(month=(local.month - 1) // 3 * 3 + 1, day=1,
+                          **_MIDNIGHT)
+    elif unit in ("month", "mon", "mm"):
+        t = local.replace(day=1, **_MIDNIGHT)
+    elif unit == "week":
+        t = (local - datetime.timedelta(days=local.weekday())).replace(
+            **_MIDNIGHT)
+    elif unit in ("day", "dd"):
+        t = local.replace(**_MIDNIGHT)
+    elif unit == "hour":
+        t = local.replace(minute=0, second=0, microsecond=0)
+    elif unit == "minute":
+        t = local.replace(second=0, microsecond=0)
+    elif unit == "second":
+        t = local.replace(microsecond=0)
+    elif unit == "millisecond":
+        t = local.replace(microsecond=local.microsecond // 1000 * 1000)
+    else:
+        t = local
+    return (t - _EPOCH) // datetime.timedelta(microseconds=1)
+
+
+def _zone_answers(want: pa.Table, zone: str) -> pa.Table:
+    """``want`` with the column of every expression of ``ts`` replaced by
+    Python's answer in ``zone``; trunc(d, ...) reads no zone."""
+    z = zoneinfo.ZoneInfo(zone)
+    local = [None if u is None else
+             (_EPOCH + datetime.timedelta(microseconds=u)).astimezone(z)
+             for u in _INSTANTS]
+    for i, expr in enumerate(_TIME_EXPRS):
+        if expr.startswith("trunc("):
+            continue
+        field = want.field(i + 1)
+        want = want.set_column(i + 1, field, pa.array(
+            [None if t is None else _zone_value(expr, t) for t in local],
+            type=field.type))
+    return want
+
+
 @pytest.fixture(scope="module", params=_TZS)
 def time_answers(request):
-    """Both packages' answers to one query of every time expression, in
-    one zone (one compile each)."""
+    """The port's answers to one query of every time expression, in one
+    zone (one compile each), and what they are held to: the reference's
+    in UTC, Python's in America/New_York."""
     jlocal.clear_caches()  # as in hits_new_york
     port, ref = sessions(_TIMES, request.param)
     sql = "SELECT ts, " + ", ".join(
         f"{e} AS e{i}" for i, e in enumerate(_TIME_EXPRS)) + " FROM hits"
-    answers = port.sql(sql).toArrow(), ref.sql(sql).toArrow()
+    got, want = port.sql(sql).toArrow(), ref.sql(sql).toArrow()
     jlocal.clear_caches()
-    return answers
+    if request.param != "UTC":
+        want = _zone_answers(want, request.param)
+    return got, want
 
 
 @pytest.mark.parametrize("i", range(len(_TIME_EXPRS)), ids=_TIME_EXPRS)

@@ -1,0 +1,42 @@
+"""Shared pieces of the port's window and union tests.
+
+Comparison rule against the reference: integer, decimal, date, string and
+bool columns exactly; float64 within ``atol = 1e-12 * sum(|v|)`` over the
+column plus ``rtol = 1e-12``: the reference takes a frame's sum as the
+difference of two prefixes of one global float64 ``cumsum``, the port
+scans each segment, so the two round at different magnitudes. Row order
+only where the query has an ORDER BY.
+"""
+
+import numpy as np
+import pyarrow as pa
+
+from torch_tpch_common import _sorted_rows
+
+FLOAT_RTOL = 1e-12
+FLOAT_SUM_ATOL = 1e-12
+
+
+def assert_window_result(got: pa.Table, want: pa.Table, ordered: bool = True):
+    assert got.schema == want.schema
+    assert got.num_rows == want.num_rows
+    if not ordered:
+        got, want = _sorted_rows(got), _sorted_rows(want)
+    for i, name in enumerate(want.column_names):
+        g, w = got.column(i), want.column(i)
+        if pa.types.is_floating(w.type):
+            gv, wv = g.to_numpy(), w.to_numpy()
+            scale = np.nansum(np.abs(wv[np.isfinite(wv)]))
+            np.testing.assert_allclose(gv, wv, rtol=FLOAT_RTOL,
+                                       atol=FLOAT_SUM_ATOL * scale,
+                                       err_msg=name)
+        else:
+            assert g.to_pylist() == w.to_pylist(), name
+
+
+def run_both(port, ref, sql: str, ordered: bool = True) -> pa.Table:
+    """Run ``sql`` through both sessions and hold the port's answer to the
+    reference's; returns the port's."""
+    got = port.sql(sql).toArrow()
+    assert_window_result(got, ref.sql(sql).toArrow(), ordered)
+    return got
