@@ -79,16 +79,23 @@ Phases, each of which fails the script (non-zero exit, no result line):
 Then, after phase 5 and before the ClickBench phases (on phase 5's
 SF10 tables and phase 4's tables):
 
-8. Window kernels: K8 (window_bounds), K9 (window_ranks), K10's two entry
-   points (window_scan, window_frame) and K11 (window_extreme) at the
-   contexts the window queries build at ``--sf``: lineitem's rows by
-   (l_suppkey; l_shipdate, l_orderkey, l_linenumber), orders' by
-   (o_custkey; o_orderdate), and orders in one segment; K11 at frames of
-   5 and 10,001 rows (past the shared-memory halo). Each against its
-   plain version, then timed beside it and, where one exists, a PyTorch
-   call computing as much (``unique_consecutive`` for K8, ``cumsum`` over
-   the sorted values for K10's scan, ``unfold(...).amin`` for K11 at 5
-   rows).
+8. Window kernels: K8 (window_bounds), K9 (window_ranks), the gather of
+   a column into sorted order (window_gather), K10's two entry points
+   (window_scan, window_frame), K11 (window_extreme), the context's
+   inverse permutation (window_inverse) and the unpermute back to row
+   order (window_unpermute, a gather through the inverse) at the contexts the
+   window queries build at ``--sf``: lineitem's rows by (l_suppkey; l_shipdate, l_orderkey, l_linenumber),
+   orders' by (o_custkey; o_orderdate), and orders in one segment; K11
+   at frames of 5 and 10,001 rows (past the shared-memory halo). Each
+   against its plain version, then timed beside it and, where one
+   exists, a PyTorch call computing as much on sorted values
+   (``unique_consecutive`` for K8, ``vals[perm]`` for the gather,
+   ``index_put_`` of every position for the inverse, ``cumsum`` for
+   K10's scan, ``unfold(...).amin`` for K11 at 5 rows,
+   ``index_select`` of one 16 B element a row through ``inv_perm`` for
+   the unpermute), and that call with its gather
+   and its return to row order (``library_perm_ms``) beside the kernel
+   with its own gather (``with_gather_ms``).
 9. Window correctness: the queries of ``benchmarks/window_queries.py``
    (W1-W8, U1, U2) over the tables at ``--check-sf`` on the card
    against the port's CPU session: integers, decimals, dates and strings
@@ -162,9 +169,10 @@ PROFILED_KERNELS = {
     "K7 bloom": re.compile(r"bloom_(build|apply)_kernel[<(]"),
     "K8 window_bounds": re.compile(r"bounds_(flags|tiles|carry|finish)_kernel"),
     "K9 window_ranks": re.compile(r"ranks_kernel\("),
-    "K10 window_scan": re.compile(r"scan_(tiles|carry|finish)_kernel<|"
-                                  r"frame_kernel<"),
+    "K10 window_scan": re.compile(r"\bscan_kernel<|\bframe_kernel<"),
     "K11 window_extreme": re.compile(r"extreme_(narrow|chunks|wide)_kernel<"),
+    "window gather, inverse, unpermute": re.compile(
+        r"\bgather_kernel<|\binverse_kernel\(|\bunpermute_kernel<"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -1171,7 +1179,10 @@ def _counters():
             "window_bounds": win.window_bounds,
             "window_ranks": win.window_ranks, "window_scan": win.window_scan,
             "window_frame": win.window_frame,
-            "window_extreme": win.window_extreme}
+            "window_extreme": win.window_extreme,
+            "window_gather": win.window_gather,
+            "window_inverse": win.window_inverse,
+            "window_unpermute": win.window_unpermute}
 
 
 @contextlib.contextmanager
@@ -1290,7 +1301,10 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
 # ---------------------------------------------------------------------------
 
 _K8, _K9 = ("window_bounds",), ("window_ranks",)
-_K10 = ("window_scan", "window_frame")
+# K10 and K11 read a gathered column and unpermute their outputs through
+# the context's inverse permutation
+_K10 = ("window_gather", "window_scan", "window_frame", "window_inverse",
+        "window_unpermute")
 # the kernels each window/union query must launch (W4's lag and lead are
 # gathers; the unions group their merged dictionary codes directly)
 WINDOW_PATH = {
@@ -1340,9 +1354,11 @@ def _window_shapes(tables: dict, dev):
     ]
 
 
-def _timed(label, n, fn, plain, bound_bytes, library=None, compare=None):
+def _timed(label, n, fn, plain, bound_bytes, library=None, compare=None,
+           extra=None):
     """One kernel at one shape: its result against its plain version's
-    (``compare``, exact by default), then kernel, plain and library ms."""
+    (``compare``, exact by default), then kernel, plain and library ms,
+    and the ms of each further call in ``extra`` ({key: fn})."""
     got, want = fn(), plain()
     got = got if isinstance(got, (tuple, list)) else [got]
     want = want if isinstance(want, (tuple, list)) else [want]
@@ -1354,10 +1370,12 @@ def _timed(label, n, fn, plain, bound_bytes, library=None, compare=None):
     row = dict(shape=label, n=n, max_abs_err=err, ms=cuda_ms(fn),
                plain_ms=cuda_ms(plain, 3), bound_ms=_bound_ms(bound_bytes),
                library_ms=None if library is None else cuda_ms(library))
+    row.update({k: cuda_ms(f) for k, f in (extra or {}).items()})
     print(f"  {label}: n={n}, max abs err {err:g}, {row['ms']:.3f} ms, "
           f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms"
           + ("" if library is None else
-             f", library {row['library_ms']:.3f} ms"), flush=True)
+             f", library {row['library_ms']:.3f} ms")
+          + "".join(f", {k} {row[k]:.3f}" for k in extra or {}), flush=True)
     return row
 
 
@@ -1375,18 +1393,22 @@ def _segment_sum_err(got, want, vals, ctx) -> float:
 
 
 def check_window_kernels(tables: dict, dev) -> list:
-    """K8-K11 at the contexts the window queries build from ``tables``
-    (phase 8): each against its plain version, then timed beside it and
-    a PyTorch call that computes as much (the port never calls it).
-    Bounds: bytes once at HBM_BYTES_PER_S."""
+    """K8-K11, the gather into sorted order and the unpermute at the
+    contexts the window queries build from ``tables`` (phase 8): each
+    against its plain version, then timed beside it, a PyTorch call that
+    computes as much on sorted values (the port never calls it), and that
+    call with its gather and its return to row order (``library_perm_ms``;
+    the kernel's own composite is ``with_gather_ms``). Bounds: bytes once
+    at HBM_BYTES_PER_S."""
     from sail_tpu_torch.columnar.batch import Column
     from sail_tpu_torch.ops import window as win
     from sail_tpu_torch.ops.sort import order_keys
     from sail_tpu_torch.spec import data_type as dt
 
     rows = {name: [] for name in ("window_bounds", "window_ranks",
+                                  "window_gather", "window_inverse",
                                   "window_scan", "window_frame",
-                                  "window_extreme")}
+                                  "window_extreme", "window_unpermute")}
     for label, part, order, vals in _window_shapes(tables, dev):
         n = vals.shape[0]
         sel = torch.ones(n, dtype=torch.bool, device=dev)
@@ -1397,83 +1419,130 @@ def check_window_kernels(tables: dict, dev) -> list:
         ok = [(order_keys(o), None) for o in order]
         perm, n_live = ctx.perm, ctx.n_live
         print(f"K8-K11 at {label}:", flush=True)
-        first = (pk or ok)[0][0][perm]
+        key = (pk or ok)[0][0]
+        first = key[perm]
         rows["window_bounds"].append(_timed(
             f"K8 {label}", n,
             lambda: win.window_bounds(perm, n_live, pk, ok),
             lambda: win.window_bounds_plain(perm, n_live, pk, ok),
             n * (8 + 8 * len(pk + ok) + 5 * 4),
             lambda: torch.unique_consecutive(first, return_inverse=True,
-                                             return_counts=True)))
-        del first
+                                             return_counts=True),
+            extra={"library_perm_ms": lambda: torch.unique_consecutive(
+                key[perm], return_inverse=True, return_counts=True)}))
+        del first, key
         ranks = win._RANKS
         rows["window_ranks"].append(_timed(
             f"K9 {label}", n, lambda: list(win.window_ranks(ctx, ranks, 4)
                                            .values()),
             lambda: list(win.window_ranks_plain(ctx, ranks, 4).values()),
             n * (8 + 5 * 4 + 6 * 8)))
+        # the context's inverse permutation, built once; its library call
+        # is torch's scatter of every position
+        positions = torch.arange(n, dtype=torch.int32, device=dev)
+        rows["window_inverse"].append(_timed(
+            f"inverse permutation, {label}", n,
+            lambda: win.window_inverse(perm, n_live),
+            lambda: win.window_inverse_plain(perm, n_live), n * (8 + 4),
+            lambda: torch.empty_like(positions).index_put_((perm,),
+                                                           positions)))
+        inv = ctx.inv_perm
+        del positions
         fvals = vals.to(torch.float64) / 100
-        sorted_vals = vals[perm]
+        gather = lambda: win.window_gather(  # noqa: E731
+            perm, n_live, vals, None)
+        rows["window_gather"].append(_timed(
+            f"gather into sorted order, int64, {label}", n, gather,
+            lambda: win.window_gather_plain(perm, n_live, vals, None),
+            n * (8 + 8 + 8), lambda: vals[perm]))
+        sorted_vals, _ = gather()
+        fsorted, _ = win.window_gather(perm, n_live, fvals, None)
         rows["window_scan"].append(_timed(
             f"K10 scan, int64 sum, {label}", n,
-            lambda: win.window_scan(ctx, vals, None, "sum"),
-            lambda: win.window_scan_plain(ctx, vals, None, "sum"),
-            n * (8 + 8 + 4 + 8), lambda: torch.cumsum(sorted_vals, 0)))
+            lambda: win.window_scan(ctx, sorted_vals, None, "sum"),
+            lambda: win.window_scan_plain(ctx, sorted_vals, None, "sum"),
+            n * (8 + 4 + 8), lambda: torch.cumsum(sorted_vals, 0),
+            extra={"with_gather_ms": lambda: win.window_scan(
+                       ctx, gather()[0], None, "sum"),
+                   "library_perm_ms": lambda: torch.cumsum(
+                       vals[perm], 0)[inv]}))
         rows["window_scan"].append(_timed(
             f"K10 scan, float64 sum, {label}", n,
-            lambda: win.window_scan(ctx, fvals, None, "sum"),
-            lambda: win.window_scan_plain(ctx, fvals, None, "sum"),
-            n * (8 + 8 + 4 + 8), None,
-            lambda g, w: _segment_sum_err(g, w, fvals, ctx)))
+            lambda: win.window_scan(ctx, fsorted, None, "sum"),
+            lambda: win.window_scan_plain(ctx, fsorted, None, "sum"),
+            n * (8 + 4 + 8), None,
+            lambda g, w: _segment_sum_err(g, w, fsorted, ctx)))
         for backward in (False, True):
             rows["window_scan"].append(_timed(
                 f"K10 scan, {'backward max' if backward else 'min'}, {label}",
                 n,
-                lambda: win.window_scan(ctx, vals, None, "max" if backward
-                                        else "min", backward),
-                lambda: win.window_scan_plain(ctx, vals, None, "max"
+                lambda: win.window_scan(ctx, sorted_vals, None, "max"
+                                        if backward else "min", backward),
+                lambda: win.window_scan_plain(ctx, sorted_vals, None, "max"
                                               if backward else "min",
                                               backward),
-                n * (8 + 8 + 4 + 8)))
-        scan = win.window_scan(ctx, vals, None, "sum")
+                n * (8 + 4 + 8)))
+        scan = win.window_scan(ctx, sorted_vals, None, "sum")
+        # the frames with their unpermute (int32 inv_perm in the bound)
         rows["window_frame"].append(_timed(
             f"K10 frame, avg over rows -6..0, {label}", n,
             lambda: win.window_frame(ctx, scan, None, "avg", -6, 0),
             lambda: win.window_frame_plain(ctx, scan, None, "avg", -6, 0),
-            n * (8 + 4 + 4 + 8 + 8 + 1)))
+            n * (4 + 4 + 8 + 4 + 8 + 1)))
         rows["window_frame"].append(_timed(
             f"K10 frame, sum to the last peer, {label}", n,
             lambda: win.window_frame(ctx, scan, None, "sum", None, 0,
                                      ctx.peer_end),
             lambda: win.window_frame_plain(ctx, scan, None, "sum", None, 0,
                                            ctx.peer_end),
-            n * (8 + 4 + 4 + 4 + 8 + 8 + 1)))
-        del scan, fvals
+            n * (4 + 4 + 4 + 8 + 4 + 8 + 1)))
+        del scan
+        recs = win.pack_records(fsorted, ctx.alive)
+        # its library call gathers each 16 B record as one element
+        whole = recs.view(torch.complex128).squeeze(-1)
+        rows["window_unpermute"].append(_timed(
+            f"unpermute, float64 records, {label}", n,
+            lambda: win.window_unpermute(ctx, recs),
+            lambda: win.window_unpermute_plain(ctx, recs),
+            n * (4 + 16 + 8 + 1), lambda: whole.index_select(0, inv)))
+        del whole
+        del recs, fvals, fsorted
         if part:  # K11 at the moving frames of the partitioned contexts
             for width in EXTREME_WIDTHS:
                 lo, hi = -(width // 2), width // 2
                 # unfold reads width values a row: at 10,001 that is TBs
-                library = None
+                library = library_perm = None
                 if width <= 16:
                     pad = sorted_vals.new_full((hi,), torch.iinfo(
                         torch.int64).max)
                     library = lambda: torch.cat(  # noqa: E731
                         [pad, sorted_vals, pad]).unfold(0, width, 1).amin(1)
+                    library_perm = lambda: torch.cat(  # noqa: E731
+                        [pad, vals[perm], pad]).unfold(
+                            0, width, 1).amin(1)[inv]
                 rows["window_extreme"].append(_timed(
                     f"K11 min over rows {lo}..{hi}, {label}", n,
-                    lambda: win.window_extreme(ctx, vals, None, None, lo, hi,
-                                               "min"),
-                    lambda: win.window_extreme_plain(ctx, vals, None, None,
-                                                     lo, hi, "min"),
-                    n * (8 + 8 + 4 + 4 + 8 + 1), library))
-        del ctx, pk, ok, perm, sorted_vals, part, order, vals, sel
+                    lambda: win.window_extreme(ctx, sorted_vals, None, None,
+                                               lo, hi, "min"),
+                    lambda: win.window_extreme_plain(ctx, sorted_vals, None,
+                                                     None, lo, hi, "min"),
+                    n * (8 + 4 + 4 + 4 + 8 + 1), library,
+                    extra={"with_gather_ms": lambda: win.window_extreme(
+                        ctx, gather()[0], None, None, lo, hi, "min"),
+                        **({} if library_perm is None else
+                           {"library_perm_ms": library_perm})}))
+        del ctx, pk, ok, perm, inv, sorted_vals, part, order, vals, sel
         torch.cuda.empty_cache()
     sources = {"window_bounds": ("window_bounds.cu", "sail_tpu/ops/window.py:52"),
                "window_ranks": ("window_ranks.cu", "sail_tpu/ops/window.py:108"),
+               "window_gather": ("window_perm.cu", "sail_tpu/ops/window.py:219"),
+               "window_inverse": ("window_perm.cu", "sail_tpu/ops/window.py:78"),
                "window_scan": ("window_scan.cu", "sail_tpu/ops/window.py:328"),
                "window_frame": ("window_scan.cu", "sail_tpu/ops/window.py:207"),
                "window_extreme": ("window_extreme.cu",
-                                  "sail_tpu/ops/window.py:293")}
+                                  "sail_tpu/ops/window.py:293"),
+               "window_unpermute": ("window_perm.cu",
+                                    "sail_tpu/ops/window.py:82")}
     entries = []
     for name, shapes in rows.items():
         main = shapes[0]

@@ -2,6 +2,9 @@
 
     python -m sail_tpu_torch.benchmarks.tpch_profile --sf 10 \\
         --queries 1-4,6,7,10,11 --runs 30 --profile 11 --report out.json
+    python -m sail_tpu_torch.benchmarks.tpch_profile --sf 10 \\
+        --queries w1,w2,w3,u1 --runs 10   # the window and union queries
+                                          # of window_queries.py, by name
 
 The queries run in the order given in one session over
 ``generate_tpch_sf(--sf, seed=0)``, each with one warm-up and ``--runs``
@@ -31,17 +34,30 @@ import torch
 from sail_tpu_torch import SparkSession
 from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
 from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
+from sail_tpu_torch.benchmarks.window_queries import QUERIES as WINDOW_QUERIES
 
 TOP = 12  # operators and functions listed in a host split
 
 
 def parse_queries(text: str) -> list:
-    """"1-4,6,11" → [1, 2, 3, 4, 6, 11]."""
+    """"1-4,6,w3" → [1, 2, 3, 4, 6, "w3"]: TPC-H queries by number or
+    range, window and union queries by name."""
     out = []
     for part in text.split(","):
+        if part[:1].isalpha():
+            out.append(part)
+            continue
         lo, _, hi = part.partition("-")
         out.extend(range(int(lo), int(hi or lo) + 1))
     return out
+
+
+def _sql(q) -> str:
+    return QUERIES[q] if isinstance(q, int) else WINDOW_QUERIES[q]
+
+
+def _label(q) -> str:
+    return f"q{q}" if isinstance(q, int) else q
 
 
 def _sync(device: torch.device) -> None:
@@ -123,18 +139,20 @@ def main(argv=None) -> int:
     profiled = set(parse_queries(args.profile)) if args.profile else set()
     report = {"sf": args.sf, "device": str(spark.device), "queries": {}}
     for q in parse_queries(args.queries):
-        first_ms = _run_ms(spark, QUERIES[q])
-        times = sorted(_run_ms(spark, QUERIES[q]) for _ in range(args.runs))
+        sql = _sql(q)
+        first_ms = _run_ms(spark, sql)
+        times = sorted(_run_ms(spark, sql) for _ in range(args.runs))
         quart = statistics.quantiles(times, n=4) if len(times) > 1 \
             else times * 3
         entry = {"first_ms": first_ms, "ms": times, "median_ms": quart[1],
                  "quartiles_ms": [quart[0], quart[2]]}
-        print(f"Q{q} SF{args.sf}: median {quart[1]:.2f} ms (quartiles "
+        print(f"{_label(q).upper()} SF{args.sf}: median {quart[1]:.2f} ms "
+              f"(quartiles "
               f"{quart[0]:.2f}-{quart[2]:.2f}, min {times[0]:.2f}, max "
               f"{times[-1]:.2f}) of {len(times)}", flush=True)
         if q in profiled:
-            entry["torch"] = t = torch_split(spark, QUERIES[q])
-            entry["python"] = p = python_split(spark, QUERIES[q])
+            entry["torch"] = t = torch_split(spark, sql)
+            entry["python"] = p = python_split(spark, sql)
             print(f"  traced: wall {t['wall_ms']:.2f} ms, device busy "
                   f"{t['device_busy_ms']:.2f}, host operators "
                   f"{t['host_ops_ms']:.2f}, Python {t['python_ms']:.2f}; "
@@ -143,7 +161,7 @@ def main(argv=None) -> int:
             print(f"  cProfile: {p['calls']} calls, {p['seconds'] * 1e3:.2f}"
                   f" ms; " + ", ".join(f"{k} {ms:.2f} x{c}"
                                        for k, ms, c in p["top"]), flush=True)
-        report["queries"][f"q{q}"] = entry
+        report["queries"][_label(q)] = entry
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

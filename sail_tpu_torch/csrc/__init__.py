@@ -27,7 +27,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
            "join_keys.cu", "join_probe.cu", "join_expand.cu", "bloom.cu",
            "window_bounds.cu", "window_ranks.cu", "window_scan.cu",
-           "window_extreme.cu")
+           "window_extreme.cu", "window_perm.cu")
 _HEADERS = ("common.cuh", "join_keys.cuh", "window.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,12 +57,15 @@ _ENTRY = {
                                                 P, P, P, P, P, P]},
     "window_ranks.cu": {"sail_window_ranks": [P, P, LL, P, P, P, P, P, LL,
                                               P, P, P, P, P, P, I, P]},
-    "window_scan.cu": {"sail_window_scan": [P, P, LL, P, P, P, I, I, I, P,
-                                            P, P],
-                       "sail_window_frame": [P, P, LL, P, P, P, P, P, I, I,
-                                             I, LL, LL, I, I, P, P, I, P]},
-    "window_extreme.cu": {"sail_window_extreme": [P, P, LL, P, P, P, P, P, I,
-                                                  I, LL, LL, P, P, P, P]},
+    "window_scan.cu": {"sail_window_scan": [P, LL, P, P, P, I, I, I, P, P,
+                                            P],
+                       "sail_window_frame": [P, LL, P, P, P, P, P, I, I, I,
+                                             LL, LL, I, I, P, I, P]},
+    "window_extreme.cu": {"sail_window_extreme": [P, LL, P, P, P, P, P, I, I,
+                                                  LL, LL, P, P, P]},
+    "window_perm.cu": {"sail_window_gather": [P, P, LL, P, I, P, P, P, P],
+                       "sail_window_inverse": [P, P, LL, P, P],
+                       "sail_window_unpermute": [P, LL, P, I, P, P, P]},
 }
 
 

@@ -1,5 +1,7 @@
 // Shared pieces of the window kernels (K8-K11): value types, the
-// NaN-propagating extremes, and the three-phase tile scan.
+// NaN-propagating extremes, the three-phase tile scan, and the sorted-order
+// record {value, ok} that K10's frame evaluation and K11 write and
+// window_perm.cu's unpermute reads.
 //
 // A tile scan runs over tiles of kTile = 1024 positions, one block of
 // kThreads = 256 threads a tile, each thread holding kItems = 4
@@ -15,6 +17,8 @@
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace sail {
@@ -28,6 +32,19 @@ constexpr int kMaxKeys = 16;
 
 // value types of the scan and extreme kernels (window.py _VALUE_TYPES)
 enum DType { kNone = 0, kI32 = 1, kI64 = 2, kF32 = 3, kF64 = 4 };
+
+// A result and its validity side by side, at sorted position i of an
+// array of records: one 8 B (4-byte values) or 16 B (8-byte values) word
+// pair, so the unpermute moves both in one access. ok is a whole word (0 or
+// 1) so the record's bytes are all written.
+template <typename T>
+using WordOf = std::conditional_t<sizeof(T) == 8, unsigned long long,
+                                  unsigned int>;
+template <typename T>
+struct alignas(2 * sizeof(T)) Rec {
+  T v;
+  WordOf<T> ok;
+};
 
 template <typename T>
 struct Seg {

@@ -8,24 +8,27 @@
 // difference of two prefixes of one global cumsum, which a NaN or an
 // infinity anywhere before the frame turns into NaN.
 //
-// For sorted position i < n_live (a device scalar): the frame is
-// [i + lower, i + upper] clipped to i's segment [seg_start[i],
-// seg_end[i]]; out[perm[i]] = MIN/MAX/SUM of the frame's values
-// (vals[perm[p]] where valid[perm[p]], else the identity; NaN propagates,
-// as torch.minimum), or that sum over the frame's count (AVG); valid where
-// the frame holds a counted row: its count comes from K10's count scan C
-// as C[hi] - C[lo - 1] (no C: every live row counts). Dead rows and
-// invalid results get 0. SUM and AVG take float64 values only: an integer
-// frame's sum is exact as a prefix difference (K10).
+// Everything is in sorted order: the values and their validity were
+// gathered once a column (window_perm.cu), and the result goes back to row
+// order in one unpermute pass (window_perm.cu). For sorted position i <
+// n_live (a device scalar): the frame is [i + lower, i + upper] clipped
+// to i's segment [seg_start[i], seg_end[i]]; out[i] = {MIN/MAX/SUM of the
+// frame's values (vals[p] where valid[p], else the identity; NaN
+// propagates, as torch.minimum), or that sum over the frame's count (AVG);
+// ok where the frame holds a counted row}, a window.cuh record. The count
+// comes from K10's count scan C as C[hi] - C[lo - 1] (no C: every live
+// row counts). Dead rows and invalid results get 0. SUM and AVG take
+// float64 values only: an integer frame's sum is exact as a prefix
+// difference (K10).
 //
-// Bound: bytes, n * (8 B perm + 8 B seg bounds + value + 1 B validity
-// gathered, + 8 B count reads + value and 1 B written through perm).
+// Bound: bytes, n * (value + 1 B validity + 8 B seg bounds + 8 B count
+// reads + record), each read and written once, in order.
 // Design, by the frame's width W = upper - lower + 1:
 //   * W <= kNarrowMax (1025): one launch. A block takes a tile of 1024
 //     positions and stages the values of [tile + lower, tile end + upper]
 //     (at most 2048) in shared memory; each row combines its clipped
 //     frame there in order from lo to hi, W reads of shared memory a row.
-//   * wider: three launches and 2n + n/1024 values of scratch. A first
+//   * wider: two launches and 2n + n/1024 values of scratch. A first
 //     pass over 1024-row chunks writes each position's extreme (or sum)
 //     from its chunk's (or segment's) start and to its chunk's (or
 //     segment's) end, and each chunk's whole; a row then combines the
@@ -74,10 +77,9 @@ struct ExOp {
 
 template <typename T>
 struct Args {
-  const long long* perm;
   long long n, n_live;
-  const T* vals;
-  const bool* valid;
+  const T* vals;       // sorted order
+  const bool* valid;   // sorted order; null: every row is valid
   const int* seg_start;
   const int* seg_end;
   const long long* counts;
@@ -88,10 +90,9 @@ struct Args {
   // the masked value at sorted position p (the identity past the live
   // rows or where the row is not valid)
   __device__ __forceinline__ T value(long long p) const {
-    if (p < 0 || p >= n_live) return fill<T>(op);
-    const long long row = perm[p];
-    if (valid != nullptr && !valid[row]) return fill<T>(op);
-    return vals[row];
+    if (p < 0 || p >= n_live || (valid != nullptr && !valid[p]))
+      return fill<T>(op);
+    return vals[p];
   }
   __device__ __forceinline__ T ex(T a, T b) const { return ExOp{op}(a, b); }
   // the clipped frame of live row i and its count of counted rows
@@ -114,7 +115,7 @@ struct Args {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 extreme_narrow_kernel(Args<T> a, const long long* n_live_p,
-                      T* __restrict__ out, bool* __restrict__ ok_out) {
+                      Rec<T>* __restrict__ out) {
   __shared__ T staged[kTile + kNarrowMax - 1];
   a.n_live = *n_live_p;
   const long long base = (long long)blockIdx.x * kTile;
@@ -126,7 +127,6 @@ extreme_narrow_kernel(Args<T> a, const long long* n_live_p,
   for (int j = 0; j < kItems; ++j) {
     const long long i = base + threadIdx.x + j * kThreads;
     if (i >= a.n) continue;
-    const long long row = a.perm[i];
     long long lo, hi;
     const long long cnt = i < a.n_live ? a.frame(i, lo, hi) : 0;
     const bool ok = cnt > 0;
@@ -136,8 +136,7 @@ extreme_narrow_kernel(Args<T> a, const long long* n_live_p,
       for (long long p = lo + 1; p <= hi; ++p) r = a.ex(r, staged[p - first]);
       r = a.finish(r, cnt);
     }
-    out[row] = r;
-    ok_out[row] = ok;
+    out[i] = Rec<T>{r, ok};
   }
 }
 
@@ -187,13 +186,11 @@ __global__ void extreme_wide_kernel(Args<T> a, const long long* n_live_p,
                                     const T* __restrict__ pre,
                                     const T* __restrict__ suf,
                                     const T* __restrict__ cx,
-                                    T* __restrict__ out,
-                                    bool* __restrict__ ok_out) {
+                                    Rec<T>* __restrict__ out) {
   a.n_live = *n_live_p;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < a.n; i += stride) {
-    const long long row = a.perm[i];
     long long lo, hi;
     const long long cnt = i < a.n_live ? a.frame(i, lo, hi) : 0;
     const bool ok = cnt > 0;
@@ -210,19 +207,18 @@ __global__ void extreme_wide_kernel(Args<T> a, const long long* n_live_p,
       }
       r = a.finish(r, cnt);
     }
-    out[row] = r;
-    ok_out[row] = ok;
+    out[i] = Rec<T>{r, ok};
   }
 }
 
 template <typename T>
-cudaError_t extreme(Args<T> a, const long long* n_live, T* out, bool* ok,
+cudaError_t extreme(Args<T> a, const long long* n_live, Rec<T>* out,
                     void* scratch, cudaStream_t s) {
   const long long tiles = (a.n + kTile - 1) / kTile;
   if (a.upper - a.lower + 1 <= kNarrowMax) {
     if (a.upper < a.lower) a.upper = a.lower - 1;  // every frame is empty
     extreme_narrow_kernel<T><<<(unsigned)tiles, kThreads, 0, s>>>(
-        a, n_live, out, ok);
+        a, n_live, out);
     return cudaGetLastError();
   }
   if (scratch == nullptr) return cudaErrorInvalidValue;
@@ -235,23 +231,23 @@ cudaError_t extreme(Args<T> a, const long long* n_live, T* out, bool* ok,
   if (err != cudaSuccess) return err;
   const long long want = (a.n + 255) / 256;
   const int grid = (int)(want < 132 * 16 ? want : 132 * 16);
-  extreme_wide_kernel<T><<<grid, 256, 0, s>>>(a, n_live, pre, suf, cx, out,
-                                              ok);
+  extreme_wide_kernel<T><<<grid, 256, 0, s>>>(a, n_live, pre, suf, cx, out);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 1 int32, 2 int64, 3 float32, 4 float64; fn: 0 max, 1 min, 2 sum,
-// 3 avg (sum and avg: float64 only). counts: K10's count scan of valid, or
-// null. scratch: 2n + ceil(n / 1024) values when upper - lower + 1 > 1025,
-// else unused.
-extern "C" int sail_window_extreme(const void* perm, const void* n_live,
-                                   long long n, const void* vals,
-                                   const void* valid, const void* seg_start,
+// 3 avg (sum and avg: float64 only). vals, valid: sorted order (valid
+// null: every row is valid). counts: K10's count scan of valid, or null.
+// out: n records {value, ok} in sorted order. scratch: 2n + ceil(n /
+// 1024) values when upper - lower + 1 > 1025, else unused.
+extern "C" int sail_window_extreme(const void* n_live, long long n,
+                                   const void* vals, const void* valid,
+                                   const void* seg_start,
                                    const void* seg_end, const void* counts,
                                    int dtype, int fn, long long lower,
-                                   long long upper, void* out, void* ok,
+                                   long long upper, void* out,
                                    void* scratch, void* stream) {
   if (n <= 0) return 0;
   if (fn < kMax || fn > kAvg || (fn >= kSum && dtype != kF64))
@@ -260,14 +256,13 @@ extern "C" int sail_window_extreme(const void* perm, const void* n_live,
   const long long* nl = static_cast<const long long*>(n_live);
   const int op = fn == kAvg ? kSum : fn;
 #define SAIL_EXTREME(T)                                                       \
-  extreme<T>(Args<T>{static_cast<const long long*>(perm), n, 0,              \
-                     static_cast<const T*>(vals),                            \
+  extreme<T>(Args<T>{n, 0, static_cast<const T*>(vals),                     \
                      static_cast<const bool*>(valid),                        \
                      static_cast<const int*>(seg_start),                     \
                      static_cast<const int*>(seg_end),                       \
                      static_cast<const long long*>(counts), op,              \
                      fn == kAvg, lower, upper},                              \
-             nl, static_cast<T*>(out), static_cast<bool*>(ok), scratch, s)
+             nl, static_cast<Rec<T>*>(out), scratch, s)
   switch (dtype) {
     case kI32: return (int)SAIL_EXTREME(int);
     case kI64: return (int)SAIL_EXTREME(long long);

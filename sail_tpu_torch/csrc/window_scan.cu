@@ -4,29 +4,37 @@
 // float64/int64 `cumsum` of the values and of the valid flags whose
 // differences give each frame's sum and count, `_segment_count` (:321),
 // and `_segmented_scan` (:328), a Hillis–Steele running MIN/MAX of
-// log2(n) full passes. Two entry points:
+// log2(n) full passes. Both entry points read and write in sorted order
+// only: the values and their validity were gathered into sorted order
+// once a column (window_perm.cu), and each output goes back to row order
+// in one unpermute pass (window_perm.cu). Two entry points:
 //
-// sail_window_scan: a segmented inclusive scan in sorted order. Scan
-//   position k < n_live (a device scalar) is sorted row i = k (forward)
-//   or n_live - 1 - k (backward); a segment restarts where seg_start[i]
-//   == i (forward) or seg_end[i] == i (backward), so out[i] = op over
-//   [seg_start[i], i] or [i, seg_end[i]]. The value of row i is
-//   vals[perm[i]] where valid[perm[i]] (no validity: always), else the
-//   identity. ops: sum (int64 over int32/int64, exact in two's
-//   complement; float64 over float32/float64), count (int64, no values),
-//   min and max (the value type; NaN propagates, as torch.minimum).
-//   Dead rows (i >= n_live) hold the identity.
-// Bound: bytes, n * (8 B perm + 4 B bound + value + 1 B validity, the
-//   last two gathered through perm) + n * output width.
-// Design: window.cuh's three-phase tile scan over scan positions (tile
-//   aggregates, one block scanning the carries, the tiles again from
-//   their carries): three launches, every row read twice, in tiles of
-//   1024 with 4 consecutive positions a thread.
+// sail_window_scan: a segmented inclusive scan in sorted order. Position
+//   i < n_live (a device scalar) holds vals[i] where valid[i] (no
+//   validity: always), else the identity; a segment restarts where
+//   seg_start[i] == i (forward: out[i] = op over [seg_start[i], i]) or
+//   seg_end[i] == i (backward: over [i, seg_end[i]]). ops: sum (int64
+//   over int32/int64, exact in two's complement; float64 over
+//   float32/float64), count (int64, no values), min and max (the value
+//   type; NaN propagates, as torch.minimum). Dead rows (i >= n_live) hold
+//   the identity.
+// Bound: bytes, n * (value + 1 B validity + 4 B bound + output width),
+//   each read and written once, in order.
+// Design: one launch, a single-pass scan with decoupled look-back
+//   (Merrill and Garland, 2016). A block takes the next tile of 2048
+//   positions in scan order from a counter (backward: from the end), 8
+//   consecutive positions a thread, read 16 B at a time; it scans its
+//   tile, publishes the tile's aggregate and then its inclusive prefix,
+//   and takes its carry from the tiles before it: one warp reads 32 of
+//   their statuses at a time and stops at the nearest prefix. A tile that
+//   holds a segment start publishes its prefix at once, so a tile waits
+//   only back to its segment's start. Scratch: 3 words a tile.
 //
 // sail_window_frame: each row's frame [lo, hi] from the ROWS offsets
 //   (clipped to the segment), the segment's bounds, or peer_end (the
-//   default RANGE frame), evaluated from the scans and written to
-//   out[perm[i]]:
+//   default RANGE frame), evaluated from the scans and written at the
+//   row's sorted position as a window.cuh record {value, ok} (count: a
+//   plain int64):
 //     count: C[hi] - C[lo - 1] (C: the count scan; none: hi - lo + 1),
 //     sum, avg: P[hi] - (lo > seg_start ? P[lo - 1] : 0) from a forward
 //       scan, S[lo] - (hi < seg_end ? S[hi + 1] : 0) from a backward one,
@@ -38,12 +46,14 @@
 //     min, max: the running extreme at hi (forward scan, the frame starts
 //       at the segment start) or at lo (backward scan, it ends at the
 //       segment end),
-//   valid where the frame holds a counted row (count has no validity).
-//   Dead rows and invalid results get 0.
-// Bound: bytes, n * (8 B perm + 8-12 B bounds + 2 scan reads + output),
-//   the scan reads at lo - 1 and hi mostly cached neighbours.
+//   ok where the frame holds a counted row. Dead rows and invalid results
+//   get 0.
+// Bound: bytes, n * (8-12 B bounds + 2 scan reads + 2 count reads +
+//   record), all in sorted order; the reads at lo - 1 and hi are mostly
+//   cached neighbours.
 
 #include <limits.h>
+#include <string.h>
 
 #include <cfloat>
 
@@ -52,6 +62,10 @@
 namespace {
 
 using namespace sail::win;
+
+constexpr int kScanThreads = 256;
+constexpr int kScanItems = 8;
+constexpr long long kScanTile = kScanThreads * kScanItems;
 
 enum Op { kSum = 0, kCount = 1, kMin = 2, kMax = 3 };
 enum Fn { kFnSum = 0, kFnCount = 1, kFnAvg = 2, kFnExtreme = 3 };
@@ -86,106 +100,233 @@ struct ScanOp {
 
 template <int OP, typename In, typename Acc>
 struct ScanArgs {
-  const long long* perm;
-  long long n, n_live;
-  const In* vals;
-  const bool* valid;
-  const int* bound;  // seg_start (forward) or seg_end (backward)
-  bool backward;
-
-  // the leaf of scan position k: (segment restarts, value)
-  __device__ __forceinline__ Seg<Acc> leaf(long long k) const {
-    if (k >= n_live) return Seg<Acc>{0, ScanOp<OP, Acc>::identity()};
-    const long long i = backward ? n_live - 1 - k : k;
-    const int f = bound[i] == i;
-    const long long row = perm[i];
-    if (valid != nullptr && !valid[row])
-      return Seg<Acc>{f, ScanOp<OP, Acc>::identity()};
-    if (OP == kCount) return Seg<Acc>{f, (Acc)1};
-    return Seg<Acc>{f, (Acc)vals[row]};
-  }
+  long long n;
+  const In* vals;     // sorted order; null for count
+  const bool* valid;  // sorted order; null: every live row counts
+  const int* bound;   // seg_start (forward) or seg_end (backward)
 };
 
-template <int OP, typename In, typename Acc>
-__global__ void __launch_bounds__(kThreads)
-scan_tiles_kernel(ScanArgs<OP, In, Acc> a, const long long* n_live_p,
-                  Seg<Acc>* agg) {
-  a.n_live = *n_live_p;
-  const long long base = (long long)blockIdx.x * kTile;
-  const SegOp<ScanOp<OP, Acc>> op{};
-  const Seg<Acc> ident{0, ScanOp<OP, Acc>::identity()};
-  Seg<Acc> acc = ident;
-  for (int j = 0; j < kItems; ++j)
-    acc = op(acc, a.leaf(base + threadIdx.x * kItems + j));
-  Seg<Acc> total;
-  block_exclusive_scan<kThreads>(acc, ident, op, &total);
-  if (threadIdx.x == 0) agg[blockIdx.x] = total;
-}
-
-template <int OP, typename Acc>
-__global__ void __launch_bounds__(kCarryThreads)
-scan_carry_kernel(Seg<Acc>* agg, long long tiles) {
-  scan_carries(agg, tiles, Seg<Acc>{0, ScanOp<OP, Acc>::identity()},
-               SegOp<ScanOp<OP, Acc>>{}, false);
-}
-
-template <int OP, typename In, typename Acc>
-__global__ void __launch_bounds__(kThreads)
-scan_finish_kernel(ScanArgs<OP, In, Acc> a, const long long* n_live_p,
-                   const Seg<Acc>* agg, Acc* __restrict__ out) {
-  a.n_live = *n_live_p;
-  const long long base = (long long)blockIdx.x * kTile;
-  const SegOp<ScanOp<OP, Acc>> op{};
-  const Seg<Acc> ident{0, ScanOp<OP, Acc>::identity()};
-  Seg<Acc> v[kItems];
-  for (int j = 0; j < kItems; ++j) v[j] = a.leaf(base + threadIdx.x * kItems + j);
-  tile_scan(v, agg[blockIdx.x], ident, op, (Seg<Acc>*)nullptr);
-  for (int j = 0; j < kItems; ++j) {
-    const long long k = base + threadIdx.x * kItems + j;
-    if (k < a.n_live)
-      out[a.backward ? a.n_live - 1 - k : k] = v[j].v;
-    else if (k < a.n)
-      out[k] = ScanOp<OP, Acc>::identity();  // row k is dead
+// x[j] = src[p0 + j], 16 B (8 B for 8 bools) at a time where the whole
+// run lies below n (src + p0 is then aligned: p0 is a multiple of kItems
+// and the wrapper hands 16 B-aligned arrays), else one at a time, fill
+// past n.
+template <int N, typename T>
+__device__ __forceinline__ void load_run(const T* __restrict__ src,
+                                         long long p0, long long n,
+                                         T (&x)[N], T fill) {
+  constexpr int kBytes = sizeof(T) * N;
+  if (p0 + N <= n) {
+    if constexpr (kBytes % 16 == 0) {
+      int4 tmp[kBytes / 16];
+      const int4* q = reinterpret_cast<const int4*>(src + p0);
+#pragma unroll
+      for (int k = 0; k < kBytes / 16; ++k) tmp[k] = __ldg(q + k);
+      memcpy(x, tmp, kBytes);
+    } else {
+      static_assert(kBytes == 8, "a run is 8 B or a multiple of 16 B");
+      const uint2 tmp = __ldg(reinterpret_cast<const uint2*>(src + p0));
+      memcpy(x, &tmp, kBytes);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = p0 + j < n ? src[p0 + j] : fill;
   }
 }
 
+template <int N, typename T>
+__device__ __forceinline__ void store_run(T* __restrict__ dst, long long p0,
+                                          long long n, const T (&x)[N]) {
+  constexpr int kBytes = sizeof(T) * N;
+  static_assert(kBytes % 16 == 0, "a run of outputs is a multiple of 16 B");
+  if (p0 + N <= n) {
+    int4 tmp[kBytes / 16];
+    memcpy(tmp, x, kBytes);
+    int4* q = reinterpret_cast<int4*>(dst + p0);
+#pragma unroll
+    for (int k = 0; k < kBytes / 16; ++k) q[k] = tmp[k];
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (p0 + j < n) dst[p0 + j] = x[j];
+  }
+}
+
+// A tile's status, in scan order: 0 until its block publishes its own
+// aggregate (kAgg) or its inclusive prefix (kPre). A tile that holds a
+// segment start publishes its prefix at once: nothing before it reaches
+// the tiles after it.
+enum Status : unsigned long long { kAgg = 1, kPre = 2 };
+
+template <typename Acc>
+struct Lookback {
+  unsigned long long* status;
+  unsigned long long* counter;  // the next tile, in scan order, to take
+  Acc* agg;
+  Acc* pre;
+};
+
+template <typename Acc>
+__device__ __forceinline__ void publish(const Lookback<Acc>& lb, long long d,
+                                        unsigned long long status, Acc v) {
+  (status == kPre ? lb.pre : lb.agg)[d] = v;
+  __threadfence();
+  *reinterpret_cast<volatile unsigned long long*>(lb.status + d) = status;
+}
+
+// Warp 0 of tile d (in scan order), whose own aggregate is `total`: the
+// value the tiles before it carry into it (its exclusive prefix from the
+// nearest segment start). Reads the statuses of 32 tiles at a time,
+// nearest first, and stops at the first that holds a prefix; the
+// aggregates in between combine in scan order.
+template <int OP, typename Acc>
+__device__ Acc look_back(const Lookback<Acc>& lb, long long d,
+                         Seg<Acc> total) {
+  const ScanOp<OP, Acc> op{};
+  const Acc id = ScanOp<OP, Acc>::identity();
+  const int lane = threadIdx.x & 31;
+  if (lane == 0)
+    publish(lb, d, d == 0 || total.f ? kPre : kAgg, total.v);
+  if (d == 0) return id;
+  Acc run = id;
+  for (long long k = d - 1;; k -= 32) {
+    const long long q = k - lane;
+    unsigned long long s = kPre;  // before the first tile: nothing
+    Acc x = id;
+    if (q >= 0) {
+      do {
+        s = *reinterpret_cast<volatile unsigned long long*>(lb.status + q);
+      } while (s == 0);
+      __threadfence();
+      x = *reinterpret_cast<volatile Acc*>((s == kPre ? lb.pre : lb.agg) + q);
+    }
+    const unsigned stop = __ballot_sync(SAIL_FULL_MASK, s == kPre);
+    const int last = stop ? __ffs(stop) - 1 : 31;
+    if (lane > last) x = id;
+    // lane 0 gets x[last] + ... + x[0]: the farther tile on the left
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const Acc y = __shfl_down_sync(SAIL_FULL_MASK, x, o);
+      if (lane + o < 32) x = op(y, x);
+    }
+    run = op(x, run);
+    if (stop) break;
+  }
+  if (lane == 0 && !total.f) publish(lb, d, kPre, op(run, total.v));
+  return run;
+}
+
+// One block a tile of kScanTile positions, taken in scan order from
+// lb.counter; thread c holds positions [c * kScanItems, + kScanItems) of
+// its tile (backward: the tile and the threads run from the end).
+template <int OP, typename In, typename Acc, bool kBack>
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(ScanArgs<OP, In, Acc> a, const long long* n_live_p,
+            Lookback<Acc> lb, long long tiles, Acc* __restrict__ out) {
+  __shared__ long long tile_sh;
+  __shared__ Acc carry_sh;
+  const SegOp<ScanOp<OP, Acc>> op{};
+  const Acc id = ScanOp<OP, Acc>::identity();
+  if (threadIdx.x == 0)
+    tile_sh = (long long)atomicAdd(lb.counter, 1ULL);
+  __syncthreads();
+  const long long d = tile_sh;
+  const long long t = kBack ? tiles - 1 - d : d;
+  const long long n_live = *n_live_p;
+  const int c = kBack ? kScanThreads - 1 - threadIdx.x : threadIdx.x;
+  const long long p0 = t * kScanTile + (long long)c * kScanItems;
+  if (t * kScanTile >= n_live) {  // a dead tile: the identity throughout,
+    if (threadIdx.x == 0) publish(lb, d, kPre, id);  // and carries nothing
+    Acc o[kScanItems];
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) o[j] = id;
+    store_run(out, p0, a.n, o);
+    return;
+  }
+
+  Seg<Acc> v[kScanItems];  // in position order
+  {
+    int b[kScanItems];
+    bool ok[kScanItems];
+    In x[kScanItems];
+    load_run(a.bound, p0, a.n, b, -1);
+    if (a.valid != nullptr) {
+      load_run(a.valid, p0, a.n, ok, false);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kScanItems; ++j) ok[j] = true;
+    }
+    if constexpr (OP != kCount) load_run(a.vals, p0, a.n, x, In(0));
+#pragma unroll
+    for (int j = 0; j < kScanItems; ++j) {
+      const long long p = p0 + j;
+      const bool live = p < n_live;
+      Acc val = id;
+      if (live && ok[j]) {
+        if constexpr (OP == kCount) val = (Acc)1;
+        else val = (Acc)x[j];
+      }
+      v[j] = Seg<Acc>{live && b[j] == p, val};
+    }
+  }
+  // the thread's positions in scan order
+  if (kBack) {
+#pragma unroll
+    for (int j = kScanItems - 2; j >= 0; --j) v[j] = op(v[j + 1], v[j]);
+  } else {
+#pragma unroll
+    for (int j = 1; j < kScanItems; ++j) v[j] = op(v[j - 1], v[j]);
+  }
+  Seg<Acc> total;
+  const Seg<Acc> before = block_exclusive_scan<kScanThreads>(
+      v[kBack ? 0 : kScanItems - 1], Seg<Acc>{0, id}, op, &total);
+  if (threadIdx.x < 32) {
+    const Acc carry = look_back<OP>(lb, d, total);
+    if (threadIdx.x == 0) carry_sh = carry;
+  }
+  __syncthreads();
+  const Seg<Acc> pre = op(Seg<Acc>{0, carry_sh}, before);
+  Acc o[kScanItems];
+#pragma unroll
+  for (int j = 0; j < kScanItems; ++j)
+    o[j] = p0 + j < n_live ? op(pre, v[j]).v : id;  // dead rows: identity
+  store_run(out, p0, a.n, o);
+}
+
 template <int OP, typename In, typename Acc>
-cudaError_t scan(const long long* perm, const long long* n_live, long long n,
-                 const void* vals, const bool* valid, const int* bound,
-                 bool backward, void* out, void* scratch, cudaStream_t s) {
-  ScanArgs<OP, In, Acc> a{perm, n, 0, static_cast<const In*>(vals), valid,
-                          bound, backward};
-  const long long tiles = (n + kTile - 1) / kTile;
-  Seg<Acc>* agg = static_cast<Seg<Acc>*>(scratch);
-  scan_tiles_kernel<OP, In, Acc><<<(unsigned)tiles, kThreads, 0, s>>>(
-      a, n_live, agg);
-  cudaError_t err = cudaGetLastError();
+cudaError_t scan(const long long* n_live, long long n, const void* vals,
+                 const bool* valid, const int* bound, bool backward,
+                 void* out, void* scratch, cudaStream_t s) {
+  ScanArgs<OP, In, Acc> a{n, static_cast<const In*>(vals), valid, bound};
+  const long long tiles = (n + kScanTile - 1) / kScanTile;
+  unsigned long long* words = static_cast<unsigned long long*>(scratch);
+  Lookback<Acc> lb{words, words + tiles,
+                   reinterpret_cast<Acc*>(words + tiles + 1), nullptr};
+  lb.pre = lb.agg + tiles;
+  cudaError_t err = cudaMemsetAsync(words, 0, (tiles + 1) * 8, s);
   if (err != cudaSuccess) return err;
-  scan_carry_kernel<OP, Acc><<<1, kCarryThreads, 0, s>>>(agg, tiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  scan_finish_kernel<OP, In, Acc><<<(unsigned)tiles, kThreads, 0, s>>>(
-      a, n_live, agg, static_cast<Acc*>(out));
+  Acc* o = static_cast<Acc*>(out);
+  if (backward)
+    scan_kernel<OP, In, Acc, true><<<(unsigned)tiles, kScanThreads, 0, s>>>(
+        a, n_live, lb, tiles, o);
+  else
+    scan_kernel<OP, In, Acc, false><<<(unsigned)tiles, kScanThreads, 0, s>>>(
+        a, n_live, lb, tiles, o);
   return cudaGetLastError();
 }
 
-template <int OP, typename In>
-cudaError_t scan_minmax(const long long* p, const long long* nl, long long n,
-                        const void* v, const bool* valid, const int* b,
-                        bool bw, void* out, void* sc, cudaStream_t s) {
-  return scan<OP, In, In>(p, nl, n, v, valid, b, bw, out, sc, s);
-}
-
 template <int OP>
-cudaError_t scan_typed(int dtype, const long long* p, const long long* nl,
-                       long long n, const void* v, const bool* valid,
-                       const int* b, bool bw, void* out, void* sc,
-                       cudaStream_t s) {
+cudaError_t scan_typed(int dtype, const long long* nl, long long n,
+                       const void* v, const bool* valid, const int* b,
+                       bool bw, void* out, void* sc, cudaStream_t s) {
   switch (dtype) {
-    case kI32: return scan_minmax<OP, int>(p, nl, n, v, valid, b, bw, out, sc, s);
-    case kI64: return scan_minmax<OP, long long>(p, nl, n, v, valid, b, bw, out, sc, s);
-    case kF32: return scan_minmax<OP, float>(p, nl, n, v, valid, b, bw, out, sc, s);
-    case kF64: return scan_minmax<OP, double>(p, nl, n, v, valid, b, bw, out, sc, s);
+    case kI32: return scan<OP, int, int>(nl, n, v, valid, b, bw, out, sc, s);
+    case kI64:
+      return scan<OP, long long, long long>(nl, n, v, valid, b, bw, out, sc,
+                                            s);
+    case kF32:
+      return scan<OP, float, float>(nl, n, v, valid, b, bw, out, sc, s);
+    case kF64:
+      return scan<OP, double, double>(nl, n, v, valid, b, bw, out, sc, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -195,21 +336,18 @@ cudaError_t scan_typed(int dtype, const long long* p, const long long* nl,
 // ---------------------------------------------------------------------------
 
 template <typename T>
-__global__ void frame_kernel(const long long* __restrict__ perm,
-                             const long long* __restrict__ n_live_p,
+__global__ void frame_kernel(const long long* __restrict__ n_live_p,
                              long long n, const int* __restrict__ seg_start,
                              const int* __restrict__ seg_end,
                              const int* __restrict__ peer_end,
                              const T* __restrict__ scan,
                              const long long* __restrict__ counts, int fn,
                              bool backward, long long lower, long long upper,
-                             bool has_lower, bool has_upper, void* out_p,
-                             bool* __restrict__ ok_out) {
+                             bool has_lower, bool has_upper, void* out_p) {
   const long long n_live = *n_live_p;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const long long row = perm[i];
     long long cnt = 0;
     const long long ss = seg_start[i], se = seg_end[i];
     long long lo = ss, hi = se;
@@ -226,12 +364,12 @@ __global__ void frame_kernel(const long long* __restrict__ perm,
     }
     const bool ok = cnt > 0;
     if (fn == kFnCount) {
-      static_cast<long long*>(out_p)[row] = cnt;
+      static_cast<long long*>(out_p)[i] = cnt;
       continue;
     }
-    ok_out[row] = ok;
     if (fn == kFnExtreme) {
-      static_cast<T*>(out_p)[row] = ok ? scan[backward ? lo : hi] : (T)0;
+      static_cast<Rec<T>*>(out_p)[i] =
+          Rec<T>{ok ? scan[backward ? lo : hi] : (T)0, ok};
       continue;
     }
     T s = (T)0;
@@ -240,69 +378,70 @@ __global__ void frame_kernel(const long long* __restrict__ perm,
     else if (ok)
       s = scan[hi] - (lo > ss ? scan[lo - 1] : (T)0);
     if (fn == kFnAvg)
-      static_cast<double*>(out_p)[row] = ok ? (double)s / (double)cnt : 0.0;
+      static_cast<Rec<double>*>(out_p)[i] =
+          Rec<double>{ok ? (double)s / (double)cnt : 0.0, ok};
     else
-      static_cast<T*>(out_p)[row] = s;
+      static_cast<Rec<T>*>(out_p)[i] = Rec<T>{s, ok};
   }
 }
 
 }  // namespace
 
 // dtype: 0 none (count), 1 int32, 2 int64, 3 float32, 4 float64; op: 0
-// sum, 1 count, 2 min, 3 max. scratch: 16 bytes a tile of 1024 rows.
-extern "C" int sail_window_scan(const void* perm, const void* n_live,
-                                long long n, const void* vals,
-                                const void* valid, const void* bound,
-                                int dtype, int op, int backward, void* out,
-                                void* scratch, void* stream) {
+// sum, 1 count, 2 min, 3 max. vals, valid: sorted order (valid null: every
+// live row counts). scratch: 3 * ceil(n / 2048) + 1 words of 8 bytes.
+extern "C" int sail_window_scan(const void* n_live, long long n,
+                                const void* vals, const void* valid,
+                                const void* bound, int dtype, int op,
+                                int backward, void* out, void* scratch,
+                                void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long* p = static_cast<const long long*>(perm);
   const long long* nl = static_cast<const long long*>(n_live);
   const bool* vd = static_cast<const bool*>(valid);
   const int* b = static_cast<const int*>(bound);
   const bool bw = backward != 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (op == kCount && dtype == kNone) {
-    err = scan<kCount, long long, long long>(p, nl, n, nullptr, vd, b, bw,
-                                             out, scratch, s);
+    err = scan<kCount, long long, long long>(nl, n, nullptr, vd, b, bw, out,
+                                             scratch, s);
   } else if (op == kSum) {
     switch (dtype) {
-      case kI32: err = scan<kSum, int, long long>(p, nl, n, vals, vd, b, bw, out, scratch, s); break;
-      case kI64: err = scan<kSum, long long, long long>(p, nl, n, vals, vd, b, bw, out, scratch, s); break;
-      case kF32: err = scan<kSum, float, double>(p, nl, n, vals, vd, b, bw, out, scratch, s); break;
-      case kF64: err = scan<kSum, double, double>(p, nl, n, vals, vd, b, bw, out, scratch, s); break;
+      case kI32: err = scan<kSum, int, long long>(nl, n, vals, vd, b, bw, out, scratch, s); break;
+      case kI64: err = scan<kSum, long long, long long>(nl, n, vals, vd, b, bw, out, scratch, s); break;
+      case kF32: err = scan<kSum, float, double>(nl, n, vals, vd, b, bw, out, scratch, s); break;
+      case kF64: err = scan<kSum, double, double>(nl, n, vals, vd, b, bw, out, scratch, s); break;
     }
   } else if (op == kMin) {
-    err = scan_typed<kMin>(dtype, p, nl, n, vals, vd, b, bw, out, scratch, s);
+    err = scan_typed<kMin>(dtype, nl, n, vals, vd, b, bw, out, scratch, s);
   } else if (op == kMax) {
-    err = scan_typed<kMax>(dtype, p, nl, n, vals, vd, b, bw, out, scratch, s);
+    err = scan_typed<kMax>(dtype, nl, n, vals, vd, b, bw, out, scratch, s);
   }
   return (int)err;
 }
 
 // dtype: the scan's type (as above; 0 for count, which has no scan); fn:
-// 0 sum, 1 count, 2 avg (out float64), 3 min/max (the extreme at hi, or at
-// lo when backward); backward: the scan runs to the segment end. peer_end, counts: null when not used; ok: null for
-// count.
-extern "C" int sail_window_frame(const void* perm, const void* n_live,
-                                 long long n, const void* seg_start,
-                                 const void* seg_end, const void* peer_end,
-                                 const void* scan, const void* counts,
-                                 int dtype, int fn, int backward,
-                                 long long lower, long long upper,
-                                 int has_lower, int has_upper, void* out,
-                                 void* ok, int grid, void* stream) {
+// 0 sum, 1 count, 2 avg (a float64 record), 3 min/max (the extreme at hi,
+// or at lo when backward); backward: the scan runs to the segment end.
+// peer_end, counts: null when not used. out: n records {value, ok} of the
+// scan's type in sorted order (count: n int64).
+extern "C" int sail_window_frame(const void* n_live, long long n,
+                                 const void* seg_start, const void* seg_end,
+                                 const void* peer_end, const void* scan,
+                                 const void* counts, int dtype, int fn,
+                                 int backward, long long lower,
+                                 long long upper, int has_lower,
+                                 int has_upper, void* out, int grid,
+                                 void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SAIL_FRAME(T)                                                        \
   frame_kernel<T><<<grid, 256, 0, s>>>(                                      \
-      static_cast<const long long*>(perm),                                   \
       static_cast<const long long*>(n_live), n,                              \
       static_cast<const int*>(seg_start), static_cast<const int*>(seg_end),  \
       static_cast<const int*>(peer_end), static_cast<const T*>(scan),        \
       static_cast<const long long*>(counts), fn, backward != 0, lower, upper, \
-      has_lower != 0, has_upper != 0, out, static_cast<bool*>(ok))
+      has_lower != 0, has_upper != 0, out)
   switch (dtype) {
     case kNone:
       if (fn != kFnCount) return (int)cudaErrorInvalidValue;

@@ -17,11 +17,16 @@ bounds:
 - lag, lead, nth_value, first and last: one gather through the sort
   permutation each.
 
-Every output is written in ROW order straight from its sorted position,
-``out[perm[i]] = f(i)``, so no inverse permutation is built (the
-reference gathers each output back through one). Every row is written:
-dead rows (``sel`` false; they sort last) get 0, invalid where the output
-has a validity.
+K10 and K11 work in sorted order only. A value column and its validity
+are gathered into sorted order once per context (``window_gather``,
+cached by ``WindowContext.sorted_values``); the scans, frames and
+extremes read and write contiguous sorted arrays, and each output goes
+back to row order in one pass (``window_unpermute``: a gather through the
+context's int32 ``inv_perm``, built once, as the reference's ``_unsort``
+does). K8, K9 and the gathers write row order straight from the sorted
+position, ``out[perm[i]] = f(i)``. Every row is written: dead rows
+(``sel`` false; they sort last) get 0, invalid where the output has a
+validity.
 
 Each kernel's wrapper takes the ``*_plain`` version for a CPU tensor; a
 CUDA tensor launches the kernel or raises. Each keeps a ``.launches``
@@ -39,10 +44,11 @@ from .. import csrc
 from ..columnar.batch import Column
 from .sort import compact_perm, lexsort_keys, order_keys
 
-# kernels' limits (window.cuh: kMaxKeys, kTile; window_extreme.cu:
-# kNarrowMax)
+# kernels' limits (window.cuh: kMaxKeys, kTile; window_scan.cu:
+# kScanTile; window_extreme.cu: kNarrowMax)
 MAX_KEYS = 16
 TILE = 1024
+SCAN_TILE = 2048
 NARROW_MAX = 1025
 
 _RANKS = ("row_number", "rank", "dense_rank", "percent_rank", "cume_dist",
@@ -71,6 +77,8 @@ class WindowContext:
         self.peer_end = peer_end      # last position of its peer group
         self.dense = dense            # peer groups of its segment up to it
         self._counts: Dict[int, tuple] = {}  # id(validity) → (it, its scan)
+        self._sorted: Dict[int, tuple] = {}  # id(column) → (it, sorted)
+        self._inv_perm: Optional[torch.Tensor] = None
 
     @property
     def alive(self) -> torch.Tensor:
@@ -86,15 +94,44 @@ class WindowContext:
         """0-based position of each sorted row in its segment."""
         return (_positions(self.perm) - self.seg_start).to(torch.int32)
 
+    @property
+    def inv_perm(self) -> torch.Tensor:
+        """int32[n]: the sorted position of each live row, -1 for a dead
+        row (``window_inverse``), built once, for ``window_unpermute``."""
+        if self._inv_perm is None:
+            self._inv_perm = window_inverse(self.perm, self.n_live)
+        return self._inv_perm
+
+    def _cached(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        hit = None if t is None else self._sorted.get(id(t))
+        return hit[1] if hit is not None and hit[0] is t else None
+
+    def sorted_values(self, vals: Optional[torch.Tensor],
+                      valid: Optional[torch.Tensor]):
+        """(vals_s, valid_s): a value column and its validity (row order;
+        either may be None) in sorted order, the form K10 and K11 read.
+        Each tensor is gathered once per context (one ``window_gather``
+        for what is not cached yet) and kept, by identity, as long as the
+        context lives."""
+        todo = [t if t is not None and self._cached(t) is None else None
+                for t in (vals, valid)]
+        if todo[0] is not None or todo[1] is not None:
+            for t, s in zip(todo, window_gather(self.perm, self.n_live,
+                                                *todo)):
+                if t is not None:
+                    self._sorted[id(t)] = (t, s)
+        return self._cached(vals), self._cached(valid)
+
     def count_scan(self, valid: Optional[torch.Tensor]
                    ) -> Optional[torch.Tensor]:
-        """K10's count scan of ``valid`` (row order), made once per
-        validity; None when every live row counts."""
+        """K10's count scan of ``valid`` (row order) in sorted order, made
+        once per validity; None when every live row counts."""
         if valid is None:
             return None
         hit = self._counts.get(id(valid))
         if hit is None or hit[0] is not valid:
-            hit = (valid, window_scan(self, None, valid, "count"))
+            _, valid_s = self.sorted_values(None, valid)
+            hit = (valid, window_scan(self, None, valid_s, "count"))
             self._counts[id(valid)] = hit
         return hit[1]
 
@@ -116,6 +153,15 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.contiguous()
+
+
+def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """t contiguous from a 16 B-aligned address (K10's scan loads 16 B at
+    a time); a view that starts elsewhere is copied."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_rows(name: str, n: int, dev: torch.device, **tensors) -> None:
@@ -420,6 +466,158 @@ def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None):
 
 
 # ---------------------------------------------------------------------------
+# between row order and sorted order: the gather and the unpermute
+# ---------------------------------------------------------------------------
+
+def window_gather_plain(perm: torch.Tensor, n_live: torch.Tensor,
+                        vals: Optional[torch.Tensor],
+                        valid: Optional[torch.Tensor]):
+    """(vals[perm], valid[perm]) over the live positions (below n_live),
+    0 and false at the dead ones; None where not given."""
+    live = _positions(perm) < n_live
+    return tuple(None if t is None else torch.where(
+        live, t[perm], torch.zeros((), dtype=t.dtype, device=t.device))
+        for t in (vals, valid))
+
+
+def window_gather(perm: torch.Tensor, n_live: torch.Tensor,
+                  vals: Optional[torch.Tensor],
+                  valid: Optional[torch.Tensor]):
+    """``window_gather_plain`` as one kernel pass that reads perm once for
+    both columns.
+
+    Replaces ``sail_tpu/ops/window.py`` ``framed_agg``'s value gathers
+    (:219-220); csrc/window_perm.cu states its bound. Values of 1, 2, 4
+    or 8 bytes. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if perm.device.type == "cpu":
+        return window_gather_plain(perm, n_live, vals, valid)
+    n, dev = perm.shape[0], perm.device
+    if perm.dtype != torch.int64 or (vals is not None and vals.element_size()
+                                     not in (1, 2, 4, 8)) \
+            or (valid is not None and valid.dtype != torch.bool):
+        raise TypeError("window_gather: an int64 perm, values of 1, 2, 4 or "
+                        "8 bytes and a bool validity")
+    n_live = _check_n_live("window_gather", n_live, dev)
+    _check_rows("window_gather", n, dev, perm=perm, vals=vals, valid=valid)
+    perm, vals, valid = (_contiguous(t) for t in (perm, vals, valid))
+    vals_s = None if vals is None else torch.empty_like(vals)
+    valid_s = None if valid is None else torch.empty_like(valid)
+    if n == 0 or (vals is None and valid is None):
+        return vals_s, valid_s
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_perm.cu", "sail_window_gather")(
+            perm.data_ptr(), n_live.data_ptr(), n, _ptr(vals),
+            0 if vals is None else vals.element_size(), _ptr(valid),
+            _ptr(vals_s), _ptr(valid_s), csrc.stream_ptr(dev)),
+            "window_gather")
+    window_gather.launches += 1
+    return vals_s, valid_s
+
+
+window_gather.launches = 0
+
+
+def window_inverse_plain(perm: torch.Tensor, n_live: torch.Tensor
+                         ) -> torch.Tensor:
+    """int32 inv: inv[perm[i]] = i for the live positions i < n_live, -1
+    for the dead rows."""
+    idx = _positions(perm)
+    inv = torch.full_like(perm, -1, dtype=torch.int32)
+    inv[perm] = torch.where(idx < n_live, idx, -1).to(torch.int32)
+    return inv
+
+
+def window_inverse(perm: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
+    """``window_inverse_plain`` as a kernel: a memset, then one write a
+    live row.
+
+    Replaces ``sail_tpu/ops/window.py`` ``build_window_context``'s
+    ``inv_perm`` (:78); csrc/window_perm.cu states its bound. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    n, dev = perm.shape[0], perm.device
+    if n > torch.iinfo(torch.int32).max:
+        raise ValueError(f"window_inverse: {n} rows do not fit int32")
+    if dev.type == "cpu":
+        return window_inverse_plain(perm, n_live)
+    if perm.dtype != torch.int64:
+        raise TypeError("window_inverse: an int64 perm")
+    n_live = _check_n_live("window_inverse", n_live, dev)
+    perm = perm.contiguous()
+    inv = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return inv
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_perm.cu", "sail_window_inverse")(
+            perm.data_ptr(), n_live.data_ptr(), n, inv.data_ptr(),
+            csrc.stream_ptr(dev)), "window_inverse")
+    window_inverse.launches += 1
+    return inv
+
+
+window_inverse.launches = 0
+
+# a record's words read as integers (its ok word is 0 or 1)
+_WORDS = {4: torch.int32, 8: torch.int64}
+
+
+def pack_records(vals: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """[n, 2] records {value, ok} of 4- or 8-byte values, as K10's frame
+    evaluation and K11 write them in sorted order (window.cuh ``Rec``)."""
+    words = torch.stack([vals.view(_WORDS[vals.element_size()]),
+                         ok.to(_WORDS[vals.element_size()])], 1)
+    return words.view(vals.dtype)
+
+
+def window_unpermute_plain(ctx: WindowContext, src: torch.Tensor):
+    """(out, ok) in row order from ``src`` in sorted order: n values (ok
+    None) or [n, 2] records {value, ok} (``pack_records``); a dead row
+    gets 0 and invalid."""
+    live = ctx.alive
+    if src.dim() == 1:
+        return _scatter(ctx.perm, torch.where(live, src, 0)), None
+    words = src.view(_WORDS[src.element_size()])
+    return (_scatter(ctx.perm, torch.where(live, src[:, 0], 0)),
+            _scatter(ctx.perm, (words[:, 1] != 0) & live))
+
+
+def window_unpermute(ctx: WindowContext, src: torch.Tensor):
+    """``window_unpermute_plain`` as one kernel pass, value and validity
+    together: out[r] = src[inv_perm[r]].
+
+    Replaces ``sail_tpu/ops/window.py`` ``_unsort`` (:82) for K10's frame
+    evaluation and K11; csrc/window_perm.cu states its bound. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
+    perm = ctx.perm
+    if perm.device.type == "cpu":
+        return window_unpermute_plain(ctx, src)
+    n, dev = perm.shape[0], perm.device
+    records = src.dim() == 2
+    if src.element_size() not in _WORDS or src.shape[0] != n or \
+            src.device != dev or (records and src.shape[1] != 2) or \
+            not src.is_contiguous():
+        raise TypeError(f"window_unpermute: {n} contiguous values or [n, 2] "
+                        f"records of 4 or 8 bytes on {dev}, got "
+                        f"{src.dtype}{tuple(src.shape)} on {src.device}")
+    out = torch.empty(n, dtype=src.dtype, device=dev)
+    ok = torch.empty(n, dtype=torch.bool, device=dev) if records else None
+    if n == 0:
+        return out, ok
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_perm.cu", "sail_window_unpermute")(
+            ctx.inv_perm.data_ptr(), n, src.data_ptr(),
+            src.element_size(), out.data_ptr(), _ptr(ok),
+            csrc.stream_ptr(dev)), "window_unpermute")
+    window_unpermute.launches += 1
+    return out, ok
+
+
+window_unpermute.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K10: segmented scans and the frame evaluation
 # ---------------------------------------------------------------------------
 
@@ -454,14 +652,14 @@ def _hs_scan(vals: torch.Tensor, start: torch.Tensor, op: str
 
 def _scan_values(ctx: WindowContext, vals: Optional[torch.Tensor],
                  valid: Optional[torch.Tensor], op: str) -> torch.Tensor:
-    """The scan's inputs in sorted order: values through perm, the
-    identity where a row is dead or invalid."""
+    """The scan's inputs (sorted order): the values, the identity where a
+    row is dead or invalid."""
     mask = ctx.alive
     if valid is not None:
-        mask = mask & valid[ctx.perm]
+        mask = mask & valid
     if op == "count":
         return mask.to(torch.int64)
-    v = vals[ctx.perm]
+    v = vals
     if op == "sum":
         v = v.to(torch.float64 if v.is_floating_point() else torch.int64)
     return torch.where(mask, v, torch.full_like(v, _identity(v.dtype, op)))
@@ -470,12 +668,12 @@ def _scan_values(ctx: WindowContext, vals: Optional[torch.Tensor],
 def window_scan_plain(ctx: WindowContext, vals: Optional[torch.Tensor],
                       valid: Optional[torch.Tensor], op: str,
                       backward: bool = False) -> torch.Tensor:
-    """Segmented inclusive scan in sorted order of ``vals`` (row order,
-    read through perm; None for count) over live rows where ``valid``:
-    forward, out[i] = op over [seg_start[i], i]; backward, over
-    [i, seg_end[i]]. sum is int64 (ints, unscaled decimals) or float64;
-    count int64; min/max keep the value type (NaN propagates). Dead rows
-    hold the identity."""
+    """Segmented inclusive scan in sorted order of ``vals`` (sorted
+    order, ``ctx.sorted_values``; None for count) over live rows where
+    ``valid`` (sorted order): forward, out[i] = op over [seg_start[i],
+    i]; backward, over [i, seg_end[i]]. sum is int64 (ints, unscaled
+    decimals) or float64; count int64; min/max keep the value type (NaN
+    propagates). Dead rows hold the identity."""
     v = _scan_values(ctx, vals, valid, op)
     if not backward:
         return _hs_scan(v, ctx.seg_start.to(torch.int64), op)
@@ -494,8 +692,8 @@ def window_scan(ctx: WindowContext, vals: Optional[torch.Tensor],
     Replaces ``sail_tpu/ops/window.py`` ``_segmented_scan`` (:328), the
     global ``cumsum`` of ``framed_agg`` (:207) and ``_segment_count``
     (:321); csrc/window_scan.cu states its bound and design. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (a
-    three-phase tile scan: three launches) or raises."""
+    takes the plain version; a CUDA tensor launches the kernel (one
+    single-pass scan with decoupled look-back) or raises."""
     perm = ctx.perm
     if perm.device.type == "cpu":
         return window_scan_plain(ctx, vals, valid, op, backward)
@@ -512,7 +710,8 @@ def window_scan(ctx: WindowContext, vals: Optional[torch.Tensor],
     if valid is not None and valid.dtype != torch.bool:
         raise TypeError("window_scan: the validity must be bool")
     _check_rows("window_scan", n, dev, vals=vals, valid=valid)
-    vals, valid = _contiguous(vals), _contiguous(valid)
+    vals, valid = _aligned(vals), _aligned(valid)
+    bound = _aligned(ctx.seg_end if backward else ctx.seg_start)
     if op == "count":
         out_dtype = torch.int64
     elif op == "sum":
@@ -522,13 +721,13 @@ def window_scan(ctx: WindowContext, vals: Optional[torch.Tensor],
     out = torch.empty(n, dtype=out_dtype, device=dev)
     if n == 0:
         return out
-    scratch = torch.empty(2 * -(-n // TILE), dtype=torch.int64, device=dev)
+    scratch = torch.empty(3 * -(-n // SCAN_TILE) + 1, dtype=torch.int64,
+                          device=dev)
     with torch.cuda.device(dev):
         csrc.check(csrc.entry("window_scan.cu", "sail_window_scan")(
-            perm.data_ptr(), n_live.data_ptr(), n, _ptr(vals), _ptr(valid),
-            (ctx.seg_end if backward else ctx.seg_start).data_ptr(), code,
-            _SCAN_OPS[op], int(backward), out.data_ptr(), scratch.data_ptr(),
-            csrc.stream_ptr(dev)), "window_scan")
+            n_live.data_ptr(), n, _ptr(vals), _ptr(valid), bound.data_ptr(),
+            code, _SCAN_OPS[op], int(backward), out.data_ptr(),
+            scratch.data_ptr(), csrc.stream_ptr(dev)), "window_scan")
     window_scan.launches += 1
     return out
 
@@ -576,8 +775,8 @@ def window_frame_plain(ctx: WindowContext, scan: Optional[torch.Tensor],
                        lower: Optional[int], upper: Optional[int],
                        peer_end=None, backward: bool = False):
     """(out, validity) in row order of ``fn`` over each row's frame, from
-    K10's sorted scans: sum, avg from the sum scan (and count), as the
-    difference of the scan at the frame's two ends; count from the count
+    K10's scans (sorted order): sum, avg from the sum scan (and count), as
+    the difference of the scan at the frame's two ends; count from the count
     scan (None: every live row counts); min, max from the running extreme
     at hi (forward scan, frame from the segment start) or at lo (backward
     scan, frame to the segment end). validity: the frame holds a counted
@@ -612,7 +811,8 @@ def window_frame(ctx: WindowContext, scan: Optional[torch.Tensor],
                  counts: Optional[torch.Tensor], fn: str,
                  lower: Optional[int], upper: Optional[int],
                  peer_end=None, backward: bool = False):
-    """K10's frame evaluation: ``window_frame_plain`` as a kernel.
+    """K10's frame evaluation: ``window_frame_plain`` as a kernel, which
+    writes sorted order, and ``window_unpermute`` back to row order.
 
     Replaces the frame arithmetic of ``sail_tpu/ops/window.py``
     ``framed_agg`` (:207); csrc/window_scan.cu states its bound. A CPU
@@ -637,27 +837,22 @@ def window_frame(ctx: WindowContext, scan: Optional[torch.Tensor],
     scan, counts = _contiguous(scan), _contiguous(counts)
     peer_end = _contiguous(peer_end) if use_peer else None
     if fn == "count":
-        out_dtype = torch.int64
-    elif fn == "avg":
-        out_dtype = torch.float64
+        recs = torch.empty(n, dtype=torch.int64, device=dev)
     else:
-        out_dtype = scan.dtype
-    out = torch.empty(n, dtype=out_dtype, device=dev)
-    valid = None if fn == "count" else \
-        torch.empty(n, dtype=torch.bool, device=dev)
+        recs = torch.empty((n, 2), dtype=torch.float64 if fn == "avg"
+                           else scan.dtype, device=dev)
     if n == 0:
-        return out, valid
+        return window_unpermute(ctx, recs)
     with torch.cuda.device(dev):
         csrc.check(csrc.entry("window_scan.cu", "sail_window_frame")(
-            perm.data_ptr(), n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
+            n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
             ctx.seg_end.data_ptr(), _ptr(peer_end),
             _ptr(scan), _ptr(counts), code, _FRAME_FNS[fn], int(backward),
             0 if lower is None else lower, 0 if upper is None else upper,
-            int(lower is not None), int(upper is not None), out.data_ptr(),
-            _ptr(valid), csrc.grid_for(n, dev), csrc.stream_ptr(dev)),
-            "window_frame")
+            int(lower is not None), int(upper is not None), recs.data_ptr(),
+            csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "window_frame")
     window_frame.launches += 1
-    return out, valid
+    return window_unpermute(ctx, recs)
 
 
 window_frame.launches = 0
@@ -733,14 +928,14 @@ def window_extreme_plain(ctx: WindowContext, vals: torch.Tensor,
                          valid: Optional[torch.Tensor],
                          counts: Optional[torch.Tensor], lower: int,
                          upper: int, fn: str):
-    """(out, validity) in row order: ``fn`` of ``vals`` (row order, read
-    through perm) over the ROWS frame [i + lower, i + upper] clipped to
-    the row's segment. fn: "min", "max" (the value type; NaN
-    propagates), or "sum", "avg" of float64 values (added over the frame
-    alone, so a NaN or an infinity outside it does not reach it). Valid
-    where the frame holds a counted row (``counts``: K10's count scan of
-    ``valid``; None when every live row counts). 0, invalid at dead
-    rows."""
+    """(out, validity) in row order: ``fn`` of ``vals`` (sorted order,
+    ``ctx.sorted_values``; ``valid`` too) over the ROWS frame [i + lower,
+    i + upper] clipped to the row's segment. fn: "min", "max" (the value
+    type; NaN propagates), or "sum", "avg" of float64 values (added over
+    the frame alone, so a NaN or an infinity outside it does not reach
+    it). Valid where the frame holds a counted row (``counts``: K10's
+    count scan of ``valid``; None when every live row counts). 0, invalid
+    at dead rows."""
     if fn not in _EXTREME_FNS or (fn in ("sum", "avg") and
                                   vals.dtype != torch.float64):
         raise TypeError(f"window_extreme: {fn!r} of {vals.dtype}")
@@ -766,15 +961,16 @@ def window_extreme(ctx: WindowContext, vals: torch.Tensor,
                    valid: Optional[torch.Tensor],
                    counts: Optional[torch.Tensor], lower: int, upper: int,
                    fn: str):
-    """K11: ``window_extreme_plain`` as a kernel on the card.
+    """K11: ``window_extreme_plain`` as a kernel on the card, which
+    writes sorted order, and ``window_unpermute`` back to row order.
 
     Replaces ``sail_tpu/ops/window.py`` ``_range_extreme`` (:293), whose
     sparse table holds ceil(log2 n) + 1 levels of n values, and the
     prefix difference ``framed_agg`` (:207) takes of a float frame's sum;
     csrc/window_extreme.cu states its bound and design. Frames up to
-    ``NARROW_MAX`` rows wide take one launch; wider ones three and 2n +
-    n/1024 values of scratch. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel or raises."""
+    ``NARROW_MAX`` rows wide take one launch; wider ones two and 2n +
+    n/1024 values of scratch; then the unpermute. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     perm = ctx.perm
     if perm.device.type == "cpu":
         return window_extreme_plain(ctx, vals, valid, counts, lower, upper,
@@ -791,24 +987,22 @@ def window_extreme(ctx: WindowContext, vals: torch.Tensor,
     _check_rows("window_extreme", n, dev, vals=vals, valid=valid,
                 counts=counts)
     vals, valid, counts = (_contiguous(t) for t in (vals, valid, counts))
-    out = torch.empty(n, dtype=vals.dtype, device=dev)
-    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    recs = torch.empty((n, 2), dtype=vals.dtype, device=dev)
     if n == 0:
-        return out, ok
+        return window_unpermute(ctx, recs)
     wide = upper - lower + 1 > NARROW_MAX
     chunks = -(-n // TILE)
     scratch = torch.empty(2 * n + chunks if wide else 0, dtype=vals.dtype,
                           device=dev)
     with torch.cuda.device(dev):
         csrc.check(csrc.entry("window_extreme.cu")(
-            perm.data_ptr(), n_live.data_ptr(), n, vals.data_ptr(),
-            _ptr(valid), ctx.seg_start.data_ptr(), ctx.seg_end.data_ptr(),
+            n_live.data_ptr(), n, vals.data_ptr(), _ptr(valid),
+            ctx.seg_start.data_ptr(), ctx.seg_end.data_ptr(),
             _ptr(counts), code, _EXTREME_FNS[fn], lower, upper,
-            out.data_ptr(),
-            ok.data_ptr(), scratch.data_ptr() if wide else None,
+            recs.data_ptr(), scratch.data_ptr() if wide else None,
             csrc.stream_ptr(dev)), "window_extreme")
     window_extreme.launches += 1
-    return out, ok
+    return window_unpermute(ctx, recs)
 
 
 window_extreme.launches = 0
@@ -838,17 +1032,20 @@ def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
     the segment start, backward where it ends at the segment end (a float
     sum then subtracts nothing, so no NaN or infinity from outside the
     frame reaches it). count: K10's count scan; first and last: one
-    gather."""
+    gather. The values and their validity go into sorted order once per
+    context (``ctx.sorted_values``): MIN and MAX of one column share
+    them."""
     valid = None if value is None else value.validity
     if fn in ("first", "last"):
         lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
         return _gather_sorted(ctx, value, lo if fn == "first" else hi,
                               hi >= lo)
-    counts = ctx.count_scan(valid)
     if fn == "count":
-        return window_frame(ctx, None, counts, "count", lower, upper,
-                            peer_end)
-    vals = _kernel_values(value.data)
+        return window_frame(ctx, None, ctx.count_scan(valid), "count", lower,
+                            upper, peer_end)
+    vals, valid = ctx.sorted_values(value.data, valid)
+    counts = ctx.count_scan(value.validity)
+    vals = _kernel_values(vals)
     bounded = lower is not None and upper is not None
     backward = lower is not None and upper is None
     if fn in ("sum", "avg"):

@@ -8,6 +8,17 @@ from sail_tpu_torch.benchmarks import tpch_profile
 
 def test_parse_queries():
     assert tpch_profile.parse_queries("1-4,6,11") == [1, 2, 3, 4, 6, 11]
+    assert tpch_profile.parse_queries("2,w3,u1") == [2, "w3", "u1"]
+
+
+def test_profile_times_window_queries(tmp_path):
+    out = tmp_path / "report.json"
+    assert tpch_profile.main(["--sf", "0.01", "--queries", "w2,u2,6",
+                              "--runs", "2", "--device", "cpu", "--report",
+                              str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert list(report["queries"]) == ["w2", "u2", "q6"]
+    assert all(len(e["ms"]) == 2 for e in report["queries"].values())
 
 
 def test_profile_reports_times_and_host_split(tmp_path):

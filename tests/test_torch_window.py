@@ -5,7 +5,8 @@ window kernels on the card.
   rank shapes, through ``sql(q).toArrow()`` of both sessions on the same
   tables (the UDF case without its UDF: the port's session has no
   ``udf.register``), compared as in torch_window_common;
-- card (``gpu``): K8-K11 against their plain versions at the kernels'
+- card (``gpu``): K8-K11, and the gather of a column into sorted order
+  that K10 and K11 read, against their plain versions at the kernels'
   edges (segments of one row, segments across many tiles, one segment;
   live counts 0, 1, n and one off a tile; K10's frames from forward and
   backward scans; K11 at widths 1, the halo and one past it, its float
@@ -30,7 +31,7 @@ from sail_tpu_torch.columnar.batch import Column as TColumn
 from sail_tpu_torch.ops import window as twin
 from sail_tpu_torch.spec import data_type as tdt
 from torch_tpch_common import port_session, reference_session
-from torch_window_common import FLOAT_RTOL, FLOAT_SUM_ATOL, run_both
+from torch_window_common import close, identical, run_both
 
 # ---------------------------------------------------------------------------
 # SQL: tests/test_window.py's cases through both packages
@@ -340,27 +341,6 @@ def _card_values(cuda, rng, n, dtype, with_validity):
     return torch.from_numpy(v).to(cuda), valid
 
 
-def _identical(got, want) -> bool:
-    """Equal, NaN where the other is NaN."""
-    if got.is_floating_point():
-        if not torch.equal(torch.isnan(got), torch.isnan(want)):
-            return False
-        got, want = torch.nan_to_num(got), torch.nan_to_num(want)
-    return torch.equal(got, want)
-
-
-def _close(got, want, scale_from=None):
-    if got.dtype.is_floating_point:
-        ok = torch.isnan(got) == torch.isnan(want)
-        assert bool(ok.all())
-        keep = ~torch.isnan(want)
-        g, w = got[keep].double(), want[keep].double()
-        scale = 0.0 if scale_from is None else \
-            float(scale_from.double().abs().nan_to_num().sum())
-        assert bool(((g == w) | ((g - w).abs() <= FLOAT_RTOL * w.abs()
-                                 + FLOAT_SUM_ATOL * scale)).all())
-    else:
-        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
@@ -373,22 +353,33 @@ def test_scan_and_frame_kernels_match_plain(cuda, n, n_live, segments, dtype,
     vals, valid = _card_values(cuda, rng, n, dtype, with_validity)
     finite = torch.nan_to_num(vals, nan=0.0) if vals.is_floating_point() \
         else vals
-    counts = twin.window_scan(ctx, None, valid, "count") \
+    # the scans read sorted order: the values gathered once (window_gather)
+    vals_s, valid_s = ctx.sorted_values(vals, valid)
+    finite_s, _ = ctx.sorted_values(finite, None)
+    for got, want in zip((vals_s, valid_s, finite_s),
+                         twin.window_gather_plain(ctx.perm, ctx.n_live, vals,
+                                                  valid)
+                         + twin.window_gather_plain(ctx.perm, ctx.n_live,
+                                                    finite, None)[:1]):
+        assert (got is None) == (want is None)
+        assert got is None or identical(got, want)
+    counts = twin.window_scan(ctx, None, valid_s, "count") \
         if valid is not None else None
     if counts is not None:
-        assert torch.equal(counts, twin.window_scan_plain(ctx, None, valid,
+        assert torch.equal(counts, twin.window_scan_plain(ctx, None, valid_s,
                                                           "count"))
-    for op, v in (("sum", finite), ("min", vals), ("max", vals)):
+    for op, v in (("sum", finite_s), ("min", vals_s), ("max", vals_s)):
         for backward in (False, True):
             before = twin.window_scan.launches
-            scan = twin.window_scan(ctx, v, valid, op, backward)
+            scan = twin.window_scan(ctx, v, valid_s, op, backward)
             assert twin.window_scan.launches == before + 1
-            _close(scan, twin.window_scan_plain(ctx, v, valid, op, backward),
+            close(scan, twin.window_scan_plain(ctx, v, valid_s, op,
+                                                backward),
                    finite if op == "sum" else None)
-    sums = twin.window_scan(ctx, finite, valid, "sum")
-    bsums = twin.window_scan(ctx, vals, valid, "sum", True)
-    fwd = twin.window_scan(ctx, vals, valid, "min")
-    bwd = twin.window_scan(ctx, vals, valid, "max", True)
+    sums = twin.window_scan(ctx, finite_s, valid_s, "sum")
+    bsums = twin.window_scan(ctx, vals_s, valid_s, "sum", True)
+    fwd = twin.window_scan(ctx, vals_s, valid_s, "min")
+    bwd = twin.window_scan(ctx, vals_s, valid_s, "max", True)
     for lower, upper, peer in ((None, 0, ctx.peer_end), (None, 0, None),
                                (-6, 0, None), (None, None, None),
                                (2, 9, None), (-3, -5, None), (-4, None, None),
@@ -407,7 +398,7 @@ def test_scan_and_frame_kernels_match_plain(cuda, n, n_live, segments, dtype,
                                            upper, peer, backward)
             for g, w in zip(got, want):
                 if w is not None:
-                    assert _identical(g, w), (fn, lower, upper)
+                    assert identical(g, w), (fn, lower, upper)
 
 
 @pytest.mark.gpu
@@ -420,8 +411,8 @@ def test_extreme_kernel_matches_plain(cuda, n, n_live, segments, width,
                                       dtype, with_validity):
     ctx, _, _, rng = _card_context(cuda, n, n_live, segments)
     vals, valid = _card_values(cuda, rng, n, dtype, with_validity)
-    counts = twin.window_scan(ctx, None, valid, "count") \
-        if valid is not None else None
+    counts = ctx.count_scan(valid)
+    vals, valid = ctx.sorted_values(vals, valid)
     lower = -(width // 2)
     v64 = vals.double()
     for j, (lo, hi) in enumerate(((lower, lower + width - 1), (1, width),
@@ -438,9 +429,9 @@ def test_extreme_kernel_matches_plain(cuda, n, n_live, segments, width,
                                              fn)
             assert torch.equal(got[1], want[1]), (lo, hi)
             if fn in ("sum", "avg"):
-                _close(got[0], want[0], v)
+                close(got[0], want[0], v)
             else:
-                assert _identical(got[0], want[0]), (lo, hi, fn)
+                assert identical(got[0], want[0]), (lo, hi, fn)
 
 
 @pytest.mark.gpu

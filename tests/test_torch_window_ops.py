@@ -8,6 +8,11 @@ Tolerances: integers, positions and MIN/MAX exactly; float64 sums and
 averages within ``atol = 1e-12 * sum(|v|)`` plus ``rtol = 1e-12``
 (torch_window_common). Three faults of the reference are held against
 numpy instead (ROADMAP Queue C).
+
+K10 and K11 read values gathered into sorted order once per context and
+unpermute each output: the cache, ``inv_perm`` and the unpermute are held
+to the reference's ``inv_perm`` and ``_unsort`` and to ``_scatter``; a
+``gpu`` test holds the kernels to their plain versions at 100,000 rows.
 """
 
 import jax.numpy as jnp
@@ -22,7 +27,7 @@ from sail_tpu.spec import data_type as jdt
 from sail_tpu_torch.columnar.batch import Column as TColumn
 from sail_tpu_torch.ops import window as twin
 from sail_tpu_torch.spec import data_type as tdt
-from torch_window_common import FLOAT_RTOL, FLOAT_SUM_ATOL
+from torch_window_common import FLOAT_RTOL, FLOAT_SUM_ATOL, close, identical
 
 # ---------------------------------------------------------------------------
 # ops: the port's functions against sail_tpu/ops/window.py
@@ -317,3 +322,305 @@ def test_bounded_float_frames_read_only_their_rows(first):
         if lower == -1 and upper == 0:
             ref, _ = jwin.framed_agg(jctx, jcol, fn, lower, upper)
             assert np.isnan(np.asarray(ref)[2:]).all()
+
+
+# -- sorted order: the value cache, inv_perm and the unpermute ----------------
+
+
+def _counting_gathers(monkeypatch) -> list:
+    calls = []
+    plain = twin.window_gather
+
+    def counted(perm, n_live, vals, valid):
+        calls.append((vals, valid))
+        return plain(perm, n_live, vals, valid)
+
+    monkeypatch.setattr(twin, "window_gather", counted)
+    return calls
+
+
+def test_sorted_values_are_gathered_once_per_column(monkeypatch):
+    part, order, sel, vals = _inputs("general")
+    jctx, tctx, _ = _both_contexts(part, order, sel)
+    calls = _counting_gathers(monkeypatch)
+    jcol, tcol = _column_pair(vals, "f64")
+    # MIN and MAX of one column share one gather of value and validity
+    for fn in ("min", "max"):
+        _same_result(sel, twin.framed_agg(tctx, tcol, fn, -2, 2),
+                     jwin.framed_agg(jctx, jcol, fn, -2, 2))
+    assert len(calls) == 1
+    assert calls[0][0] is tcol.data and calls[0][1] is tcol.validity
+    vs, oks = tctx.sorted_values(tcol.data, tcol.validity)
+    assert len(calls) == 1
+    # the live positions' values; 0 and false at the dead ones
+    perm, live = tctx.perm.numpy(), tctx.alive.numpy()
+    np.testing.assert_array_equal(
+        vs.numpy(), np.where(live, tcol.data.numpy()[perm], 0))
+    np.testing.assert_array_equal(
+        oks.numpy(), live & tcol.validity.numpy()[perm])
+    # another column is gathered anew
+    _, other = _column_pair(vals, "i64")
+    twin.framed_agg(tctx, other, "min", -2, 2)
+    assert len(calls) == 2 and calls[1][0] is other.data
+    # the same values under another validity: the validity alone
+    flipped = ~tcol.validity
+    vs2, oks2 = tctx.sorted_values(tcol.data, flipped)
+    assert len(calls) == 3 and calls[2] == (None, flipped)
+    assert vs2 is vs
+    np.testing.assert_array_equal(oks2.numpy(), live & ~oks.numpy())
+    # the count scan of a validity reads the cached sorted validity
+    np.testing.assert_array_equal(
+        tctx.count_scan(flipped).numpy(),
+        twin.window_scan_plain(tctx, None, oks2, "count").numpy())
+    assert len(calls) == 3
+
+
+@pytest.mark.parametrize("case", _CASES + ["empty"])
+def test_inv_perm_inverts_perm(case):
+    part, order, sel, _ = _inputs(case)
+    if case == "empty":  # the reference's context needs a row
+        tctx = twin.build_window_context(
+            [TColumn(torch.from_numpy(d), None if v is None else
+                     torch.from_numpy(v), _SPEC[t][1]) for d, v, t in part],
+            [(torch.from_numpy(d), None if v is None else torch.from_numpy(v),
+              _SPEC[t][1], a, nf) for d, v, t, a, nf in order],
+            torch.from_numpy(sel))
+        jctx = None
+    else:
+        jctx, tctx, _ = _both_contexts(part, order, sel)
+    inv = tctx.inv_perm
+    assert inv.dtype == torch.int32 and tctx.inv_perm is inv  # built once
+    # a live row's sorted position, as argsort(perm) and the reference's
+    # inv_perm give it; -1 for a dead row
+    live_rows = tctx.perm.numpy()[:int(sel.sum())]
+    want = np.full(sel.shape[0], -1)
+    want[live_rows] = np.argsort(tctx.perm.numpy())[live_rows]
+    np.testing.assert_array_equal(inv.numpy(), want)
+    if jctx is not None:
+        np.testing.assert_array_equal(inv.numpy()[live_rows],
+                                      np.asarray(jctx.inv_perm)[live_rows])
+    recs = twin.pack_records(torch.ones(sel.shape[0]),
+                             torch.ones(sel.shape[0], dtype=torch.bool))
+    out, ok = twin.window_unpermute(tctx, recs)
+    np.testing.assert_array_equal(ok.numpy(), sel)
+    np.testing.assert_array_equal(out.numpy(), sel.astype(float))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64", "float32", "float64"])
+def test_unpermute_matches_scatter_and_reference(dtype):
+    part, order, sel, _ = _inputs("general")
+    jctx, tctx, _ = _both_contexts(part, order, sel)
+    rng = np.random.default_rng(5)
+    n = sel.shape[0]
+    if dtype.startswith("float"):
+        v = rng.normal(0, 100, n).astype(dtype)
+        v[:3] = [np.nan, np.inf, -np.inf]
+    else:
+        v = rng.integers(-1000, 1000, n).astype(dtype)
+    ok = rng.random(n) < 0.7
+    vs, oks = torch.from_numpy(v), torch.from_numpy(ok)
+    recs = twin.pack_records(vs, oks)
+    assert recs.shape == (n, 2) and recs.dtype == vs.dtype
+    got, got_ok = twin.window_unpermute(tctx, recs)
+    # live rows: the scatter's and the reference's rows; dead: 0, invalid
+    live = tctx.alive
+    np.testing.assert_array_equal(
+        got.numpy(),
+        twin._scatter(tctx.perm, torch.where(live, vs, 0)).numpy())
+    np.testing.assert_array_equal(
+        got_ok.numpy(), twin._scatter(tctx.perm, oks & live).numpy())
+    np.testing.assert_array_equal(got.numpy()[sel],
+                                  np.asarray(jwin._unsort(jctx, v))[sel])
+    assert not got_ok.numpy()[~sel].any() and not got.numpy()[~sel].any()
+    words, none = twin.window_unpermute(tctx, vs)
+    assert none is None
+    np.testing.assert_array_equal(words.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("frame", _FRAMES, ids=str)
+def test_all_null_values_match_reference(frame):
+    part, order, sel, vals = _inputs("general")
+    jctx, tctx, okbits = _both_contexts(part, order, sel)
+    jpeer = tpeer = None
+    if frame[0] == "range":
+        jpeer, tpeer = jwin.peer_group_end(jctx, okbits), tctx.peer_end
+        frame = frame[1:]
+    lower, upper = frame
+    null = np.zeros(sel.shape[0], bool)
+    nulls = {name: (vals[name][0], null) for name in ("i64", "f64")}
+    for name in nulls:
+        jcol, tcol = _column_pair(nulls, name)
+        for fn in ("sum", "count", "avg", "min", "max"):
+            got = twin.framed_agg(tctx, tcol, fn, lower, upper, tpeer)
+            want = jwin.framed_agg(jctx, jcol, fn, lower, upper, jpeer)
+            _same_result(sel, got, want, float_sum=fn in ("sum", "avg"))
+            if fn != "count":
+                assert not bool(got[1].any())
+
+
+def _frame_oracle(ctx, vals, valid, lower, upper, fn):
+    """numpy, row by row in sorted order: fn over the valid values of the
+    ROWS frame [i + lower, i + upper] clipped to the segment, added left
+    to right; (out, ok) in row order, 0 where not ok."""
+    perm = ctx.perm.numpy()
+    ss, se = ctx.seg_start.numpy(), ctx.seg_end.numpy()
+    n_live = int(ctx.n_live)
+    n = perm.shape[0]
+    out, ok = np.zeros(n), np.zeros(n, bool)
+    for i in range(n_live):
+        rows = perm[max(i + lower, ss[i]):min(i + upper, se[i]) + 1]
+        x = vals[rows][valid[rows]]
+        if x.size == 0:
+            continue
+        ok[perm[i]] = True
+        if fn in ("min", "max"):
+            r = np.nan if np.isnan(x).any() else (x.min() if fn == "min"
+                                                  else x.max())
+        else:
+            r = 0.0
+            for y in x:
+                r = r + y
+            if fn == "avg":
+                r = r / x.size
+        out[perm[i]] = r
+    return out, ok
+
+
+@pytest.mark.parametrize("frame", [(-2, 2), (1, 3), (-4, -1), (-40, 40)],
+                         ids=str)
+def test_bounded_float_frames_among_nan_and_inf(frame):
+    """NaN, +inf and -inf among the values: each bounded frame combines
+    only its own rows (a NaN or an infinity outside it does not reach it)."""
+    part, order, sel, _ = _inputs("general")
+    _, tctx, _ = _both_contexts(part, order, sel)
+    rng = np.random.default_rng(17)
+    n = sel.shape[0]
+    v = rng.normal(0, 10, n)
+    v[rng.choice(n, 12, replace=False)] = np.repeat([np.nan, np.inf,
+                                                     -np.inf], 4)
+    valid = rng.random(n) < 0.9
+    col = TColumn(torch.from_numpy(v), torch.from_numpy(valid),
+                  tdt.DoubleType())
+    lower, upper = frame
+    for fn in ("sum", "avg", "min", "max"):
+        got, ok = twin.framed_agg(tctx, col, fn, lower, upper)
+        want, want_ok = _frame_oracle(tctx, v, valid, lower, upper, fn)
+        np.testing.assert_array_equal(ok.numpy(), want_ok)
+        np.testing.assert_allclose(got.numpy(), want, rtol=FLOAT_RTOL,
+                                   atol=0, equal_nan=True)
+
+
+def _wide_inputs(n: int, groups: int, seed: int):
+    """A context of n rows in ``groups`` partitions (several 1024-row
+    tiles each) in a random order, int64 and float64 values."""
+    rng = np.random.default_rng(seed)
+    part = [(rng.integers(0, groups, n).astype(np.int64), None, "int64")]
+    order = [(rng.permutation(n).astype(np.int64), None, "int64", True,
+              None)]
+    sel = rng.random(n) < 0.97
+    vals = {"i64": (rng.integers(-10**6, 10**6, n).astype(np.int64),
+                    rng.random(n) < 0.9),
+            "f64": (rng.normal(0, 1e3, n), None)}
+    return part, order, sel, vals
+
+
+@pytest.mark.parametrize("frame", [(-1200, 300), (1, 1100), (-3000, 3000),
+                                   (-1025, -1), (None, 0), (-700, None)],
+                         ids=str)
+def test_wide_frames_across_tiles_match_reference(frame):
+    """Segments of about 2,400 rows (several 1024-row tiles) and frames
+    wider than 1,025 rows (K11's chunked path on the card) crossing tile
+    edges."""
+    part, order, sel, vals = _wide_inputs(5000, 2, 23)
+    jctx, tctx, _ = _both_contexts(part, order, sel)
+    lower, upper = frame
+    for name in ("i64", "f64"):
+        jcol, tcol = _column_pair(vals, name)
+        for fn in ("sum", "count", "avg", "min", "max"):
+            got = twin.framed_agg(tctx, tcol, fn, lower, upper)
+            want = jwin.framed_agg(jctx, jcol, fn, lower, upper)
+            _same_result(sel, got, want, float_sum=fn in ("sum", "avg"))
+
+
+# -- the card: each kernel of the sorted-order path against its plain version
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_sorted_order_kernels_match_plain_at_100k_rows(cuda):
+    """The gather, the inverse permutation, K10's scan (every op, both
+    directions) and frame evaluation, K11 (5 and 1,500 rows) and the
+    unpermute at 100,000 rows in a random order, 5% of them
+    dead, each against its plain version on the same inputs."""
+    rng = np.random.default_rng(8)
+    n = 100_000
+    sel = torch.from_numpy(rng.random(n) < 0.95).to(cuda)
+    ctx = twin.build_window_context(
+        [TColumn(torch.from_numpy(rng.integers(0, 700, n)).to(cuda), None,
+                 tdt.LongType())],
+        [(torch.from_numpy(rng.permutation(n)).to(cuda), None,
+          tdt.LongType(), True, None)], sel)
+    fv = torch.from_numpy(rng.normal(0, 1e3, n)).to(cuda)
+    fv[::97] = float("nan")
+    iv = torch.from_numpy(rng.integers(-1000, 1000, n)).to(cuda)
+    valid = torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+    launches = {k: getattr(twin, k).launches for k in (
+        "window_gather", "window_inverse", "window_scan", "window_frame",
+        "window_extreme", "window_unpermute")}
+
+    fs, oks = twin.window_gather(ctx.perm, ctx.n_live, fv, valid)
+    is_, none = twin.window_gather(ctx.perm, ctx.n_live, iv, None)
+    want = twin.window_gather_plain(ctx.perm, ctx.n_live, fv, valid)
+    assert none is None and identical(fs, want[0])
+    assert torch.equal(oks, want[1])
+    assert torch.equal(is_, twin.window_gather_plain(ctx.perm, ctx.n_live,
+                                                     iv, None)[0])
+    assert torch.equal(ctx.inv_perm,
+                       twin.window_inverse_plain(ctx.perm, ctx.n_live))
+    counts = twin.window_scan(ctx, None, oks, "count")
+    assert torch.equal(counts, twin.window_scan_plain(ctx, None, oks,
+                                                      "count"))
+    for op, v in (("sum", is_), ("sum", fs), ("min", fs), ("max", is_)):
+        for backward in (False, True):
+            close(twin.window_scan(ctx, v, oks, op, backward),
+                  twin.window_scan_plain(ctx, v, oks, op, backward),
+                  fs if op == "sum" and v is fs else None)
+    sums = twin.window_scan(ctx, is_, oks, "sum")
+    back_max = twin.window_scan(ctx, fs, oks, "max", True)
+    for scan, fn, lower, upper, peer, backward in (
+            (sums, "avg", -6, 0, None, False),
+            (sums, "sum", None, 0, ctx.peer_end, False),
+            (None, "count", -3, 3, None, False),
+            (back_max, "max", 2, None, None, True)):
+        got = twin.window_frame(ctx, scan, counts, fn, lower, upper, peer,
+                                backward)
+        want = twin.window_frame_plain(ctx, scan, counts, fn, lower, upper,
+                                       peer, backward)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            assert g is None or identical(g, w), (fn, lower, upper)
+    for width in (5, 1500):
+        lower, upper = -(width // 2), width // 2
+        for fn, v in (("min", fs), ("max", is_), ("avg", fs)):
+            got = twin.window_extreme(ctx, v, oks, counts, lower, upper, fn)
+            want = twin.window_extreme_plain(ctx, v, oks, counts, lower,
+                                             upper, fn)
+            assert torch.equal(got[1], want[1]), (fn, width)
+            if fn == "avg":
+                close(got[0], want[0], fs)
+            else:
+                assert identical(got[0], want[0]), (fn, width)
+    recs = twin.pack_records(fs, oks)
+    want = twin.window_unpermute_plain(ctx, recs)
+    got = twin.window_unpermute(ctx, recs)
+    assert identical(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(twin.window_unpermute(ctx, is_)[0],
+                       torch.where(sel, iv, 0))
+    for name, before in launches.items():
+        assert getattr(twin, name).launches > before, name

@@ -10,6 +10,7 @@ only where the query has an ORDER BY.
 
 import numpy as np
 import pyarrow as pa
+import torch
 
 from torch_tpch_common import _sorted_rows
 
@@ -40,3 +41,29 @@ def run_both(port, ref, sql: str, ordered: bool = True) -> pa.Table:
     got = port.sql(sql).toArrow()
     assert_window_result(got, ref.sql(sql).toArrow(), ordered)
     return got
+
+
+def identical(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal, NaN where the other is NaN."""
+    if got.is_floating_point():
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            return False
+        got, want = torch.nan_to_num(got), torch.nan_to_num(want)
+    return torch.equal(got, want)
+
+
+def close(got: torch.Tensor, want: torch.Tensor, scale_from=None) -> None:
+    """A kernel's result against its plain version's: integers exactly;
+    floats NaN where the other is, else within FLOAT_RTOL plus
+    FLOAT_SUM_ATOL times the sum of |scale_from| (the values summed)."""
+    if got.dtype.is_floating_point:
+        ok = torch.isnan(got) == torch.isnan(want)
+        assert bool(ok.all())
+        keep = ~torch.isnan(want)
+        g, w = got[keep].double(), want[keep].double()
+        scale = 0.0 if scale_from is None else \
+            float(scale_from.double().abs().nan_to_num().sum())
+        assert bool(((g == w) | ((g - w).abs() <= FLOAT_RTOL * w.abs()
+                                 + FLOAT_SUM_ATOL * scale)).all())
+    else:
+        assert torch.equal(got, want)
