@@ -79,7 +79,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
 Then, after phase 5 and before the ClickBench phases (on phase 5's
 SF10 tables and phase 4's tables):
 
-8. Window kernels: K8 (window_bounds), K9 (window_ranks), the gather of
+8. Window kernels: the context's sort (the stable passes of
+   ``lexsort_keys`` against the pack pass, window_pack, and one stable
+   sort of the packed word: the two perms must be equal), K8
+   (window_bounds) on the sorted packed word and, at lineitem, on each
+   key gathered into sorted order, K9 (window_ranks) at 6, 2 and 1
+   outputs in both forms (records through the inverse permutation, with
+   it built and building it, and the scatter through perm), the gather of
    a column into sorted order (window_gather), K10's two entry points
    (window_scan, window_frame), K11 (window_extreme), the context's
    inverse permutation (window_inverse) and the unpermute back to row
@@ -89,7 +95,8 @@ SF10 tables and phase 4's tables):
    at frames of 5 and 10,001 rows (past the shared-memory halo). Each
    against its plain version, then timed beside it and, where one
    exists, a PyTorch call computing as much on sorted values
-   (``unique_consecutive`` for K8, ``vals[perm]`` for the gather,
+   (``unique_consecutive`` of the sorted word for K8, and of its first
+   key alone, ``vals[perm]`` for the gather,
    ``index_put_`` of every position for the inverse, ``cumsum`` for
    K10's scan, ``unfold(...).amin`` for K11 at 5 rows,
    ``index_select`` of one 16 B element a row through ``inv_perm`` for
@@ -97,8 +104,10 @@ SF10 tables and phase 4's tables):
    and its return to row order (``library_perm_ms``) beside the kernel
    with its own gather (``with_gather_ms``).
 9. Window correctness: the queries of ``benchmarks/window_queries.py``
-   (W1-W8, U1, U2) over the tables at ``--check-sf`` on the card
-   against the port's CPU session: integers, decimals, dates and strings
+   (W1-W8, U1, U2) over the tables at ``--check-sf`` on the card, each
+   counting its host syncs (a window context reads its keys' extremes
+   once), against the port's CPU session: integers, decimals, dates and
+   strings
    exactly, float64 within
    ``WINDOW_FLOAT_RTOL``; no answer empty unless the CPU's is.
 10. Window main path: the same queries at ``--sf``, one warm-up and
@@ -167,8 +176,9 @@ PROFILED_KERNELS = {
     "K5 probe_ranges": re.compile(r"probe_kernel\(|splitter_kernel\("),
     "K6 join_expand": re.compile(r"expand_kernel\("),
     "K7 bloom": re.compile(r"bloom_(build|apply)_kernel[<(]"),
-    "K8 window_bounds": re.compile(r"bounds_(flags|tiles|carry|finish)_kernel"),
-    "K9 window_ranks": re.compile(r"ranks_kernel\("),
+    "K8 window_bounds": re.compile(r"bounds_(forward|backward)_kernel"),
+    "K8 pack": re.compile(r"\bpack_kernel\("),
+    "K9 window_ranks": re.compile(r"\branks_(unpermute_)?kernel[<(]"),
     "K10 window_scan": re.compile(r"\bscan_kernel<|\bframe_kernel<"),
     "K11 window_extreme": re.compile(r"extreme_(narrow|chunks|wide)_kernel<"),
     "window gather, inverse, unpermute": re.compile(
@@ -1176,6 +1186,7 @@ def _counters():
             "probe_ranges": jn.probe_ranges_kernel,
             "join_expand": jn.expand_indices,
             "bloom_build": rf.filter_build, "bloom_apply": rf.apply,
+            "window_pack": win.window_pack,
             "window_bounds": win.window_bounds,
             "window_ranks": win.window_ranks, "window_scan": win.window_scan,
             "window_frame": win.window_frame,
@@ -1300,16 +1311,24 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
 # phases 8-10: windows and unions
 # ---------------------------------------------------------------------------
 
-_K8, _K9 = ("window_bounds",), ("window_ranks",)
+# K8 reads the sorted packed word where the keys fit in 63 bits (every
+# context of W2-W8 at SF10), else each key gathered into sorted order
+# (W1: o_custkey, o_totalprice and o_orderkey take 74 bits)
+_K8, _K8_GENERAL = ("window_pack", "window_bounds"), \
+    ("window_bounds", "window_gather")
+_K9 = ("window_ranks",)
 # K10 and K11 read a gathered column and unpermute their outputs through
 # the context's inverse permutation
 _K10 = ("window_gather", "window_scan", "window_frame", "window_inverse",
         "window_unpermute")
 # the kernels each window/union query must launch (W4's lag and lead are
-# gathers; the unions group their merged dictionary codes directly)
+# gathers; the unions group their merged dictionary codes directly; W5's
+# five rank outputs go to row order through the inverse permutation)
 WINDOW_PATH = {
-    "w1": _K8 + _K9, "w2": _K8 + _K10, "w3": _K8 + _K10 + ("window_extreme",),
-    "w4": _K8, "w5": _K8 + _K9, "w6": _K8 + _K9 + _JOIN,
+    "w1": _K8_GENERAL + _K9, "w2": _K8 + _K10,
+    "w3": _K8 + _K10 + ("window_extreme",),
+    "w4": _K8, "w5": _K8 + _K9 + ("window_inverse",),
+    "w6": _K8 + _K9 + _JOIN,
     "w7": _K8 + _K10 + _JOIN, "w8": _K8 + _K9 + _K10,
     "u1": ("direct_group_ids", "seg_reduce"),
     "u2": ("direct_group_ids", "seg_reduce"),
@@ -1402,41 +1421,110 @@ def check_window_kernels(tables: dict, dev) -> list:
     at HBM_BYTES_PER_S."""
     from sail_tpu_torch.columnar.batch import Column
     from sail_tpu_torch.ops import window as win
-    from sail_tpu_torch.ops.sort import order_keys
+    from sail_tpu_torch.ops.sort import lexsort_keys, order_keys
     from sail_tpu_torch.spec import data_type as dt
 
-    rows = {name: [] for name in ("window_bounds", "window_ranks",
-                                  "window_gather", "window_inverse",
-                                  "window_scan", "window_frame",
-                                  "window_extreme", "window_unpermute")}
+    rows = {name: [] for name in ("window_pack", "window_bounds",
+                                  "window_ranks", "window_gather",
+                                  "window_inverse", "window_scan",
+                                  "window_frame", "window_extreme",
+                                  "window_unpermute")}
     for label, part, order, vals in _window_shapes(tables, dev):
         n = vals.shape[0]
         sel = torch.ones(n, dtype=torch.bool, device=dev)
         ctx = win.build_window_context(
             [Column(p, None, dt.LongType()) for p in part],
             [(o, None, dt.LongType(), True, None) for o in order], sel)
-        pk = [(order_keys(p), None) for p in part]
-        ok = [(order_keys(o), None) for o in order]
+        keys = [(order_keys(k), None, True) for k in part + order]
+        n_part = len(part)
         perm, n_live = ctx.perm, ctx.n_live
         print(f"K8-K11 at {label}:", flush=True)
-        key = (pk or ok)[0][0]
+        # the context's sort: the passes (one stable sort a key and the
+        # dead rows) against the pack pass and one stable sort
+        layout = win.pack_layout(keys, n_part)
+        packed_perm, words, _ = win.sort_window_keys(keys, n_part, sel,
+                                                     n_live, True)
+        if not (ctx.packed and torch.equal(packed_perm, perm)
+                and torch.equal(lexsort_keys(keys, sel), perm)):
+            raise AssertionError(f"{label}: the packed sort's perm is not "
+                                 f"the passes'")
+        del packed_perm
+        word = win.window_pack(keys, sel, layout)
+        rows["window_pack"].append(_timed(
+            f"pack pass, {layout.dead_shift + 1} bits, {label}", n,
+            lambda: win.window_pack(keys, sel, layout),
+            lambda: win.window_pack_plain(keys, sel, layout),
+            n * (8 * len(keys) + 1 + 8),
+            extra={"passes_ms": lambda: lexsort_keys(keys, sel),
+                   "packed_sort_ms": lambda: win.sort_window_keys(
+                       keys, n_part, sel, n_live, True),
+                   "layout_ms": lambda: win.pack_layout(keys, n_part),
+                   "sort_ms": lambda: torch.sort(word, stable=True)}))
+        del word
+        # K8 on the sorted word; its yardstick counts the runs of equal
+        # words, and those of the first key alone, sorted and through perm
+        sorted_word, key = words[0][0], keys[0][0]
         first = key[perm]
         rows["window_bounds"].append(_timed(
-            f"K8 {label}", n,
-            lambda: win.window_bounds(perm, n_live, pk, ok),
-            lambda: win.window_bounds_plain(perm, n_live, pk, ok),
-            n * (8 + 8 * len(pk + ok) + 5 * 4),
-            lambda: torch.unique_consecutive(first, return_inverse=True,
+            f"K8 packed word, {label}", n,
+            lambda: win.window_bounds(n_live, words),
+            lambda: win.window_bounds_plain(n_live, words),
+            n * (8 + 5 * 4),
+            lambda: torch.unique_consecutive(sorted_word, return_inverse=True,
                                              return_counts=True),
-            extra={"library_perm_ms": lambda: torch.unique_consecutive(
-                key[perm], return_inverse=True, return_counts=True)}))
-        del first, key
-        ranks = win._RANKS
-        rows["window_ranks"].append(_timed(
-            f"K9 {label}", n, lambda: list(win.window_ranks(ctx, ranks, 4)
-                                           .values()),
-            lambda: list(win.window_ranks_plain(ctx, ranks, 4).values()),
-            n * (8 + 5 * 4 + 6 * 8)))
+            extra={"first_key_ms": lambda: torch.unique_consecutive(
+                       first, return_inverse=True, return_counts=True),
+                   "first_key_perm_ms": lambda: torch.unique_consecutive(
+                       key[perm], return_inverse=True, return_counts=True)}))
+        del first, key, words, sorted_word
+        if label.startswith("lineitem"):
+            # K8 on the general path: each key gathered into sorted order
+            def gathered():
+                out = []
+                for j, (k, v, _) in enumerate(keys):
+                    k_s, v_s = win.window_gather(perm, n_live, k, v)
+                    out.append((k_s, -1 if j < n_part else 0, v_s))
+                return out
+            gwords = gathered()
+            general = win.window_bounds(n_live, gwords)
+            if not all(torch.equal(g, b) for g, b in zip(general, (
+                    ctx.seg_start, ctx.seg_end, ctx.peer_start, ctx.peer_end,
+                    ctx.dense))):
+                raise AssertionError(f"{label}: K8's two key sources differ")
+            del general
+            rows["window_bounds"].append(_timed(
+                f"K8 general path, {len(keys)} keys gathered, {label}", n,
+                lambda: win.window_bounds(n_live, gwords),
+                lambda: win.window_bounds_plain(n_live, gwords),
+                n * (8 * len(keys) + 5 * 4),
+                extra={"with_gathers_ms": lambda: win.window_bounds(
+                    n_live, gathered())}))
+            del gwords
+        # K9 in both forms; the records' unpermute reads inv_perm, timed
+        # with it built (as after K10) and building it (a fresh context)
+        inv = ctx.inv_perm
+
+        def building_inv(wanted):
+            def run():
+                ctx._inv_perm = None
+                return list(win.window_ranks(ctx, wanted, 4,
+                                             form="records").values())
+            return run
+        for wanted, n_bounds in ((win._RANKS, 5), (("rank", "cume_dist"), 4),
+                                 (("ntile",), 2)):
+            k = len(wanted)
+            for form in ("records", "scatter"):
+                rows["window_ranks"].append(_timed(
+                    f"K9 {form}, {k} output{'s' if k > 1 else ''}, {label}",
+                    n, lambda: list(win.window_ranks(ctx, wanted, 4,
+                                                     form=form).values()),
+                    lambda: list(win.window_ranks_plain(ctx, wanted, 4,
+                                                        form=form).values()),
+                    n * ((4 if form == "records" else 8) + 4 * n_bounds
+                         + 8 * k),
+                    extra={"building_inv_perm_ms": building_inv(wanted)}
+                    if form == "records" else None))
+                ctx._inv_perm = inv
         # the context's inverse permutation, built once; its library call
         # is torch's scatter of every position
         positions = torch.arange(n, dtype=torch.int32, device=dev)
@@ -1446,7 +1534,6 @@ def check_window_kernels(tables: dict, dev) -> list:
             lambda: win.window_inverse_plain(perm, n_live), n * (8 + 4),
             lambda: torch.empty_like(positions).index_put_((perm,),
                                                            positions)))
-        inv = ctx.inv_perm
         del positions
         fvals = vals.to(torch.float64) / 100
         gather = lambda: win.window_gather(  # noqa: E731
@@ -1531,9 +1618,10 @@ def check_window_kernels(tables: dict, dev) -> list:
                         ctx, gather()[0], None, None, lo, hi, "min"),
                         **({} if library_perm is None else
                            {"library_perm_ms": library_perm})}))
-        del ctx, pk, ok, perm, inv, sorted_vals, part, order, vals, sel
+        del ctx, keys, perm, inv, sorted_vals, part, order, vals, sel
         torch.cuda.empty_cache()
-    sources = {"window_bounds": ("window_bounds.cu", "sail_tpu/ops/window.py:52"),
+    sources = {"window_pack": ("window_bounds.cu", "sail_tpu/ops/sort.py:65"),
+               "window_bounds": ("window_bounds.cu", "sail_tpu/ops/window.py:52"),
                "window_ranks": ("window_ranks.cu", "sail_tpu/ops/window.py:108"),
                "window_gather": ("window_perm.cu", "sail_tpu/ops/window.py:219"),
                "window_inverse": ("window_perm.cu", "sail_tpu/ops/window.py:78"),
@@ -1590,7 +1678,7 @@ def check_window_queries(tables: dict, sf: float) -> dict:
     report = {}
     for name, sql in QUERIES.items():
         t = time.perf_counter()
-        got = card.sql(sql).toArrow()
+        got, syncs = _run_counting_syncs(card, sql)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t
         t = time.perf_counter()
@@ -1601,10 +1689,10 @@ def check_window_queries(tables: dict, sf: float) -> dict:
                                  f"{want.num_rows} rows")
         _answers_agree(name, got, want)
         report[name] = dict(rows=got.num_rows, card_first_s=card_s,
-                            cpu_s=cpu_s)
+                            cpu_s=cpu_s, syncs=syncs)
         print(f"{name.upper()} SF{sf}: {got.num_rows} rows agree with the "
-              f"CPU session (card {card_s:.2f} s, CPU {cpu_s:.2f} s)",
-              flush=True)
+              f"CPU session (card {card_s:.2f} s, {syncs} host syncs; CPU "
+              f"{cpu_s:.2f} s)", flush=True)
     card.stop()
     cpu.stop()
     return report

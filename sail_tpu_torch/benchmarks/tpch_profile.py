@@ -1,15 +1,22 @@
-"""Time TPC-H queries through the port and split one run's host time.
+"""Time TPC-H, window and ClickBench queries through the port and split
+one run's host time.
 
     python -m sail_tpu_torch.benchmarks.tpch_profile --sf 10 \\
         --queries 1-4,6,7,10,11 --runs 30 --profile 11 --report out.json
     python -m sail_tpu_torch.benchmarks.tpch_profile --sf 10 \\
         --queries w1,w2,w3,u1 --runs 10   # the window and union queries
                                           # of window_queries.py, by name
+    python -m sail_tpu_torch.benchmarks.tpch_profile \\
+        --queries cb12,cb30 --runs 10   # ClickBench queries by number,
+                                        # over generate_hits(--cb-rows)
 
 The queries run in the order given in one session over
 ``generate_tpch_sf(--sf, seed=0)``, each with one warm-up and ``--runs``
 timed runs (host clock around ``spark.sql(q).toArrow()``, ending in a
-device synchronize). Each query of ``--profile`` then runs twice more:
+device synchronize). A ClickBench query runs over
+``generate_hits(--cb-rows, seed=0, dictionary=True)`` in a session of its
+own, as ``chip_smoke.py`` runs them: the scan cache keeps each
+projection of the table on the card for the session's life. Each query of ``--profile`` then runs twice more:
 once under ``torch.profiler`` (after one untraced profiler step), for the
 device's busy time and the host's self time by operator and runtime call,
 and once under ``cProfile``, for the host's Python time by function.
@@ -32,6 +39,7 @@ import time
 import torch
 
 from sail_tpu_torch import SparkSession
+from sail_tpu_torch.benchmarks import clickbench
 from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
 from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
 from sail_tpu_torch.benchmarks.window_queries import QUERIES as WINDOW_QUERIES
@@ -52,7 +60,13 @@ def parse_queries(text: str) -> list:
     return out
 
 
+def _is_clickbench(q) -> bool:
+    return isinstance(q, str) and q.startswith("cb")
+
+
 def _sql(q) -> str:
+    if _is_clickbench(q):
+        return clickbench.load_queries()[int(q[2:]) - 1]
     return QUERIES[q] if isinstance(q, int) else WINDOW_QUERIES[q]
 
 
@@ -127,6 +141,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default="",
                     help="queries to split the host time of")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--cb-rows", type=int, default=clickbench.PUBLISHED_ROWS,
+                    help="hits rows of the ClickBench queries")
     ap.add_argument("--report", type=pathlib.Path)
     args = ap.parse_args(argv)
 
@@ -134,25 +150,33 @@ def main(argv=None) -> int:
     if spark.device.type == "cuda":
         from sail_tpu_torch import csrc
         csrc.build()
-    for name, table in generate_tpch_sf(args.sf, seed=0).items():
-        spark.createDataFrame(table).createOrReplaceTempView(name)
+    queries = parse_queries(args.queries)
+    if not all(_is_clickbench(q) for q in queries):
+        for name, table in generate_tpch_sf(args.sf, seed=0).items():
+            spark.createDataFrame(table).createOrReplaceTempView(name)
+    hits = clickbench.generate_hits(args.cb_rows, seed=0, dictionary=True) \
+        if any(_is_clickbench(q) for q in queries) else None
     profiled = set(parse_queries(args.profile)) if args.profile else set()
     report = {"sf": args.sf, "device": str(spark.device), "queries": {}}
-    for q in parse_queries(args.queries):
+    for q in queries:
         sql = _sql(q)
-        first_ms = _run_ms(spark, sql)
-        times = sorted(_run_ms(spark, sql) for _ in range(args.runs))
+        session = spark
+        if _is_clickbench(q):
+            session = SparkSession({"spark.sail.device": args.device})
+            session.createDataFrame(hits).createOrReplaceTempView("hits")
+        first_ms = _run_ms(session, sql)
+        times = sorted(_run_ms(session, sql) for _ in range(args.runs))
         quart = statistics.quantiles(times, n=4) if len(times) > 1 \
             else times * 3
         entry = {"first_ms": first_ms, "ms": times, "median_ms": quart[1],
                  "quartiles_ms": [quart[0], quart[2]]}
-        print(f"{_label(q).upper()} SF{args.sf}: median {quart[1]:.2f} ms "
+        print(f"{_label(q).upper()}: median {quart[1]:.2f} ms "
               f"(quartiles "
               f"{quart[0]:.2f}-{quart[2]:.2f}, min {times[0]:.2f}, max "
               f"{times[-1]:.2f}) of {len(times)}", flush=True)
         if q in profiled:
-            entry["torch"] = t = torch_split(spark, sql)
-            entry["python"] = p = python_split(spark, sql)
+            entry["torch"] = t = torch_split(session, sql)
+            entry["python"] = p = python_split(session, sql)
             print(f"  traced: wall {t['wall_ms']:.2f} ms, device busy "
                   f"{t['device_busy_ms']:.2f}, host operators "
                   f"{t['host_ops_ms']:.2f}, Python {t['python_ms']:.2f}; "
@@ -162,6 +186,8 @@ def main(argv=None) -> int:
                   f" ms; " + ", ".join(f"{k} {ms:.2f} x{c}"
                                        for k, ms, c in p["top"]), flush=True)
         report["queries"][_label(q)] = entry
+        if session is not spark:
+            session.stop()
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

@@ -53,10 +53,13 @@ _ENTRY = {
                                       P, P],
                  "sail_bloom_apply": [P, P, LL, I, ULL, P, LL, ULL, P, P,
                                       P, P]},
-    "window_bounds.cu": {"sail_window_bounds": [P, P, LL, P, P, I, I, P, P,
-                                                P, P, P, P, P, P]},
-    "window_ranks.cu": {"sail_window_ranks": [P, P, LL, P, P, P, P, P, LL,
-                                              P, P, P, P, P, P, I, P]},
+    "window_bounds.cu": {"sail_window_pack": [P, P, P, P, P, P, I, I, P, LL,
+                                              P, I, P],
+                         "sail_window_bounds": [P, LL, P, P, P, I, P, P, P,
+                                                P, P, P, P, P]},
+    "window_ranks.cu": {"sail_window_ranks": [P, LL, P, P, P, P, P, LL, P, I,
+                                              P, P, I, P],
+                        "sail_window_ranks_unpermute": [P, LL, P, I, P, P]},
     "window_scan.cu": {"sail_window_scan": [P, LL, P, P, P, I, I, I, P, P,
                                             P],
                        "sail_window_frame": [P, LL, P, P, P, P, P, I, I, I,

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <math.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -169,6 +170,51 @@ __device__ void scan_carries(T* agg, long long count, T identity, Op op,
     T a = agg[t];
     agg[t] = pre;
     pre = op(pre, a);
+  }
+}
+
+// x[j] = src[p0 + j], 16 B (8 B for 8 bools) at a time where the whole
+// run lies below n (src + p0 is then aligned: the callers take p0 a
+// multiple of N and hand 16 B-aligned arrays), else one at a time, fill
+// past n.
+template <int N, typename T>
+__device__ __forceinline__ void load_run(const T* __restrict__ src,
+                                         long long p0, long long n,
+                                         T (&x)[N], T fill) {
+  constexpr int kBytes = sizeof(T) * N;
+  if (p0 + N <= n) {
+    if constexpr (kBytes % 16 == 0) {
+      int4 tmp[kBytes / 16];
+      const int4* q = reinterpret_cast<const int4*>(src + p0);
+#pragma unroll
+      for (int k = 0; k < kBytes / 16; ++k) tmp[k] = __ldg(q + k);
+      memcpy(x, tmp, kBytes);
+    } else {
+      static_assert(kBytes == 8, "a run is 8 B or a multiple of 16 B");
+      const uint2 tmp = __ldg(reinterpret_cast<const uint2*>(src + p0));
+      memcpy(x, &tmp, kBytes);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = p0 + j < n ? src[p0 + j] : fill;
+  }
+}
+
+template <int N, typename T>
+__device__ __forceinline__ void store_run(T* __restrict__ dst, long long p0,
+                                          long long n, const T (&x)[N]) {
+  constexpr int kBytes = sizeof(T) * N;
+  static_assert(kBytes % 16 == 0, "a run of outputs is a multiple of 16 B");
+  if (p0 + N <= n) {
+    int4 tmp[kBytes / 16];
+    memcpy(tmp, x, kBytes);
+    int4* q = reinterpret_cast<int4*>(dst + p0);
+#pragma unroll
+    for (int k = 0; k < kBytes / 16; ++k) q[k] = tmp[k];
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      if (p0 + j < n) dst[p0 + j] = x[j];
   }
 }
 

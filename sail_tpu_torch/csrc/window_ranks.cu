@@ -1,93 +1,193 @@
-// K9: the rank family of window functions, in one elementwise pass.
+// K9: the rank family of window functions, computed in sorted order.
 //
 // Replaces sail_tpu/ops/window.py `row_number` (:108), `rank` (:112),
 // `dense_rank` (:117), `percent_rank` (:137), `cume_dist` (:144) and
 // `ntile` (:156), each of which recomputed the peer groups (a cumsum and
 // segment reductions) and gathered its result back through the inverse
-// permutation. Here K8's bounds are read once per sorted position i and
-// each requested output (a null pointer: not requested) is written to
-// out[perm[i]]; dead rows (i >= n_live, a device scalar) get 0.
+// permutation (:82). Here K8's bounds are read once per sorted position i,
+// in order, and the k requested outputs (k <= 6, each an 8 B word: int64,
+// or float64 for percent_rank and cume_dist) are computed there.
 // Formulas are the reference's: with len = seg_end - seg_start + 1 and
 // pos = i - seg_start,
 //   row_number = pos + 1, rank = peer_start - seg_start + 1,
 //   dense_rank = dense, percent_rank = len > 1 ? (rank - 1) / (len - 1)
 //   : 0, cume_dist = (peer_end - seg_start + 1) / len,
-//   ntile(k): the first len % k tiles hold len / k + 1 rows.
-// Bound: bytes, n * (8 B perm + 5 * 4 B bounds + 8 B per output); the
-// output stores scatter through perm.
+//   ntile(t): the first len % t tiles hold len / t + 1 rows.
+// The outputs go to row order in one of two forms; out is [k, n] words,
+// output j at out + j * n, and a dead row (i >= n_live, a device scalar)
+// gets 0 in both:
+//   records: sail_window_ranks (perm null) writes one record of k words a
+//     live position, rec[i * k + j], and sail_window_ranks_unpermute takes
+//     the records to row order through the context's int32 inv_perm,
+//     out_j[r] = rec[inv[r] * k + j] (0 where inv[r] < 0: a dead row):
+//     one random record (one or two sectors) read a row, k writes in
+//     order;
+//   scatter: sail_window_ranks (perm given) writes out_j[perm[i]] at once:
+//     a random 8 B write a row and output, and no inverse permutation.
+// ops/window.py's rule takes the scatter for one output on a context that
+// has no inv_perm yet (building it costs more than the scatter saves) and
+// the records otherwise (PERF.md, section 6).
+// Bound: bytes, n * (4 B inv_perm or 8 B perm + the bounds read, 4 B each
+//   + 8 B an output), each read and written once.
 
 #include "window.cuh"
 
 namespace {
 
-__global__ void ranks_kernel(const long long* __restrict__ perm,
-                             const long long* __restrict__ n_live_p,
+constexpr int kMaxRanks = 6;
+enum Rank { kRowNumber = 0, kRank, kDenseRank, kPercentRank, kCumeDist,
+            kNtile };
+
+struct Wanted {
+  int code[kMaxRanks];  // the k outputs, in order
+  int k;
+};
+
+__global__ void ranks_kernel(const long long* __restrict__ n_live_p,
                              long long n, const int* __restrict__ seg_start,
                              const int* __restrict__ seg_end,
                              const int* __restrict__ peer_start,
                              const int* __restrict__ peer_end,
                              const int* __restrict__ dense, long long n_tiles,
-                             long long* row_number, long long* rank,
-                             long long* dense_rank, double* percent_rank,
-                             double* cume_dist, long long* ntile) {
+                             Wanted w, const long long* __restrict__ perm,
+                             unsigned long long* __restrict__ out) {
   const long long n_live = *n_live_p;
+  // records: the live positions only; the scatter writes every row
+  const long long end = perm != nullptr ? n : (n_live < n ? n_live : n);
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const long long row = perm[i];
-    if (i >= n_live) {
-      if (row_number) row_number[row] = 0;
-      if (rank) rank[row] = 0;
-      if (dense_rank) dense_rank[row] = 0;
-      if (percent_rank) percent_rank[row] = 0.0;
-      if (cume_dist) cume_dist[row] = 0.0;
-      if (ntile) ntile[row] = 0;
-      continue;
-    }
-    const long long ss = seg_start[i];
-    const long long len = (long long)seg_end[i] - ss + 1;
-    const long long pos = i - ss;
-    const long long before = (long long)peer_start[i] - ss;
-    if (row_number) row_number[row] = pos + 1;
-    if (rank) rank[row] = before + 1;
-    if (dense_rank) dense_rank[row] = dense[i];
-    if (percent_rank)
-      percent_rank[row] = len > 1 ? (double)before / (double)(len - 1) : 0.0;
-    if (cume_dist)
-      cume_dist[row] = (double)((long long)peer_end[i] - ss + 1) /
-                       (double)(len > 1 ? len : 1);
-    if (ntile) {
-      const long long sl = len > 1 ? len : 1;
-      const long long base = sl / n_tiles, rem = sl % n_tiles;
-      const long long big = rem * (base + 1);
-      long long tile = pos < big ? pos / (base + 1)
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < end; i += stride) {
+    unsigned long long word[kMaxRanks] = {};
+    if (i < n_live) {
+      const long long ss = seg_start[i];
+      const long long pos = i - ss;
+#pragma unroll
+      for (int j = 0; j < kMaxRanks; ++j) {
+        if (j >= w.k) break;
+        long long len = 1;
+        if (w.code[j] >= kPercentRank) len = (long long)seg_end[i] - ss + 1;
+        switch (w.code[j]) {
+          case kRowNumber: word[j] = pos + 1; break;
+          case kRank: word[j] = (long long)peer_start[i] - ss + 1; break;
+          case kDenseRank: word[j] = dense[i]; break;
+          case kPercentRank:
+            word[j] = __double_as_longlong(
+                len > 1 ? (double)((long long)peer_start[i] - ss) /
+                              (double)(len - 1)
+                        : 0.0);
+            break;
+          case kCumeDist:
+            word[j] = __double_as_longlong(
+                (double)((long long)peer_end[i] - ss + 1) /
+                (double)(len > 1 ? len : 1));
+            break;
+          default: {  // kNtile
+            const long long sl = len > 1 ? len : 1;
+            const long long base = sl / n_tiles, rem = sl % n_tiles;
+            const long long big = rem * (base + 1);
+            long long tile = pos < big
+                                 ? pos / (base + 1)
                                  : rem + (pos - big) / (base > 0 ? base : 1);
-      tile = tile < 0 ? 0 : (tile > n_tiles - 1 ? n_tiles - 1 : tile);
-      ntile[row] = tile + 1;
+            tile = tile < 0 ? 0 : (tile > n_tiles - 1 ? n_tiles - 1 : tile);
+            word[j] = tile + 1;
+          }
+        }
+      }
+    }
+    if (perm != nullptr) {
+      const long long row = perm[i];
+#pragma unroll
+      for (int j = 0; j < kMaxRanks; ++j)
+        if (j < w.k) out[j * n + row] = word[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxRanks; ++j)
+        if (j < w.k) out[i * w.k + j] = word[j];
+    }
+  }
+}
+
+constexpr int kUThreads = 256;
+constexpr int kPer = 4;  // rows a thread, kUThreads apart
+constexpr int kSpan = kUThreads * kPer;
+
+template <int K>
+__global__ void __launch_bounds__(kUThreads)
+ranks_unpermute_kernel(const int* __restrict__ inv, long long n,
+                       const unsigned long long* __restrict__ rec,
+                       unsigned long long* __restrict__ out) {
+  const long long base = (long long)blockIdx.x * kSpan + threadIdx.x;
+  long long from[kPer];  // -1: a dead row, or past the end
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const long long r = base + j * kUThreads;
+    from[j] = r < n ? inv[r] : -1;
+  }
+  unsigned long long v[kPer][K];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j)
+#pragma unroll
+    for (int o = 0; o < K; ++o)
+      v[j][o] = from[j] >= 0 ? rec[from[j] * K + o] : 0ull;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const long long r = base + j * kUThreads;
+    if (r < n) {
+#pragma unroll
+      for (int o = 0; o < K; ++o) out[o * n + r] = v[j][o];
     }
   }
 }
 
 }  // namespace
 
-extern "C" int sail_window_ranks(const void* perm, const void* n_live,
-                                 long long n, const void* seg_start,
-                                 const void* seg_end, const void* peer_start,
-                                 const void* peer_end, const void* dense,
-                                 long long n_tiles, void* row_number,
-                                 void* rank, void* dense_rank,
-                                 void* percent_rank, void* cume_dist,
-                                 void* ntile, int grid, void* stream) {
+// codes: k rank codes on the host (0 row_number, 1 rank, 2 dense_rank, 3
+// percent_rank, 4 cume_dist, 5 ntile). perm null: records into out (n x k
+// words, live positions only); else the scatter into out ([k, n] words).
+extern "C" int sail_window_ranks(const void* n_live, long long n,
+                                 const void* seg_start, const void* seg_end,
+                                 const void* peer_start, const void* peer_end,
+                                 const void* dense, long long n_tiles,
+                                 const int* codes, int k, const void* perm,
+                                 void* out, int grid, void* stream) {
   if (n <= 0) return 0;
-  if (n_tiles < 1) return (int)cudaErrorInvalidValue;
+  if (n_tiles < 1 || k < 1 || k > kMaxRanks) return (int)cudaErrorInvalidValue;
+  Wanted w;
+  for (int j = 0; j < kMaxRanks; ++j) {
+    w.code[j] = j < k ? codes[j] : 0;
+    if (w.code[j] < kRowNumber || w.code[j] > kNtile)
+      return (int)cudaErrorInvalidValue;
+  }
+  w.k = k;
   ranks_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(perm),
       static_cast<const long long*>(n_live), n,
       static_cast<const int*>(seg_start), static_cast<const int*>(seg_end),
       static_cast<const int*>(peer_start), static_cast<const int*>(peer_end),
-      static_cast<const int*>(dense), n_tiles,
-      static_cast<long long*>(row_number), static_cast<long long*>(rank),
-      static_cast<long long*>(dense_rank), static_cast<double*>(percent_rank),
-      static_cast<double*>(cume_dist), static_cast<long long*>(ntile));
+      static_cast<const int*>(dense), n_tiles, w,
+      static_cast<const long long*>(perm),
+      static_cast<unsigned long long*>(out));
+  return (int)cudaGetLastError();
+}
+
+// inv: n int32 (-1 at a dead row); rec: records of k words at the sorted
+// positions; out: [k, n] words.
+extern "C" int sail_window_ranks_unpermute(const void* inv, long long n,
+                                           const void* rec, int k, void* out,
+                                           void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)((n + kSpan - 1) / kSpan);
+  const int* i = static_cast<const int*>(inv);
+  const unsigned long long* r = static_cast<const unsigned long long*>(rec);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  switch (k) {
+    case 1: ranks_unpermute_kernel<1><<<grid, kUThreads, 0, s>>>(i, n, r, o); break;
+    case 2: ranks_unpermute_kernel<2><<<grid, kUThreads, 0, s>>>(i, n, r, o); break;
+    case 3: ranks_unpermute_kernel<3><<<grid, kUThreads, 0, s>>>(i, n, r, o); break;
+    case 4: ranks_unpermute_kernel<4><<<grid, kUThreads, 0, s>>>(i, n, r, o); break;
+    case 5: ranks_unpermute_kernel<5><<<grid, kUThreads, 0, s>>>(i, n, r, o); break;
+    case 6: ranks_unpermute_kernel<6><<<grid, kUThreads, 0, s>>>(i, n, r, o); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -2,9 +2,14 @@
 
 The PyTorch counterpart of ``sail_tpu/ops/window.py``. One sort by
 (partition keys, order keys) gives every window of that key its row
-order; K8 (``window_bounds``) then marks, for each sorted position, its
-segment's and its peer group's first and last positions and its dense
-rank, in one pass over the sorted keys. The window functions read those
+order. Where the keys' K3 bits, less each key's least value, fit in 63
+bits beside the dead-row bit and the null ranks, they are packed into one
+int64 word a row (``window_pack``) and one stable ``torch.sort`` of it
+gives the order; otherwise one stable pass a key (``lexsort_keys``). K8
+(``window_bounds``) then marks, for each sorted position, its segment's
+and its peer group's first and last positions and its dense rank, in two
+passes over the keys in sorted order: the sort's own sorted word, or each
+key gathered into sorted order once. The window functions read those
 bounds:
 
 - K9 (``window_ranks``): the rank family, each output selected by the
@@ -17,32 +22,36 @@ bounds:
 - lag, lead, nth_value, first and last: one gather through the sort
   permutation each.
 
-K10 and K11 work in sorted order only. A value column and its validity
+K9, K10 and K11 work in sorted order. A value column and its validity
 are gathered into sorted order once per context (``window_gather``,
-cached by ``WindowContext.sorted_values``); the scans, frames and
-extremes read and write contiguous sorted arrays, and each output goes
-back to row order in one pass (``window_unpermute``: a gather through the
-context's int32 ``inv_perm``, built once, as the reference's ``_unsort``
-does). K8, K9 and the gathers write row order straight from the sorted
-position, ``out[perm[i]] = f(i)``. Every row is written: dead rows
-(``sel`` false; they sort last) get 0, invalid where the output has a
-validity.
+cached by ``WindowContext.sorted_values``); the scans, frames, extremes
+and ranks read and write contiguous sorted arrays, and each output goes
+back to row order in one pass: a gather through the context's int32
+``inv_perm``, built once, as the reference's ``_unsort`` does
+(``window_unpermute`` for K10 and K11; K9's own for its records of one
+word an output). K9 writes a single output through the permutation
+instead on a context that has no ``inv_perm``, where building one costs
+more. The lag/lead/nth/first/last gathers write row order straight from
+the sorted position, ``out[perm[i]] = f(i)``. Every row is written: dead
+rows (``sel`` false; they sort last) get 0, invalid where the output has
+a validity.
 
 Each kernel's wrapper takes the ``*_plain`` version for a CPU tensor; a
 CUDA tensor launches the kernel or raises. Each keeps a ``.launches``
-count. The live-row count stays on the device (no host sync).
+count. The live-row count stays on the device; the sort reads its keys'
+extremes to the host, once a context.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from .. import csrc
 from ..columnar.batch import Column
-from .sort import compact_perm, lexsort_keys, order_keys
+from .sort import lexsort_keys, order_keys
 
 # kernels' limits (window.cuh: kMaxKeys, kTile; window_scan.cu:
 # kScanTile; window_extreme.cu: kNarrowMax)
@@ -68,8 +77,9 @@ class WindowContext:
     keys the context was built with."""
 
     def __init__(self, perm, n_live, seg_start, seg_end, peer_start,
-                 peer_end, dense):
+                 peer_end, dense, packed: bool = False):
         self.perm = perm              # int64[n] sorted order, live rows first
+        self.packed = packed          # sorted by one packed word (K8's input)
         self.n_live = n_live          # 0-d int64: the live rows (on device)
         self.seg_start = seg_start    # first position of the row's segment
         self.seg_end = seg_end        # last (live) position of its segment
@@ -182,41 +192,188 @@ def _check_n_live(name: str, n_live: torch.Tensor, dev) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K8: segment and peer-group bounds
+# the context's sort and K8: segment and peer-group bounds
 # ---------------------------------------------------------------------------
 
-def window_bounds_plain(perm: torch.Tensor, n_live: torch.Tensor,
-                        part_keys: Sequence[Tuple[torch.Tensor,
-                                                  Optional[torch.Tensor]]],
-                        order_keys_: Sequence[Tuple[torch.Tensor,
-                                                    Optional[torch.Tensor]]]
+# a packed sort word is a non-negative int64; K8's tile (window_bounds.cu:
+# kBTile)
+PACK_BITS = 63
+BOUNDS_TILE = 2048
+
+
+class PackLayout(NamedTuple):
+    """Where ``window_pack`` puts each key's fields in the sort word: per
+    key, its least K3 bits over all rows (``lo``), the shift of its bits
+    minus ``lo`` and that of its null rank (-1: no validity); the dead
+    bit's shift; the mask of the dead bit and the partition fields."""
+    lo: Tuple[int, ...]
+    shift: Tuple[int, ...]
+    vshift: Tuple[int, ...]
+    dead_shift: int
+    part_mask: int
+
+
+# a window key as K3 made it: (int64 key, validity or None, nulls_first)
+Key = Tuple[torch.Tensor, Optional[torch.Tensor], bool]
+# a word K8 reads in sorted order: (int64 word, its partition mask as a
+# signed int64, its validity or None)
+Word = Tuple[torch.Tensor, int, Optional[torch.Tensor]]
+
+
+def pack_layout(keys: Sequence[Key], n_part: int) -> Optional[PackLayout]:
+    """The packed word's layout, or None where the keys do not fit in it.
+
+    ``keys``: most significant first, the ``n_part`` partition keys first.
+    Every key's extremes over all rows (the sort orders the dead rows by
+    their keys too) come to the host in one copy, the context's one host
+    sync. A key takes bit_length(max - min) bits (in Python integers: the
+    difference of two int64 may pass INT64_MAX), and one more for its
+    null rank where it has a validity; they fit where they and the dead
+    bit come to PACK_BITS or fewer."""
+    n = keys[0][0].shape[0] if keys else 0
+    ext = torch.stack([torch.stack(torch.aminmax(k)) for k, _, _ in keys]
+                      ).tolist() if keys and n else [(0, 0)] * len(keys)
+    lo, shift, vshift = [0] * len(keys), [0] * len(keys), [-1] * len(keys)
+    at = order_bits = 0
+    for j in reversed(range(len(keys))):  # the least significant first
+        if j == n_part - 1:
+            order_bits = at
+        lo[j], hi = ext[j]
+        shift[j] = at
+        at += (hi - lo[j]).bit_length()
+        if keys[j][1] is not None:
+            vshift[j] = at
+            at += 1
+    if n_part == 0:
+        order_bits = at
+    if at + 1 > PACK_BITS:
+        return None
+    return PackLayout(tuple(lo), tuple(shift), tuple(vshift), at,
+                      ((1 << (at + 1)) - 1) ^ ((1 << order_bits) - 1))
+
+
+def window_pack_plain(keys: Sequence[Key], sel: torch.Tensor,
+                      layout: PackLayout) -> torch.Tensor:
+    """The sort word of each row: the dead bit (``sel`` false) at
+    ``layout.dead_shift``; per key its K3 bits minus ``lo`` at its shift
+    and its null rank (the validity where nulls sort first, its negation
+    where they sort last) above them. A null row's bits are packed as
+    they are: the sort orders null rows by them, as the passes do."""
+    word = (~sel).to(torch.int64) << layout.dead_shift
+    for (key, valid, nulls_first), lo, shift, vshift in zip(
+            keys, layout.lo, layout.shift, layout.vshift):
+        word |= (key - lo) << shift
+        if valid is not None:
+            word |= (valid if nulls_first else ~valid).to(torch.int64) \
+                << vshift
+    return word
+
+
+def window_pack(keys: Sequence[Key], sel: torch.Tensor,
+                layout: PackLayout) -> torch.Tensor:
+    """K8's pack pass: ``window_pack_plain`` as one kernel pass over the
+    keys in row order.
+
+    Replaces the stable passes of ``sail_tpu/ops/sort.py`` ``lexsort_perm``
+    (:65-74, a sort and a gather a key, a validity and the dead rows) as
+    ``build_window_context`` (:47) calls them: one stable ``torch.sort``
+    of the word orders the rows as they do; csrc/window_bounds.cu states
+    its bound. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel or raises."""
+    if sel.device.type == "cpu":
+        return window_pack_plain(keys, sel, layout)
+    n, dev = sel.shape[0], sel.device
+    if len(keys) > MAX_KEYS or sel.dtype != torch.bool:
+        raise TypeError(f"window_pack: at most {MAX_KEYS} keys and a bool "
+                        f"sel, got {len(keys)} and {sel.dtype}")
+    keys = [(_contiguous(k), _contiguous(v), nf) for k, v, nf in keys]
+    for k, v, _ in keys:
+        if k.dtype != torch.int64 or (v is not None and v.dtype != torch.bool):
+            raise TypeError("window_pack: keys must be int64 (K3 order keys) "
+                            "with bool validities")
+        _check_rows("window_pack", n, dev, key=k, validity=v)
+    sel = sel.contiguous()
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return out
+    arrays = [(ctypes.c_void_p * MAX_KEYS)(*[k.data_ptr()
+                                             for k, _, _ in keys]),
+              (ctypes.c_void_p * MAX_KEYS)(*[_ptr(v) for _, v, _ in keys]),
+              (ctypes.c_longlong * MAX_KEYS)(*layout.lo),
+              (ctypes.c_int * MAX_KEYS)(*layout.shift),
+              (ctypes.c_int * MAX_KEYS)(*layout.vshift),
+              (ctypes.c_int * MAX_KEYS)(*[int(nf) for _, _, nf in keys])]
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_bounds.cu", "sail_window_pack")(
+            *[ctypes.addressof(a) for a in arrays], len(keys),
+            layout.dead_shift, sel.data_ptr(), n, out.data_ptr(),
+            csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "window_pack")
+    window_pack.launches += 1
+    return out
+
+
+window_pack.launches = 0
+
+
+def sort_window_keys(keys: Sequence[Key], n_part: int, sel: torch.Tensor,
+                     n_live: torch.Tensor, packed: Optional[bool] = None
+                     ) -> Tuple[torch.Tensor, List[Word], bool]:
+    """The window's sort and K8's inputs in sorted order: (perm, words,
+    whether the keys were packed). ``keys`` as for ``pack_layout``.
+
+    Where they fit in one word (``pack_layout``; ``packed`` True insists,
+    False refuses): the pack pass and one stable ``torch.sort`` of the
+    word, whose indices are perm and whose values are K8's one word, with
+    the mask of the dead bit and the partition fields. Otherwise
+    ``lexsort_keys`` (one stable pass a key, a validity and the dead rows)
+    and each key with its validity gathered into sorted order once
+    (``window_gather``), masked all ones (a partition key) or 0. Both give
+    one perm: rows by (dead, each key's null rank and bits), ties in row
+    order."""
+    layout = None if packed is False else pack_layout(keys, n_part)
+    if packed and layout is None:
+        raise ValueError("sort_window_keys: the keys do not fit in one word")
+    if layout is not None:
+        srt = torch.sort(window_pack(keys, sel, layout), stable=True)
+        return srt.indices, [(srt.values, layout.part_mask, None)], True
+    if not keys:
+        raise ValueError("sort_window_keys: no keys to gather")
+    perm = lexsort_keys(keys, sel)
+    words = []
+    for j, (key, valid, _) in enumerate(keys):
+        key_s, valid_s = window_gather(perm, n_live, key, valid)
+        words.append((key_s, -1 if j < n_part else 0, valid_s))
+    return perm, words, False
+
+
+def window_bounds_plain(n_live: torch.Tensor, words: Sequence[Word]
                         ) -> Tuple[torch.Tensor, ...]:
     """(seg_start, seg_end, peer_start, peer_end, dense), int32[n] over
-    sorted positions. Keys are (K3 order key, validity or None) in row
-    order, read through ``perm``. Over the live prefix (i < n_live): a
-    segment starts where a partition key or its validity differs from the
-    previous sorted row, a peer group where a segment starts or an order
-    key or its validity differs; ends are the next start - 1 (at most
-    n_live - 1); dense counts the peer groups of the segment up to the
-    row. A dead row i: seg_start = peer_start = peer_end = i, seg_end =
-    n_live - 1 (an empty segment), dense 0."""
-    n = perm.shape[0]
-    idx = _positions(perm)
+    sorted positions, from ``words`` in sorted order. Over the live
+    prefix (i < n_live): a segment starts where a word's masked bits
+    differ from the previous position's, or the validity of a word with a
+    mask does; a peer group where a segment starts or any word or
+    validity differs; ends are the next start - 1 (at most n_live - 1);
+    dense counts the peer groups of the segment up to the row. A dead row
+    i: seg_start = peer_start = peer_end = i, seg_end = n_live - 1 (an
+    empty segment), dense 0."""
+    first = words[0][0]
+    n = first.shape[0]
+    idx = _positions(first)
     live = idx < n_live
-
-    def changed(keys):
-        ch = torch.zeros(n, dtype=torch.bool, device=perm.device)
-        for key, valid in keys:
-            s = key[perm]
-            ch[1:] |= s[1:] != s[:-1]
-            if valid is not None:
-                v = valid[perm]
-                ch[1:] |= v[1:] != v[:-1]
-        return ch
-
-    new_seg = changed(part_keys)
+    new_seg = torch.zeros(n, dtype=torch.bool, device=first.device)
+    new_peer = torch.zeros_like(new_seg)
+    for word, mask, valid in words:
+        x = word[1:] ^ word[:-1]
+        new_seg[1:] |= (x & mask) != 0
+        new_peer[1:] |= x != 0
+        if valid is not None:
+            vd = valid[1:] != valid[:-1]
+            new_peer[1:] |= vd
+            if mask:
+                new_seg[1:] |= vd
     new_seg[:1] = True
-    new_peer = (new_seg | changed(order_keys_)) & live
+    new_peer = (new_seg | new_peer) & live
     new_seg &= live
     big = torch.full_like(idx, n)
 
@@ -243,11 +400,7 @@ def window_bounds_plain(perm: torch.Tensor, n_live: torch.Tensor,
     return tuple(t.to(torch.int32) for t in out)
 
 
-def window_bounds(perm: torch.Tensor, n_live: torch.Tensor,
-                  part_keys: Sequence[Tuple[torch.Tensor,
-                                            Optional[torch.Tensor]]],
-                  order_keys_: Sequence[Tuple[torch.Tensor,
-                                              Optional[torch.Tensor]]]
+def window_bounds(n_live: torch.Tensor, words: Sequence[Word]
                   ) -> Tuple[torch.Tensor, ...]:
     """K8: ``window_bounds_plain`` as a kernel on the card.
 
@@ -255,38 +408,39 @@ def window_bounds(perm: torch.Tensor, n_live: torch.Tensor,
     ``sail_tpu/ops/window.py`` ``build_window_context`` (:52-78),
     ``_peer_group_start`` and ``peer_group_end``; the kernel's source
     (csrc/window_bounds.cu) states its bound and design. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel (a flag
-    pass and a three-phase tile scan: four launches) or raises."""
-    if perm.device.type == "cpu":
-        return window_bounds_plain(perm, n_live, part_keys, order_keys_)
-    n, dev = perm.shape[0], perm.device
-    keys = list(part_keys) + list(order_keys_)
-    if perm.dtype != torch.int64 or len(keys) > MAX_KEYS:
-        raise TypeError(f"window_bounds: needs an int64 perm and at most "
-                        f"{MAX_KEYS} keys, got {perm.dtype} and {len(keys)}")
+    takes the plain version; a CUDA tensor launches the kernel (two
+    single-pass scans) or raises."""
+    if not words or len(words) > MAX_KEYS:
+        raise TypeError(f"window_bounds: 1 to {MAX_KEYS} words, got "
+                        f"{len(words)}")
+    first = words[0][0]
+    if first.device.type == "cpu":
+        return window_bounds_plain(n_live, words)
+    n, dev = first.shape[0], first.device
     n_live = _check_n_live("window_bounds", n_live, dev)
-    keys = [(_contiguous(k), _contiguous(v)) for k, v in keys]
-    for k, v in keys:
-        if k.dtype != torch.int64 or (v is not None and v.dtype != torch.bool):
-            raise TypeError("window_bounds: keys must be int64 (K3 order "
-                            "keys) with bool validities")
-        _check_rows("window_bounds", n, dev, key=k, validity=v)
-    _check_rows("window_bounds", n, dev, perm=perm)
-    perm = perm.contiguous()
+    words = [(_contiguous(w), mask, _contiguous(v)) for w, mask, v in words]
+    for w, mask, v in words:
+        if w.dtype != torch.int64 or (v is not None and v.dtype != torch.bool) \
+                or not -(1 << 63) <= mask < (1 << 63):
+            raise TypeError("window_bounds: int64 words with signed int64 "
+                            "masks and bool validities")
+        _check_rows("window_bounds", n, dev, word=w, validity=v)
     outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
                  for _ in range(5))
     if n == 0:
         return outs
-    tiles = -(-n // TILE)
+    tiles = -(-n // BOUNDS_TILE)
     flags = torch.empty(n, dtype=torch.uint8, device=dev)
-    scratch = torch.empty(6 * tiles, dtype=torch.int32, device=dev)
-    key_ptrs = (ctypes.c_void_p * MAX_KEYS)(*[k.data_ptr() for k, _ in keys])
-    valid_ptrs = (ctypes.c_void_p * MAX_KEYS)(*[_ptr(v) for _, v in keys])
+    scratch = torch.empty(2 + 12 * tiles, dtype=torch.int32, device=dev)
+    word_ptrs = (ctypes.c_void_p * MAX_KEYS)(*[w.data_ptr()
+                                               for w, _, _ in words])
+    masks = (ctypes.c_ulonglong * MAX_KEYS)(*[m & ((1 << 64) - 1)
+                                              for _, m, _ in words])
+    valid_ptrs = (ctypes.c_void_p * MAX_KEYS)(*[_ptr(v) for _, _, v in words])
     with torch.cuda.device(dev):
-        csrc.check(csrc.entry("window_bounds.cu")(
-            perm.data_ptr(), n_live.data_ptr(), n,
-            ctypes.addressof(key_ptrs), ctypes.addressof(valid_ptrs),
-            len(part_keys), len(order_keys_),
+        csrc.check(csrc.entry("window_bounds.cu", "sail_window_bounds")(
+            n_live.data_ptr(), n, ctypes.addressof(word_ptrs),
+            ctypes.addressof(masks), ctypes.addressof(valid_ptrs), len(words),
             *[o.data_ptr() for o in outs], flags.data_ptr(),
             scratch.data_ptr(), csrc.stream_ptr(dev)), "window_bounds")
     window_bounds.launches += 1
@@ -299,34 +453,41 @@ window_bounds.launches = 0
 def build_window_context(partition_cols: Sequence[Column],
                          order_keys_: Sequence[Tuple], sel) -> WindowContext:
     """order_keys_: (data, validity, dtype, ascending, nulls_first) tuples.
-    One sort (K3 keys + stable ``torch.sort`` passes, dead rows last),
-    then one K8 launch over the same keys."""
+    One sort (K3 keys, then ``sort_window_keys``: the pack pass and one
+    stable ``torch.sort`` where the keys fit in one word, else one stable
+    pass a key), then one K8 call over the sorted words."""
     keys = [(c.data, c.validity, True, None) for c in partition_cols]
     keys += [(d, v, asc, nf) for d, v, _dt, asc, nf in order_keys_]
     bits = [(order_keys(d, asc), v, asc if nf is None else nf)
             for d, v, asc, nf in keys]
-    perm = lexsort_keys(bits, sel) if bits else compact_perm(sel)
     n_live = sel.sum()
-    n_part = len(partition_cols)
-    bounds = window_bounds(perm, n_live,
-                           [(k, v) for k, v, _ in bits[:n_part]],
-                           [(k, v) for k, v, _ in bits[n_part:]])
-    return WindowContext(perm, n_live, *bounds)
+    perm, words, packed = sort_window_keys(bits, len(partition_cols), sel,
+                                           n_live)
+    return WindowContext(perm, n_live, *window_bounds(n_live, words),
+                         packed=packed)
 
 
 # ---------------------------------------------------------------------------
 # K9: the rank family
 # ---------------------------------------------------------------------------
 
-def window_ranks_plain(ctx: WindowContext, wanted: Sequence[str],
-                       n_tiles: int = 1) -> Dict[str, torch.Tensor]:
-    """The rank functions in ``wanted`` (int64, or float64 for
-    percent_rank and cume_dist), in row order; 0 at dead rows."""
+_RANK_CODES = {name: code for code, name in enumerate(_RANKS)}
+_FLOAT_RANKS = ("percent_rank", "cume_dist")
+# K9's rule (PERF.md, section 6: both forms at 60M rows): the scatter for
+# at most this many outputs on a context without an inv_perm, where
+# building one costs more than the scatter saves; the records otherwise
+RANKS_SCATTER_MAX = 1
+
+
+def _rank_values(ctx: WindowContext, wanted: Sequence[str], n_tiles: int
+                 ) -> List[torch.Tensor]:
+    """Each function of ``wanted`` at the sorted positions (int64, or
+    float64 for percent_rank and cume_dist), 0 at the dead ones."""
     live = ctx.alive
     ss = ctx.seg_start.to(torch.int64)
     seg_len = ctx.seg_end.to(torch.int64) - ss + 1
     pos = _positions(ss) - ss
-    out = {}
+    out = []
     for name in wanted:
         if name == "row_number":
             v = pos + 1
@@ -352,42 +513,83 @@ def window_ranks_plain(ctx: WindowContext, wanted: Sequence[str],
             v = torch.clamp(tile, 0, n_tiles - 1) + 1
         else:
             raise ValueError(f"window_ranks: unknown rank function {name!r}")
-        out[name] = _scatter(ctx.perm, torch.where(live, v, 0))
+        out.append(torch.where(live, v, 0))
     return out
 
 
+def window_ranks_plain(ctx: WindowContext, wanted: Sequence[str],
+                       n_tiles: int = 1, form: str = "scatter"
+                       ) -> Dict[str, torch.Tensor]:
+    """The rank functions in ``wanted`` (int64, or float64 for
+    percent_rank and cume_dist), in row order; 0 at dead rows. Each is
+    computed at the sorted positions, then goes to row order in K9's
+    ``form``: "scatter", out[perm[i]]; "records", a record of one int64
+    word an output (a float as its bits) a position, gathered through
+    ``ctx.inv_perm``."""
+    vals = _rank_values(ctx, wanted, n_tiles)
+    if form == "scatter" or not vals:
+        return {w: _scatter(ctx.perm, v) for w, v in zip(wanted, vals)}
+    recs = torch.stack([v.view(torch.int64) for v in vals], 1)
+    inv = ctx.inv_perm.to(torch.int64)
+    rows = torch.where((inv >= 0)[:, None], recs[torch.clamp(inv, min=0)], 0)
+    return {w: rows[:, j].contiguous().view(v.dtype)
+            for j, (w, v) in enumerate(zip(wanted, vals))}
+
+
 def window_ranks(ctx: WindowContext, wanted: Sequence[str],
-                 n_tiles: int = 1) -> Dict[str, torch.Tensor]:
+                 n_tiles: int = 1, form: Optional[str] = None
+                 ) -> Dict[str, torch.Tensor]:
     """K9: ``window_ranks_plain`` as one kernel launch for every function
-    in ``wanted``.
+    in ``wanted``, computed at the sorted positions, and their way to row
+    order: "records", one record of an 8 B word an output a position and
+    one unpermute pass through ``ctx.inv_perm`` (built here where the
+    context has none yet), or "scatter", each output written through
+    ``perm`` by the kernel itself. ``form`` None takes the rule: the
+    scatter for at most ``RANKS_SCATTER_MAX`` outputs on a context
+    without an ``inv_perm``, the records otherwise.
 
     Replaces ``sail_tpu/ops/window.py`` ``row_number`` (:108), ``rank``
     (:112), ``dense_rank`` (:117), ``percent_rank`` (:137), ``cume_dist``
     (:144) and ``ntile`` (:156); csrc/window_ranks.cu states its bound.
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel or raises."""
+    A CPU tensor takes the plain version in the same form; a CUDA tensor
+    launches the kernels or raises."""
     bad = [w for w in wanted if w not in _RANKS]
-    if bad or n_tiles < 1:
-        raise ValueError(f"window_ranks: unknown {bad} or n_tiles {n_tiles}")
+    if bad or n_tiles < 1 or form not in (None, "scatter", "records"):
+        raise ValueError(f"window_ranks: unknown {bad}, n_tiles {n_tiles} "
+                         f"or form {form!r}")
+    if form is None:
+        form = "scatter" if len(wanted) <= RANKS_SCATTER_MAX and \
+            ctx._inv_perm is None else "records"
     perm = ctx.perm
     if perm.device.type == "cpu":
-        return window_ranks_plain(ctx, wanted, n_tiles)
+        return window_ranks_plain(ctx, wanted, n_tiles, form)
     n, dev = perm.shape[0], perm.device
     n_live = _check_n_live("window_ranks", ctx.n_live, dev)
-    out = {w: torch.empty(n, dtype=torch.float64 if w in (
-        "percent_rank", "cume_dist") else torch.int64, device=dev)
-        for w in wanted}
-    if n == 0 or not out:
-        return out
-    with torch.cuda.device(dev):
-        csrc.check(csrc.entry("window_ranks.cu")(
-            perm.data_ptr(), n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
-            ctx.seg_end.data_ptr(), ctx.peer_start.data_ptr(),
-            ctx.peer_end.data_ptr(), ctx.dense.data_ptr(), n_tiles,
-            *[_ptr(out.get(w)) for w in _RANKS],
-            csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "window_ranks")
-    window_ranks.launches += 1
-    return out
+    k = len(wanted)
+    out = torch.empty((k, n), dtype=torch.int64, device=dev)
+    if n and k:
+        records = form == "records"
+        rec = torch.empty((n, k), dtype=torch.int64, device=dev) \
+            if records else out
+        inv = ctx.inv_perm if records else None
+        codes = (ctypes.c_int * k)(*[_RANK_CODES[w] for w in wanted])
+        with torch.cuda.device(dev):
+            csrc.check(csrc.entry("window_ranks.cu", "sail_window_ranks")(
+                n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
+                ctx.seg_end.data_ptr(), ctx.peer_start.data_ptr(),
+                ctx.peer_end.data_ptr(), ctx.dense.data_ptr(), n_tiles,
+                ctypes.addressof(codes), k,
+                None if records else perm.contiguous().data_ptr(),
+                rec.data_ptr(), csrc.grid_for(n, dev), csrc.stream_ptr(dev)),
+                "window_ranks")
+            if records:
+                csrc.check(csrc.entry("window_ranks.cu",
+                                      "sail_window_ranks_unpermute")(
+                    inv.data_ptr(), n, rec.data_ptr(), k, out.data_ptr(),
+                    csrc.stream_ptr(dev)), "window_ranks")
+        window_ranks.launches += 1
+    return {w: out[j].view(torch.float64) if w in _FLOAT_RANKS else out[j]
+            for j, w in enumerate(wanted)}
 
 
 window_ranks.launches = 0

@@ -34,3 +34,15 @@ def test_profile_reports_times_and_host_split(tmp_path):
     q1 = report["queries"]["q1"]
     assert q1["torch"]["host_ops_ms"] > 0 and q1["torch"]["host_top"]
     assert q1["python"]["calls"] > 0 and q1["python"]["top"]
+
+
+def test_profile_times_clickbench_queries(tmp_path):
+    """ClickBench queries by number, each in a session of its own over a
+    small generated hits table; no TPC-H table is generated for them."""
+    out = tmp_path / "report.json"
+    assert tpch_profile.main(["--queries", "cb1,cb8", "--cb-rows", "3000",
+                              "--runs", "2", "--device", "cpu", "--report",
+                              str(out)]) == 0
+    report = json.loads(out.read_text())
+    assert list(report["queries"]) == ["cb1", "cb8"]
+    assert all(len(e["ms"]) == 2 for e in report["queries"].values())

@@ -31,7 +31,8 @@ from sail_tpu_torch.columnar.batch import Column as TColumn
 from sail_tpu_torch.ops import window as twin
 from sail_tpu_torch.spec import data_type as tdt
 from torch_tpch_common import port_session, reference_session
-from torch_window_common import close, identical, run_both
+from torch_window_common import (bounds_through_perm, close, identical,
+                                 run_both)
 
 # ---------------------------------------------------------------------------
 # SQL: tests/test_window.py's cases through both packages
@@ -310,24 +311,58 @@ _EDGES = [  # (rows, live rows, segments)
 ]
 
 
+# K8's tile edges too (window_bounds.cu: 2048 positions a tile)
+_BOUNDS_EDGES = _EDGES + [
+    (5000, twin.BOUNDS_TILE - 1, "one"), (5000, twin.BOUNDS_TILE + 1, "wide"),
+    (2 * twin.BOUNDS_TILE, 2 * twin.BOUNDS_TILE, "single"),
+    (3 * twin.BOUNDS_TILE + 5, 3 * twin.BOUNDS_TILE + 5, "mixed"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,n_live,segments", _EDGES)
+@pytest.mark.parametrize("n,n_live,segments", _BOUNDS_EDGES)
 def test_bounds_and_ranks_kernels_match_plain(cuda, n, n_live, segments):
+    """K8 from both key sources (the packed word, where the keys fit; each
+    key gathered into sorted order) against its plain version and the
+    through-perm oracle, the pack pass against its plain version, and K9
+    in both forms (records through inv_perm, the scatter through perm) at
+    one and six outputs against its plain version."""
     ctx, parts, order, _ = _card_context(cuda, n, n_live, segments)
     from sail_tpu_torch.ops.sort import order_keys
-    pk = [(order_keys(c.data), c.validity) for c in parts]
-    ok = [(order_keys(d, a), v) for d, v, _, a, _ in order]
-    want = twin.window_bounds_plain(ctx.perm, ctx.n_live, pk, ok)
-    got = (ctx.seg_start, ctx.seg_end, ctx.peer_start, ctx.peer_end,
-           ctx.dense)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    before = twin.window_ranks.launches
-    ranks = twin.window_ranks(ctx, twin._RANKS, 7)
-    assert twin.window_ranks.launches == before + 1
-    plain = twin.window_ranks_plain(ctx, twin._RANKS, 7)
-    for name in twin._RANKS:
-        assert torch.equal(ranks[name], plain[name]), name
+    keys = [(order_keys(c.data), c.validity, True) for c in parts] + \
+        [(order_keys(d, a), v, a if nf is None else nf)
+         for d, v, _, a, nf in order]
+    n_part = len(parts)
+    oracle = bounds_through_perm(
+        ctx.perm, ctx.n_live, [(k, v) for k, v, _ in keys[:n_part]],
+        [(k, v) for k, v, _ in keys[n_part:]])
+    sel = twin.window_inverse_plain(ctx.perm, ctx.n_live) >= 0
+    layout = twin.pack_layout(keys, n_part)
+    assert ctx.packed == (layout is not None)
+    if layout is not None:
+        assert torch.equal(twin.window_pack(keys, sel, layout),
+                           twin.window_pack_plain(keys, sel, layout))
+    for packed in [False] + ([True] if layout is not None else []):
+        perm, words, was_packed = twin.sort_window_keys(keys, n_part, sel,
+                                                        ctx.n_live, packed)
+        assert was_packed == packed and torch.equal(perm, ctx.perm)
+        before = twin.window_bounds.launches
+        got = twin.window_bounds(ctx.n_live, words)
+        assert twin.window_bounds.launches == before + 1
+        want = twin.window_bounds_plain(ctx.n_live, words)
+        for g, w, o in zip(got, want, oracle):
+            assert torch.equal(g, w) and torch.equal(g, o), packed
+    for g, o in zip((ctx.seg_start, ctx.seg_end, ctx.peer_start,
+                     ctx.peer_end, ctx.dense), oracle):
+        assert torch.equal(g, o)
+    for form in ("records", "scatter"):
+        for wanted in (twin._RANKS, ("ntile",)):
+            before = twin.window_ranks.launches
+            ranks = twin.window_ranks(ctx, wanted, 7, form=form)
+            assert twin.window_ranks.launches == before + 1
+            plain = twin.window_ranks_plain(ctx, wanted, 7, form=form)
+            for name in wanted:
+                assert torch.equal(ranks[name], plain[name]), (form, name)
 
 
 def _card_values(cuda, rng, n, dtype, with_validity):

@@ -67,3 +67,52 @@ def close(got: torch.Tensor, want: torch.Tensor, scale_from=None) -> None:
                                  + FLOAT_SUM_ATOL * scale)).all())
     else:
         assert torch.equal(got, want)
+
+
+def bounds_through_perm(perm, n_live, part_keys, order_keys):
+    """K8's five bounds computed from the keys in row order, each K3 key
+    and validity read through ``perm``: an oracle apart from the sorted
+    words K8 reads. ``part_keys``, ``order_keys``: (K3 key, validity or
+    None). Over the live prefix a segment starts where a partition key or
+    its validity differs from the previous sorted row's, a peer group where
+    a segment starts or an order key or its validity differs; a dead row i
+    gets seg_start = peer_start = peer_end = i, seg_end = n_live - 1 and
+    dense 0."""
+    n = perm.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=perm.device)
+    live = idx < n_live
+
+    def changed(keys):
+        ch = torch.zeros(n, dtype=torch.bool, device=perm.device)
+        for key, valid in keys:
+            s = key[perm]
+            ch[1:] |= s[1:] != s[:-1]
+            if valid is not None:
+                v = valid[perm]
+                ch[1:] |= v[1:] != v[:-1]
+        return ch
+
+    new_seg = changed(part_keys)
+    new_seg[:1] = True
+    new_peer = (new_seg | changed(order_keys)) & live
+    new_seg &= live
+    big = torch.full_like(idx, n)
+
+    def starts(flags):
+        return torch.cummax(torch.where(flags, idx, 0), 0).values
+
+    def ends(flags):
+        nxt = torch.where(flags, idx, big)
+        nxt = torch.cat([nxt[1:], big[:1]])
+        nxt = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values, [0])
+        return torch.minimum(nxt - 1, n_live - 1)
+
+    seg_start, peer_start = starts(new_seg), starts(new_peer)
+    cnt = torch.cumsum(new_peer.to(torch.int64), 0)
+    dense = cnt - cnt[seg_start] + 1
+    out = (torch.where(live, seg_start, idx),
+           torch.where(live, ends(new_seg), (n_live - 1).expand(n)),
+           torch.where(live, peer_start, idx),
+           torch.where(live, ends(new_peer), idx),
+           torch.where(live, dense, 0))
+    return tuple(t.to(torch.int32) for t in out)
