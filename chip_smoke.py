@@ -84,20 +84,26 @@ SF10 tables and phase 4's tables):
    sort of the packed word: the two perms must be equal), K8
    (window_bounds) on the sorted packed word and, at lineitem, on each
    key gathered into sorted order, K9 (window_ranks) at 6, 2 and 1
-   outputs in both forms (records through the inverse permutation, with
-   it built and building it, and the scatter through perm), the gather of
+   outputs (records through the inverse permutation, with it built and
+   building it), the gather of
    a column into sorted order (window_gather), K10's two entry points
    (window_scan, window_frame), K11 (window_extreme), the context's
    inverse permutation (window_inverse) and the unpermute back to row
    order (window_unpermute, a gather through the inverse) at the contexts the
    window queries build at ``--sf``: lineitem's rows by (l_suppkey; l_shipdate, l_orderkey, l_linenumber),
    orders' by (o_custkey; o_orderdate), and orders in one segment; K11
-   at frames of 5 and 10,001 rows (past the shared-memory halo). Each
+   at frames of 5 and 10,001 rows (past the shared-memory halo). The
+   inverse and the gather (one engine, a two-pass partitioned scatter)
+   also run at W8's order (orders by o_orderkey, near the stored one) and
+   at lineitem with 1% of its rows live, and both at half the
+   shared-memory tile; lag and lead at lineitem
+   are held to the torch route they replaced (gathers and scatters
+   through perm) and timed beside it (``window_functions``). Each
    against its plain version, then timed beside it and, where one
    exists, a PyTorch call computing as much on sorted values
    (``unique_consecutive`` of the sorted word for K8, and of its first
    key alone, ``vals[perm]`` for the gather,
-   ``index_put_`` of every position for the inverse, ``cumsum`` for
+   ``index_put_`` of the live positions for the inverse, ``cumsum`` for
    K10's scan, ``unfold(...).amin`` for K11 at 5 rows,
    ``index_select`` of one 16 B element a row through ``inv_perm`` for
    the unpermute), and that call with its gather
@@ -182,7 +188,7 @@ PROFILED_KERNELS = {
     "K10 window_scan": re.compile(r"\bscan_kernel<|\bframe_kernel<"),
     "K11 window_extreme": re.compile(r"extreme_(narrow|chunks|wide)_kernel<"),
     "window gather, inverse, unpermute": re.compile(
-        r"\bgather_kernel<|\binverse_kernel\(|\bunpermute_kernel<"),
+        r"\bbin_kernel<|\bplace_kernel<|\bunpermute_kernel<"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -1313,21 +1319,24 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
 
 # K8 reads the sorted packed word where the keys fit in 63 bits (every
 # context of W2-W8 at SF10), else each key gathered into sorted order
-# (W1: o_custkey, o_totalprice and o_orderkey take 74 bits)
+# through the inverse permutation (W1: o_custkey, o_totalprice and
+# o_orderkey take 74 bits)
 _K8, _K8_GENERAL = ("window_pack", "window_bounds"), \
-    ("window_bounds", "window_gather")
+    ("window_bounds", "window_inverse", "window_gather")
 _K9 = ("window_ranks",)
 # K10 and K11 read a gathered column and unpermute their outputs through
 # the context's inverse permutation
 _K10 = ("window_gather", "window_scan", "window_frame", "window_inverse",
         "window_unpermute")
-# the kernels each window/union query must launch (W4's lag and lead are
-# gathers; the unions group their merged dictionary codes directly; W5's
-# five rank outputs go to row order through the inverse permutation)
+# the kernels each window/union query must launch (W4's lag and lead read
+# their values in sorted order and unpermute each output; the unions group
+# their merged dictionary codes directly; W5's five rank outputs go to row
+# order through the inverse permutation)
 WINDOW_PATH = {
     "w1": _K8_GENERAL + _K9, "w2": _K8 + _K10,
     "w3": _K8 + _K10 + ("window_extreme",),
-    "w4": _K8, "w5": _K8 + _K9 + ("window_inverse",),
+    "w4": _K8 + ("window_gather", "window_inverse", "window_unpermute"),
+    "w5": _K8 + _K9 + ("window_inverse",),
     "w6": _K8 + _K9 + _JOIN,
     "w7": _K8 + _K10 + _JOIN, "w8": _K8 + _K9 + _K10,
     "u1": ("direct_group_ids", "seg_reduce"),
@@ -1411,19 +1420,125 @@ def _segment_sum_err(got, want, vals, ctx) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def _time_moves(rows: dict, label: str, perm, n_live, vals) -> None:
+    """The inverse permutation and the gather of ``vals`` (int64) into
+    sorted order at one context (phase 8), each equal to its plain version
+    (and the gather to ``vals[perm]``), timed beside its library call
+    (torch's scatter of the live positions; ``vals[perm]`` over them) and
+    at half the shared-memory tile (``half_tile_ms``). Bounds: the inverse
+    reads perm at the live positions and writes n int32; the gather reads
+    inv and the live rows' values and writes n values."""
+    from sail_tpu_torch.ops import window as win
+    n = perm.shape[0]
+    live = int(n_live)
+    half = win.MOVE_TILE_BYTES // 2
+    positions = torch.arange(n, dtype=torch.int32, device=perm.device)
+    if live == n:
+        library = lambda: torch.empty_like(positions).index_put_(  # noqa
+            (perm,), positions)
+    else:
+        library = lambda: torch.full_like(positions, -1).index_put_(  # noqa
+            (perm[:live],), positions[:live])
+    rows["window_inverse"].append(_timed(
+        f"inverse permutation, {label}", n,
+        lambda: win.window_inverse(perm, n_live),
+        lambda: win.window_inverse_plain(perm, n_live), live * 8 + n * 4,
+        library,
+        extra={"half_tile_ms": lambda: win.window_inverse(perm, n_live,
+                                                          half)}))
+    del positions, library
+    inv = win.window_inverse(perm, n_live)
+    got = win.window_gather(inv, vals, None)[0]
+    if not torch.equal(got[:live], vals[perm[:live]]) or \
+            bool(got[live:].any()):
+        raise AssertionError(f"{label}: the gather is not vals[perm]")
+    del got
+    rows["window_gather"].append(_timed(
+        f"gather into sorted order, int64, {label}", n,
+        lambda: win.window_gather(inv, vals, None),
+        lambda: win.window_gather_plain(inv, vals, None),
+        n * (4 + 8) + live * 8, lambda: vals[perm[:live]],
+        extra={"half_tile_ms": lambda: win.window_gather(inv, vals, None,
+                                                         half)}))
+
+
+def _torch_route_shift(ctx, value, offset: int, default):
+    """lag/lead as the port computed them before they read sorted values:
+    a gather through perm and two scatters an output, three with a
+    default; the yardstick of the sorted-order path."""
+    perm = ctx.perm
+    n = perm.shape[0]
+    idx = torch.arange(n, dtype=torch.int64, device=perm.device)
+    src = idx - offset
+    in_seg = (src >= ctx.seg_start) & (src <= ctx.seg_end)
+    rows = perm[torch.clamp(src, 0, max(n - 1, 0))]
+    alive = idx < ctx.n_live
+    ok = in_seg & alive
+    data = torch.where(ok, value.data[rows], torch.zeros_like(value.data[:1]))
+    if value.validity is not None:
+        ok = ok & value.validity[rows]
+
+    def scatter(t):
+        out = torch.empty_like(t)
+        out[perm] = t
+        return out
+    data, validity = scatter(data), scatter(ok)
+    if default is not None:
+        outside = scatter(~in_seg & alive)
+        data = torch.where(outside, torch.full_like(data, default), data)
+        validity = validity | outside
+    return data, validity
+
+
+def _time_shift(ctx, col, offset: int, default, label: str) -> dict:
+    """lag/lead over ``col`` (int64) at one context: the sorted-order path
+    (the context's sorted values cached, as for a second output over the
+    column; and with its gather, ``with_gather_ms``) equal to the torch
+    route it replaced and timed beside it (``torch_route_ms``). Bound:
+    the values, inv and seg_start read, the values and validity
+    written."""
+    from sail_tpu_torch.ops import window as win
+    n = ctx.perm.shape[0]
+    new = win.shift(ctx, col, offset, default)
+    old = _torch_route_shift(ctx, col, offset, default)
+    if not all(torch.equal(a, b) for a, b in zip(new, old)):
+        raise AssertionError(f"{label}: lag/lead differs from the torch "
+                             f"route")
+    del new, old
+
+    def fresh():
+        ctx._sorted.clear()
+        return win.shift(ctx, col, offset, default)
+    row = dict(shape=label, n=n, ms=cuda_ms(
+        lambda: win.shift(ctx, col, offset, default)),
+        with_gather_ms=cuda_ms(fresh),
+        torch_route_ms=cuda_ms(lambda: _torch_route_shift(
+            ctx, col, offset, default), 3),
+        bound_ms=_bound_ms(n * (8 + 4 + 4 + 8 + 1)))
+    print(f"  {label}: n={n}, {row['ms']:.3f} ms, with its gather "
+          f"{row['with_gather_ms']:.3f} ms, torch route "
+          f"{row['torch_route_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms",
+          flush=True)
+    return row
+
+
 def check_window_kernels(tables: dict, dev) -> list:
-    """K8-K11, the gather into sorted order and the unpermute at the
-    contexts the window queries build from ``tables`` (phase 8): each
-    against its plain version, then timed beside it, a PyTorch call that
-    computes as much on sorted values (the port never calls it), and that
-    call with its gather and its return to row order (``library_perm_ms``;
-    the kernel's own composite is ``with_gather_ms``). Bounds: bytes once
-    at HBM_BYTES_PER_S."""
+    """K8-K11, the inverse permutation, the gather into sorted order and
+    the unpermute at the contexts the window queries build from
+    ``tables`` (phase 8): each against its plain version, then timed
+    beside it, a PyTorch call that computes as much on sorted values (the
+    port never calls it), and that call with its gather and its return to
+    row order (``library_perm_ms``; the kernel's own composite is
+    ``with_gather_ms``); the inverse and the gather also where the order
+    is near the stored one (W8's) and where 1% of lineitem lives; lag and
+    lead beside their old torch route. Bounds: bytes once at
+    HBM_BYTES_PER_S. Returns (the kernels' entries, the lag/lead rows)."""
     from sail_tpu_torch.columnar.batch import Column
     from sail_tpu_torch.ops import window as win
     from sail_tpu_torch.ops.sort import lexsort_keys, order_keys
     from sail_tpu_torch.spec import data_type as dt
 
+    functions = []
     rows = {name: [] for name in ("window_pack", "window_bounds",
                                   "window_ranks", "window_gather",
                                   "window_inverse", "window_scan",
@@ -1442,8 +1557,9 @@ def check_window_kernels(tables: dict, dev) -> list:
         # the context's sort: the passes (one stable sort a key and the
         # dead rows) against the pack pass and one stable sort
         layout = win.pack_layout(keys, n_part)
-        packed_perm, words, _ = win.sort_window_keys(keys, n_part, sel,
-                                                     n_live, True)
+        srt = win.sort_window_keys(keys, n_part, sel, n_live, True)
+        packed_perm, words = srt.perm, srt.words
+        del srt
         if not (ctx.packed and torch.equal(packed_perm, perm)
                 and torch.equal(lexsort_keys(keys, sel), perm)):
             raise AssertionError(f"{label}: the packed sort's perm is not "
@@ -1478,11 +1594,13 @@ def check_window_kernels(tables: dict, dev) -> list:
                        key[perm], return_inverse=True, return_counts=True)}))
         del first, key, words, sorted_word
         if label.startswith("lineitem"):
-            # K8 on the general path: each key gathered into sorted order
+            # K8 on the general path: the inverse permutation, then each
+            # key gathered into sorted order through it
             def gathered():
+                inv_ = win.window_inverse(perm, n_live)
                 out = []
                 for j, (k, v, _) in enumerate(keys):
-                    k_s, v_s = win.window_gather(perm, n_live, k, v)
+                    k_s, v_s = win.window_gather(inv_, k, v)
                     out.append((k_s, -1 if j < n_part else 0, v_s))
                 return out
             gwords = gathered()
@@ -1500,50 +1618,39 @@ def check_window_kernels(tables: dict, dev) -> list:
                 extra={"with_gathers_ms": lambda: win.window_bounds(
                     n_live, gathered())}))
             del gwords
-        # K9 in both forms; the records' unpermute reads inv_perm, timed
-        # with it built (as after K10) and building it (a fresh context)
+        # K9's records and their unpermute through inv_perm, timed with
+        # it built (as after K10) and building it (a fresh context)
         inv = ctx.inv_perm
 
         def building_inv(wanted):
             def run():
                 ctx._inv_perm = None
-                return list(win.window_ranks(ctx, wanted, 4,
-                                             form="records").values())
+                return list(win.window_ranks(ctx, wanted, 4).values())
             return run
         for wanted, n_bounds in ((win._RANKS, 5), (("rank", "cume_dist"), 4),
                                  (("ntile",), 2)):
             k = len(wanted)
-            for form in ("records", "scatter"):
-                rows["window_ranks"].append(_timed(
-                    f"K9 {form}, {k} output{'s' if k > 1 else ''}, {label}",
-                    n, lambda: list(win.window_ranks(ctx, wanted, 4,
-                                                     form=form).values()),
-                    lambda: list(win.window_ranks_plain(ctx, wanted, 4,
-                                                        form=form).values()),
-                    n * ((4 if form == "records" else 8) + 4 * n_bounds
-                         + 8 * k),
-                    extra={"building_inv_perm_ms": building_inv(wanted)}
-                    if form == "records" else None))
-                ctx._inv_perm = inv
-        # the context's inverse permutation, built once; its library call
-        # is torch's scatter of every position
-        positions = torch.arange(n, dtype=torch.int32, device=dev)
-        rows["window_inverse"].append(_timed(
-            f"inverse permutation, {label}", n,
-            lambda: win.window_inverse(perm, n_live),
-            lambda: win.window_inverse_plain(perm, n_live), n * (8 + 4),
-            lambda: torch.empty_like(positions).index_put_((perm,),
-                                                           positions)))
-        del positions
+            rows["window_ranks"].append(_timed(
+                f"K9 records, {k} output{'s' if k > 1 else ''}, {label}",
+                n, lambda: list(win.window_ranks(ctx, wanted, 4).values()),
+                lambda: list(win.window_ranks_plain(ctx, wanted,
+                                                    4).values()),
+                n * (4 + 4 * n_bounds + 8 * k),
+                extra={"building_inv_perm_ms": building_inv(wanted)}))
+            ctx._inv_perm = inv
+        _time_moves(rows, label, perm, n_live, vals)
         fvals = vals.to(torch.float64) / 100
-        gather = lambda: win.window_gather(  # noqa: E731
-            perm, n_live, vals, None)
-        rows["window_gather"].append(_timed(
-            f"gather into sorted order, int64, {label}", n, gather,
-            lambda: win.window_gather_plain(perm, n_live, vals, None),
-            n * (8 + 8 + 8), lambda: vals[perm]))
+        gather = lambda: win.window_gather(inv, vals, None)  # noqa: E731
         sorted_vals, _ = gather()
-        fsorted, _ = win.window_gather(perm, n_live, fvals, None)
+        fsorted, _ = win.window_gather(inv, fvals, None)
+        if label.startswith("lineitem"):  # W4's lag and lead
+            col = Column(vals, None, dt.LongType())
+            for offset, default in ((1, -1), (-2, None)):
+                functions.append(_time_shift(
+                    ctx, col, offset, default,
+                    f"{'lag' if offset > 0 else 'lead'}({abs(offset)}"
+                    f"{'' if default is None else ', -1'}), {label}"))
+            del col
         rows["window_scan"].append(_timed(
             f"K10 scan, int64 sum, {label}", n,
             lambda: win.window_scan(ctx, sorted_vals, None, "sum"),
@@ -1620,6 +1727,27 @@ def check_window_kernels(tables: dict, dev) -> list:
                            {"library_perm_ms": library_perm})}))
         del ctx, keys, perm, inv, sorted_vals, part, order, vals, sel
         torch.cuda.empty_cache()
+    # the moves where the order is near the stored one (W8's running total
+    # over o_orderkey) and where few rows live (1% of lineitem's)
+    od, li = tables["orders"], tables["lineitem"]
+    for label, table, part, order, vals, live in (
+            ("orders in one segment by o_orderkey (W8's order)", od, [],
+             ["o_orderkey"], "o_totalprice", None),
+            ("lineitem by l_suppkey; ORD, l_partkey % 100 = 0 live", li,
+             ["l_suppkey"], ["l_shipdate", "l_orderkey", "l_linenumber"],
+             "l_extendedprice", "l_partkey")):
+        c = lambda name: _device_column(table, name, dev)  # noqa: E731
+        n = table.num_rows
+        sel = torch.ones(n, dtype=torch.bool, device=dev) if live is None \
+            else c(live) % 100 == 0
+        ctx = win.build_window_context(
+            [Column(c(p), None, dt.LongType()) for p in part],
+            [(c(o), None, dt.LongType(), True, None) for o in order], sel)
+        print(f"moves at {label}: {int(ctx.n_live)} of {n} rows live",
+              flush=True)
+        _time_moves(rows, label, ctx.perm, ctx.n_live, c(vals))
+        del ctx, sel
+        torch.cuda.empty_cache()
     sources = {"window_pack": ("window_bounds.cu", "sail_tpu/ops/sort.py:65"),
                "window_bounds": ("window_bounds.cu", "sail_tpu/ops/window.py:52"),
                "window_ranks": ("window_ranks.cu", "sail_tpu/ops/window.py:108"),
@@ -1641,7 +1769,7 @@ def check_window_kernels(tables: dict, dev) -> list:
             ms=main["ms"], plain_ms=main["plain_ms"],
             bound_ms=main["bound_ms"], library_ms=main["library_ms"],
             shapes=shapes))
-    return entries
+    return entries, functions
 
 
 def _answers_agree(name: str, got: pa.Table, want: pa.Table) -> None:
@@ -2052,7 +2180,8 @@ def main() -> int:
     phases["main_path"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    entries += check_window_kernels(tables, dev)
+    win_entries, win_functions = check_window_kernels(tables, dev)
+    entries += win_entries
     phases["window_kernels"] = time.perf_counter() - t
     torch.cuda.empty_cache()
 
@@ -2094,7 +2223,7 @@ def main() -> int:
             raise AssertionError(f"{k['name']} launched on no query's path")
     full = {"main_path": report, "checks": checks, "sf": args.sf,
             "check_sf": args.check_sf, "window": win_report,
-            "window_checks": win_checks,
+            "window_checks": win_checks, "window_functions": win_functions,
             "clickbench": cb_report,
             "clickbench_checks": cb_checks, "cb_rows": args.cb_rows,
             "cb_check_rows": args.cb_check_rows, "seed": args.seed,
@@ -2105,7 +2234,7 @@ def main() -> int:
         args.report.write_text(json.dumps(full, indent=1))
     print(json.dumps({k: full[k] for k in (
         "main_path", "checks", "sf", "check_sf", "window", "window_checks",
-        "clickbench",
+        "window_functions", "clickbench",
         "clickbench_checks", "cb_rows", "cb_check_rows", "seed",
         "phases_s")}))
     print(json.dumps({"kernels": kernels}))

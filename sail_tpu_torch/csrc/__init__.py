@@ -58,7 +58,7 @@ _ENTRY = {
                          "sail_window_bounds": [P, LL, P, P, P, I, P, P, P,
                                                 P, P, P, P, P]},
     "window_ranks.cu": {"sail_window_ranks": [P, LL, P, P, P, P, P, LL, P, I,
-                                              P, P, I, P],
+                                              P, I, P],
                         "sail_window_ranks_unpermute": [P, LL, P, I, P, P]},
     "window_scan.cu": {"sail_window_scan": [P, LL, P, P, P, I, I, I, P, P,
                                             P],
@@ -66,8 +66,9 @@ _ENTRY = {
                                              LL, LL, I, I, P, I, P]},
     "window_extreme.cu": {"sail_window_extreme": [P, LL, P, P, P, P, P, I, I,
                                                   LL, LL, P, P, P]},
-    "window_perm.cu": {"sail_window_gather": [P, P, LL, P, I, P, P, P, P],
-                       "sail_window_inverse": [P, P, LL, P, P],
+    "window_perm.cu": {"sail_window_gather": [P, LL, P, I, P, P, P, I, P,
+                                              LL, P],
+                       "sail_window_inverse": [P, P, LL, P, I, P, LL, P],
                        "sail_window_unpermute": [P, LL, P, I, P, P, P]},
 }
 

@@ -13,22 +13,17 @@
 //   dense_rank = dense, percent_rank = len > 1 ? (rank - 1) / (len - 1)
 //   : 0, cume_dist = (peer_end - seg_start + 1) / len,
 //   ntile(t): the first len % t tiles hold len / t + 1 rows.
-// The outputs go to row order in one of two forms; out is [k, n] words,
-// output j at out + j * n, and a dead row (i >= n_live, a device scalar)
-// gets 0 in both:
-//   records: sail_window_ranks (perm null) writes one record of k words a
-//     live position, rec[i * k + j], and sail_window_ranks_unpermute takes
-//     the records to row order through the context's int32 inv_perm,
-//     out_j[r] = rec[inv[r] * k + j] (0 where inv[r] < 0: a dead row):
-//     one random record (one or two sectors) read a row, k writes in
-//     order;
-//   scatter: sail_window_ranks (perm given) writes out_j[perm[i]] at once:
-//     a random 8 B write a row and output, and no inverse permutation.
-// ops/window.py's rule takes the scatter for one output on a context that
-// has no inv_perm yet (building it costs more than the scatter saves) and
-// the records otherwise (PERF.md, section 6).
-// Bound: bytes, n * (4 B inv_perm or 8 B perm + the bounds read, 4 B each
-//   + 8 B an output), each read and written once.
+// The outputs go to row order as records: sail_window_ranks writes one
+// record of k words a live position i < n_live (a device scalar),
+// rec[i * k + j], and sail_window_ranks_unpermute takes the records to row
+// order through the context's int32 inv_perm, out_j[r] = rec[inv[r] * k +
+// j], 0 where inv[r] < 0 (a dead row): one random record (one or two
+// sectors) read a row, k writes in order; out is [k, n] words. (A form
+// that wrote one output through perm, a random 8 B write a row, lost to
+// the records with the inverse built at every context once the inverse
+// became a partitioned scatter: PERF.md, section 6.)
+// Bound: bytes, n * (4 B inv_perm + the bounds read, 4 B each + 8 B an
+//   output), each read and written once.
 
 #include "window.cuh"
 
@@ -49,11 +44,10 @@ __global__ void ranks_kernel(const long long* __restrict__ n_live_p,
                              const int* __restrict__ peer_start,
                              const int* __restrict__ peer_end,
                              const int* __restrict__ dense, long long n_tiles,
-                             Wanted w, const long long* __restrict__ perm,
+                             Wanted w,
                              unsigned long long* __restrict__ out) {
   const long long n_live = *n_live_p;
-  // records: the live positions only; the scatter writes every row
-  const long long end = perm != nullptr ? n : (n_live < n ? n_live : n);
+  const long long end = n_live < n ? n_live : n;  // the live positions
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        i < end; i += stride) {
@@ -94,16 +88,9 @@ __global__ void ranks_kernel(const long long* __restrict__ n_live_p,
         }
       }
     }
-    if (perm != nullptr) {
-      const long long row = perm[i];
 #pragma unroll
-      for (int j = 0; j < kMaxRanks; ++j)
-        if (j < w.k) out[j * n + row] = word[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < kMaxRanks; ++j)
-        if (j < w.k) out[i * w.k + j] = word[j];
-    }
+    for (int j = 0; j < kMaxRanks; ++j)
+      if (j < w.k) out[i * w.k + j] = word[j];
   }
 }
 
@@ -142,14 +129,14 @@ ranks_unpermute_kernel(const int* __restrict__ inv, long long n,
 }  // namespace
 
 // codes: k rank codes on the host (0 row_number, 1 rank, 2 dense_rank, 3
-// percent_rank, 4 cume_dist, 5 ntile). perm null: records into out (n x k
-// words, live positions only); else the scatter into out ([k, n] words).
+// percent_rank, 4 cume_dist, 5 ntile); records into out (n x k words,
+// live positions only).
 extern "C" int sail_window_ranks(const void* n_live, long long n,
                                  const void* seg_start, const void* seg_end,
                                  const void* peer_start, const void* peer_end,
                                  const void* dense, long long n_tiles,
-                                 const int* codes, int k, const void* perm,
-                                 void* out, int grid, void* stream) {
+                                 const int* codes, int k, void* out,
+                                 int grid, void* stream) {
   if (n <= 0) return 0;
   if (n_tiles < 1 || k < 1 || k > kMaxRanks) return (int)cudaErrorInvalidValue;
   Wanted w;
@@ -164,7 +151,6 @@ extern "C" int sail_window_ranks(const void* n_live, long long n,
       static_cast<const int*>(seg_start), static_cast<const int*>(seg_end),
       static_cast<const int*>(peer_start), static_cast<const int*>(peer_end),
       static_cast<const int*>(dense), n_tiles, w,
-      static_cast<const long long*>(perm),
       static_cast<unsigned long long*>(out));
   return (int)cudaGetLastError();
 }

@@ -431,7 +431,8 @@ class LocalExecutor:
         """One context (a sort and one K8 launch) per (partition, order)
         key; each context's rank functions in one K9 launch (one more
         per further ntile bucket count); the aggregates through K10 and
-        K11; lag, lead, nth_value, first and last by gathers."""
+        K11; lag, lead, nth_value, first and last in sorted order over
+        the values gathered once a column and context."""
         child = self.run(p.input)
         in_schema = p.input.schema
         cols = self._cols(child)

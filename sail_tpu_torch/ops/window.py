@@ -19,20 +19,20 @@ bounds:
   avg and the running extremes;
 - K11 (``window_extreme``): MIN/MAX, and float SUM/AVG, over ROWS
   frames whose two offsets are finite;
-- lag, lead, nth_value, first and last: one gather through the sort
-  permutation each.
+- lag, lead, nth_value, first and last: torch ops over the sorted
+  values (shifted slices, reads at the segment and frame bounds).
 
-K9, K10 and K11 work in sorted order. A value column and its validity
-are gathered into sorted order once per context (``window_gather``,
-cached by ``WindowContext.sorted_values``); the scans, frames, extremes
-and ranks read and write contiguous sorted arrays, and each output goes
-back to row order in one pass: a gather through the context's int32
-``inv_perm``, built once, as the reference's ``_unsort`` does
-(``window_unpermute`` for K10 and K11; K9's own for its records of one
-word an output). K9 writes a single output through the permutation
-instead on a context that has no ``inv_perm``, where building one costs
-more. The lag/lead/nth/first/last gathers write row order straight from
-the sorted position, ``out[perm[i]] = f(i)``. Every row is written: dead
+Every window function works in sorted order, as the reference's do. The
+context's int32 ``inv_perm`` is built once (``window_inverse``). A value
+column and its validity go into sorted order once per context
+(``window_gather``, a scatter from row order through ``inv_perm``,
+cached by ``WindowContext.sorted_values``); the scans, frames, extremes,
+ranks and lag/lead/nth/first/last read and write contiguous sorted
+arrays, and each output goes back to row order in one pass: a gather
+through ``inv_perm``, as the reference's ``_unsort`` does
+(``window_unpermute``; K9's own for its records of one word an output).
+The inverse and the gather are one engine on the card, a two-pass
+partitioned scatter (csrc/window_perm.cu). Every row is written: dead
 rows (``sel`` false; they sort last) get 0, invalid where the output has
 a validity.
 
@@ -77,7 +77,8 @@ class WindowContext:
     keys the context was built with."""
 
     def __init__(self, perm, n_live, seg_start, seg_end, peer_start,
-                 peer_end, dense, packed: bool = False):
+                 peer_end, dense, packed: bool = False,
+                 inv_perm: Optional[torch.Tensor] = None):
         self.perm = perm              # int64[n] sorted order, live rows first
         self.packed = packed          # sorted by one packed word (K8's input)
         self.n_live = n_live          # 0-d int64: the live rows (on device)
@@ -88,7 +89,7 @@ class WindowContext:
         self.dense = dense            # peer groups of its segment up to it
         self._counts: Dict[int, tuple] = {}  # id(validity) → (it, its scan)
         self._sorted: Dict[int, tuple] = {}  # id(column) → (it, sorted)
-        self._inv_perm: Optional[torch.Tensor] = None
+        self._inv_perm = inv_perm
 
     @property
     def alive(self) -> torch.Tensor:
@@ -121,13 +122,12 @@ class WindowContext:
         """(vals_s, valid_s): a value column and its validity (row order;
         either may be None) in sorted order, the form K10 and K11 read.
         Each tensor is gathered once per context (one ``window_gather``
-        for what is not cached yet) and kept, by identity, as long as the
-        context lives."""
+        through ``inv_perm`` for what is not cached yet) and kept, by
+        identity, as long as the context lives."""
         todo = [t if t is not None and self._cached(t) is None else None
                 for t in (vals, valid)]
         if todo[0] is not None or todo[1] is not None:
-            for t, s in zip(todo, window_gather(self.perm, self.n_live,
-                                                *todo)):
+            for t, s in zip(todo, window_gather(self.inv_perm, *todo)):
                 if t is not None:
                     self._sorted[id(t)] = (t, s)
         return self._cached(vals), self._cached(valid)
@@ -315,35 +315,47 @@ def window_pack(keys: Sequence[Key], sel: torch.Tensor,
 window_pack.launches = 0
 
 
+class SortedKeys(NamedTuple):
+    """The window's sort (``sort_window_keys``): perm, K8's words in sorted
+    order, whether the keys were packed, and the inverse permutation where
+    the sort built one (the general path), else None."""
+    perm: torch.Tensor
+    words: List[Word]
+    packed: bool
+    inv_perm: Optional[torch.Tensor]
+
+
 def sort_window_keys(keys: Sequence[Key], n_part: int, sel: torch.Tensor,
                      n_live: torch.Tensor, packed: Optional[bool] = None
-                     ) -> Tuple[torch.Tensor, List[Word], bool]:
-    """The window's sort and K8's inputs in sorted order: (perm, words,
-    whether the keys were packed). ``keys`` as for ``pack_layout``.
+                     ) -> SortedKeys:
+    """The window's sort and K8's inputs in sorted order. ``keys`` as for
+    ``pack_layout``.
 
     Where they fit in one word (``pack_layout``; ``packed`` True insists,
     False refuses): the pack pass and one stable ``torch.sort`` of the
     word, whose indices are perm and whose values are K8's one word, with
     the mask of the dead bit and the partition fields. Otherwise
-    ``lexsort_keys`` (one stable pass a key, a validity and the dead rows)
-    and each key with its validity gathered into sorted order once
-    (``window_gather``), masked all ones (a partition key) or 0. Both give
-    one perm: rows by (dead, each key's null rank and bits), ties in row
-    order."""
+    ``lexsort_keys`` (one stable pass a key, a validity and the dead rows),
+    the inverse permutation (``window_inverse``), and each key with its
+    validity gathered into sorted order once through it (``window_gather``),
+    masked all ones (a partition key) or 0. Both give one perm: rows by
+    (dead, each key's null rank and bits), ties in row order."""
     layout = None if packed is False else pack_layout(keys, n_part)
     if packed and layout is None:
         raise ValueError("sort_window_keys: the keys do not fit in one word")
     if layout is not None:
         srt = torch.sort(window_pack(keys, sel, layout), stable=True)
-        return srt.indices, [(srt.values, layout.part_mask, None)], True
+        return SortedKeys(srt.indices, [(srt.values, layout.part_mask, None)],
+                          True, None)
     if not keys:
         raise ValueError("sort_window_keys: no keys to gather")
     perm = lexsort_keys(keys, sel)
+    inv = window_inverse(perm, n_live)
     words = []
     for j, (key, valid, _) in enumerate(keys):
-        key_s, valid_s = window_gather(perm, n_live, key, valid)
+        key_s, valid_s = window_gather(inv, key, valid)
         words.append((key_s, -1 if j < n_part else 0, valid_s))
-    return perm, words, False
+    return SortedKeys(perm, words, False, inv)
 
 
 def window_bounds_plain(n_live: torch.Tensor, words: Sequence[Word]
@@ -461,10 +473,9 @@ def build_window_context(partition_cols: Sequence[Column],
     bits = [(order_keys(d, asc), v, asc if nf is None else nf)
             for d, v, asc, nf in keys]
     n_live = sel.sum()
-    perm, words, packed = sort_window_keys(bits, len(partition_cols), sel,
-                                           n_live)
-    return WindowContext(perm, n_live, *window_bounds(n_live, words),
-                         packed=packed)
+    srt = sort_window_keys(bits, len(partition_cols), sel, n_live)
+    return WindowContext(srt.perm, n_live, *window_bounds(n_live, srt.words),
+                         packed=srt.packed, inv_perm=srt.inv_perm)
 
 
 # ---------------------------------------------------------------------------
@@ -473,10 +484,6 @@ def build_window_context(partition_cols: Sequence[Column],
 
 _RANK_CODES = {name: code for code, name in enumerate(_RANKS)}
 _FLOAT_RANKS = ("percent_rank", "cume_dist")
-# K9's rule (PERF.md, section 6: both forms at 60M rows): the scatter for
-# at most this many outputs on a context without an inv_perm, where
-# building one costs more than the scatter saves; the records otherwise
-RANKS_SCATTER_MAX = 1
 
 
 def _rank_values(ctx: WindowContext, wanted: Sequence[str], n_tiles: int
@@ -518,17 +525,15 @@ def _rank_values(ctx: WindowContext, wanted: Sequence[str], n_tiles: int
 
 
 def window_ranks_plain(ctx: WindowContext, wanted: Sequence[str],
-                       n_tiles: int = 1, form: str = "scatter"
-                       ) -> Dict[str, torch.Tensor]:
+                       n_tiles: int = 1) -> Dict[str, torch.Tensor]:
     """The rank functions in ``wanted`` (int64, or float64 for
     percent_rank and cume_dist), in row order; 0 at dead rows. Each is
-    computed at the sorted positions, then goes to row order in K9's
-    ``form``: "scatter", out[perm[i]]; "records", a record of one int64
-    word an output (a float as its bits) a position, gathered through
-    ``ctx.inv_perm``."""
+    computed at the sorted positions, then goes to row order as K9's
+    records: one int64 word an output (a float as its bits) a position,
+    gathered through ``ctx.inv_perm``."""
     vals = _rank_values(ctx, wanted, n_tiles)
-    if form == "scatter" or not vals:
-        return {w: _scatter(ctx.perm, v) for w, v in zip(wanted, vals)}
+    if not vals:
+        return {}
     recs = torch.stack([v.view(torch.int64) for v in vals], 1)
     inv = ctx.inv_perm.to(torch.int64)
     rows = torch.where((inv >= 0)[:, None], recs[torch.clamp(inv, min=0)], 0)
@@ -537,56 +542,43 @@ def window_ranks_plain(ctx: WindowContext, wanted: Sequence[str],
 
 
 def window_ranks(ctx: WindowContext, wanted: Sequence[str],
-                 n_tiles: int = 1, form: Optional[str] = None
-                 ) -> Dict[str, torch.Tensor]:
+                 n_tiles: int = 1) -> Dict[str, torch.Tensor]:
     """K9: ``window_ranks_plain`` as one kernel launch for every function
-    in ``wanted``, computed at the sorted positions, and their way to row
-    order: "records", one record of an 8 B word an output a position and
-    one unpermute pass through ``ctx.inv_perm`` (built here where the
-    context has none yet), or "scatter", each output written through
-    ``perm`` by the kernel itself. ``form`` None takes the rule: the
-    scatter for at most ``RANKS_SCATTER_MAX`` outputs on a context
-    without an ``inv_perm``, the records otherwise.
+    in ``wanted``, computed at the sorted positions into one record of an
+    8 B word an output a position, and one unpermute pass through
+    ``ctx.inv_perm`` (built here where the context has none yet).
 
     Replaces ``sail_tpu/ops/window.py`` ``row_number`` (:108), ``rank``
     (:112), ``dense_rank`` (:117), ``percent_rank`` (:137), ``cume_dist``
     (:144) and ``ntile`` (:156); csrc/window_ranks.cu states its bound.
-    A CPU tensor takes the plain version in the same form; a CUDA tensor
-    launches the kernels or raises."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernels or raises."""
     bad = [w for w in wanted if w not in _RANKS]
-    if bad or n_tiles < 1 or form not in (None, "scatter", "records"):
-        raise ValueError(f"window_ranks: unknown {bad}, n_tiles {n_tiles} "
-                         f"or form {form!r}")
-    if form is None:
-        form = "scatter" if len(wanted) <= RANKS_SCATTER_MAX and \
-            ctx._inv_perm is None else "records"
+    if bad or n_tiles < 1:
+        raise ValueError(f"window_ranks: unknown {bad} or n_tiles "
+                         f"{n_tiles}")
     perm = ctx.perm
     if perm.device.type == "cpu":
-        return window_ranks_plain(ctx, wanted, n_tiles, form)
+        return window_ranks_plain(ctx, wanted, n_tiles)
     n, dev = perm.shape[0], perm.device
     n_live = _check_n_live("window_ranks", ctx.n_live, dev)
     k = len(wanted)
     out = torch.empty((k, n), dtype=torch.int64, device=dev)
     if n and k:
-        records = form == "records"
-        rec = torch.empty((n, k), dtype=torch.int64, device=dev) \
-            if records else out
-        inv = ctx.inv_perm if records else None
+        rec = torch.empty((n, k), dtype=torch.int64, device=dev)
+        inv = ctx.inv_perm
         codes = (ctypes.c_int * k)(*[_RANK_CODES[w] for w in wanted])
         with torch.cuda.device(dev):
             csrc.check(csrc.entry("window_ranks.cu", "sail_window_ranks")(
                 n_live.data_ptr(), n, ctx.seg_start.data_ptr(),
                 ctx.seg_end.data_ptr(), ctx.peer_start.data_ptr(),
                 ctx.peer_end.data_ptr(), ctx.dense.data_ptr(), n_tiles,
-                ctypes.addressof(codes), k,
-                None if records else perm.contiguous().data_ptr(),
-                rec.data_ptr(), csrc.grid_for(n, dev), csrc.stream_ptr(dev)),
-                "window_ranks")
-            if records:
-                csrc.check(csrc.entry("window_ranks.cu",
-                                      "sail_window_ranks_unpermute")(
-                    inv.data_ptr(), n, rec.data_ptr(), k, out.data_ptr(),
-                    csrc.stream_ptr(dev)), "window_ranks")
+                ctypes.addressof(codes), k, rec.data_ptr(),
+                csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "window_ranks")
+            csrc.check(csrc.entry("window_ranks.cu",
+                                  "sail_window_ranks_unpermute")(
+                inv.data_ptr(), n, rec.data_ptr(), k, out.data_ptr(),
+                csrc.stream_ptr(dev)), "window_ranks")
         window_ranks.launches += 1
     return {w: out[j].view(torch.float64) if w in _FLOAT_RANKS else out[j]
             for j, w in enumerate(wanted)}
@@ -627,97 +619,39 @@ def ntile(ctx: WindowContext, n_tiles: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# gathers: lag/lead, nth_value (torch, one gather through perm each)
+# between row order and sorted order: the inverse, the gather, the unpermute
 # ---------------------------------------------------------------------------
 
-def _gather_sorted(ctx: WindowContext, value: Column, src: torch.Tensor,
-                   ok: torch.Tensor):
-    """(data, validity) of value at sorted positions ``src`` where ``ok``,
-    written in row order; 0 and invalid elsewhere (dead rows too)."""
-    n = src.shape[0]
-    rows = ctx.perm[torch.clamp(src, 0, max(n - 1, 0))]
-    ok = ok & ctx.alive
-    data = torch.where(ok, value.data[rows], torch.zeros_like(value.data[:1]))
-    if value.validity is not None:
-        ok = ok & value.validity[rows]
-    return _scatter(ctx.perm, data), _scatter(ctx.perm, ok)
+# a placing block's tile in shared memory, the inverse's and the gather's
+# (their values and validity a position); csrc/window_perm.cu:
+# kMaxTileBytes is the most a wrapper may ask. A bucket holds
+# MOVE_CLUSTER tiles (kCluster).
+MOVE_TILE_BYTES = 160 * 1024
+MOVE_TILE_MAX = 200 * 1024
+MOVE_CLUSTER = 8
+# window_perm.cu: a tile holds 2^4 to 2^24 positions
+_MOVE_BITS = (4, 24)
 
 
-def shift(ctx: WindowContext, value: Column, offset: int, default=None):
-    """lag (offset > 0 looks back) / lead (negative looks forward)."""
-    idx = _positions(ctx.perm)
-    src = idx - offset
-    in_seg = (src >= ctx.seg_start) & (src <= ctx.seg_end)
-    data, validity = _gather_sorted(ctx, value, src, in_seg)
-    if default is not None:
-        outside = _scatter(ctx.perm, ~in_seg & ctx.alive)
-        data = torch.where(outside, torch.full_like(data, default), data)
-        validity = validity | outside
-    return data, validity
-
-
-def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None):
-    """nth_value: the value at the n-th row of the frame (frame start =
-    partition start; the default RANGE frame ends at the current row's
-    LAST PEER, so pass peer_end from peer_group_end)."""
-    ss = ctx.seg_start.to(torch.int64)
-    src = ss + (n_th - 1)
-    end = _positions(ss) if peer_end is None else peer_end.to(torch.int64)
-    ok = (end - ss >= n_th - 1) & (src <= ctx.seg_end)
-    return _gather_sorted(ctx, value, src, ok)
-
-
-# ---------------------------------------------------------------------------
-# between row order and sorted order: the gather and the unpermute
-# ---------------------------------------------------------------------------
-
-def window_gather_plain(perm: torch.Tensor, n_live: torch.Tensor,
-                        vals: Optional[torch.Tensor],
-                        valid: Optional[torch.Tensor]):
-    """(vals[perm], valid[perm]) over the live positions (below n_live),
-    0 and false at the dead ones; None where not given."""
-    live = _positions(perm) < n_live
-    return tuple(None if t is None else torch.where(
-        live, t[perm], torch.zeros((), dtype=t.dtype, device=t.device))
-        for t in (vals, valid))
-
-
-def window_gather(perm: torch.Tensor, n_live: torch.Tensor,
-                  vals: Optional[torch.Tensor],
-                  valid: Optional[torch.Tensor]):
-    """``window_gather_plain`` as one kernel pass that reads perm once for
-    both columns.
-
-    Replaces ``sail_tpu/ops/window.py`` ``framed_agg``'s value gathers
-    (:219-220); csrc/window_perm.cu states its bound. Values of 1, 2, 4
-    or 8 bytes. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
-    if perm.device.type == "cpu":
-        return window_gather_plain(perm, n_live, vals, valid)
-    n, dev = perm.shape[0], perm.device
-    if perm.dtype != torch.int64 or (vals is not None and vals.element_size()
-                                     not in (1, 2, 4, 8)) \
-            or (valid is not None and valid.dtype != torch.bool):
-        raise TypeError("window_gather: an int64 perm, values of 1, 2, 4 or "
-                        "8 bytes and a bool validity")
-    n_live = _check_n_live("window_gather", n_live, dev)
-    _check_rows("window_gather", n, dev, perm=perm, vals=vals, valid=valid)
-    perm, vals, valid = (_contiguous(t) for t in (perm, vals, valid))
-    vals_s = None if vals is None else torch.empty_like(vals)
-    valid_s = None if valid is None else torch.empty_like(valid)
-    if n == 0 or (vals is None and valid is None):
-        return vals_s, valid_s
-    with torch.cuda.device(dev):
-        csrc.check(csrc.entry("window_perm.cu", "sail_window_gather")(
-            perm.data_ptr(), n_live.data_ptr(), n, _ptr(vals),
-            0 if vals is None else vals.element_size(), _ptr(valid),
-            _ptr(vals_s), _ptr(valid_s), csrc.stream_ptr(dev)),
-            "window_gather")
-    window_gather.launches += 1
-    return vals_s, valid_s
-
-
-window_gather.launches = 0
+def _move_scratch(n: int, row_bytes: int, entry_bytes: int,
+                  tile_bytes: int, dev) -> Tuple[int, torch.Tensor]:
+    """(bits, scratch) of one partitioned scatter over n positions: a
+    placing block's tile holds 2^bits of them, the most that fit in
+    ``tile_bytes`` at ``row_bytes`` a position (the value and the
+    validity), and a bucket MOVE_CLUSTER tiles; the scratch holds a cursor
+    a bucket (padded to 256 B), then each bucket's run of staging records
+    of ``entry_bytes``."""
+    if not 16 <= tile_bytes <= MOVE_TILE_MAX:
+        raise ValueError(f"a move's tile takes 16 to {MOVE_TILE_MAX} "
+                         f"bytes, got {tile_bytes}")
+    bits = min(max((tile_bytes // row_bytes).bit_length() - 1,
+                   _MOVE_BITS[0]), _MOVE_BITS[1])
+    bucket = MOVE_CLUSTER << bits
+    buckets = -(-n // bucket)
+    scratch = torch.empty(-(-4 * buckets // 256) * 256
+                          + buckets * bucket * entry_bytes,
+                          dtype=torch.uint8, device=dev)
+    return bits, scratch
 
 
 def window_inverse_plain(perm: torch.Tensor, n_live: torch.Tensor
@@ -730,13 +664,17 @@ def window_inverse_plain(perm: torch.Tensor, n_live: torch.Tensor
     return inv
 
 
-def window_inverse(perm: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
-    """``window_inverse_plain`` as a kernel: a memset, then one write a
-    live row.
+def window_inverse(perm: torch.Tensor, n_live: torch.Tensor,
+                   tile_bytes: int = MOVE_TILE_BYTES) -> torch.Tensor:
+    """``window_inverse_plain`` as a two-pass partitioned scatter: the
+    live positions binned by destination into buckets of consecutive
+    rows, then each bucket placed in the shared memory of a cluster of
+    blocks, a tile each, and stored in order.
 
     Replaces ``sail_tpu/ops/window.py`` ``build_window_context``'s
-    ``inv_perm`` (:78); csrc/window_perm.cu states its bound. A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel or
+    ``inv_perm`` (:78); csrc/window_perm.cu states its bound and design.
+    ``tile_bytes``: a placing block's tile (4 B a row). A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernels or
     raises."""
     n, dev = perm.shape[0], perm.device
     if n > torch.iinfo(torch.int32).max:
@@ -750,15 +688,76 @@ def window_inverse(perm: torch.Tensor, n_live: torch.Tensor) -> torch.Tensor:
     inv = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return inv
+    bits, scratch = _move_scratch(n, 4, 8, tile_bytes, dev)
     with torch.cuda.device(dev):
         csrc.check(csrc.entry("window_perm.cu", "sail_window_inverse")(
-            perm.data_ptr(), n_live.data_ptr(), n, inv.data_ptr(),
-            csrc.stream_ptr(dev)), "window_inverse")
+            perm.data_ptr(), n_live.data_ptr(), n, inv.data_ptr(), bits,
+            scratch.data_ptr(), scratch.numel(), csrc.stream_ptr(dev)),
+            "window_inverse")
     window_inverse.launches += 1
     return inv
 
 
 window_inverse.launches = 0
+
+
+def window_gather_plain(inv: torch.Tensor, vals: Optional[torch.Tensor],
+                        valid: Optional[torch.Tensor]):
+    """(vals_s, valid_s) in sorted order: vals_s[inv[r]] = vals[r] for the
+    live rows r (inv[r] >= 0), 0 and false at the other positions; None
+    where not given. With inv the context's ``inv_perm``, vals_s[i] =
+    vals[perm[i]] at the live positions."""
+    n = inv.shape[0]
+    dest = torch.where(inv >= 0, inv.to(torch.int64), n)  # n: a dead row
+
+    def scatter(t):
+        out = torch.zeros(n + 1, dtype=t.dtype, device=t.device)
+        out[dest] = t
+        return out[:n]
+    return tuple(None if t is None else scatter(t) for t in (vals, valid))
+
+
+def window_gather(inv: torch.Tensor, vals: Optional[torch.Tensor],
+                  valid: Optional[torch.Tensor],
+                  tile_bytes: int = MOVE_TILE_BYTES):
+    """``window_gather_plain`` on the inverse's engine, a two-pass
+    partitioned scatter that reads the rows in order, value and validity
+    moved together.
+
+    Replaces ``sail_tpu/ops/window.py`` ``framed_agg``'s value gathers
+    (:219-220) and those of ``shift``, ``nth`` and first/last (:169-204,
+    :280-288); csrc/window_perm.cu states its bound. Values of 1, 2, 4 or
+    8 bytes; ``tile_bytes``: a placing block's tile (value and validity a
+    position). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernels or raises."""
+    if inv.device.type == "cpu":
+        return window_gather_plain(inv, vals, valid)
+    n, dev = inv.shape[0], inv.device
+    if inv.dtype != torch.int32 or (vals is not None and vals.element_size()
+                                    not in (1, 2, 4, 8)) \
+            or (valid is not None and valid.dtype != torch.bool):
+        raise TypeError("window_gather: an int32 inv_perm, values of 1, 2, "
+                        "4 or 8 bytes and a bool validity")
+    _check_rows("window_gather", n, dev, inv=inv, vals=vals, valid=valid)
+    inv, vals, valid = (_contiguous(t) for t in (inv, vals, valid))
+    vals_s = None if vals is None else torch.empty_like(vals)
+    valid_s = None if valid is None else torch.empty_like(valid)
+    if n == 0 or (vals is None and valid is None):
+        return vals_s, valid_s
+    width = 0 if vals is None else vals.element_size()
+    bits, scratch = _move_scratch(n, width + (valid is not None),
+                                  16 if width == 8 else 8, tile_bytes, dev)
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_perm.cu", "sail_window_gather")(
+            inv.data_ptr(), n, _ptr(vals), width, _ptr(valid),
+            _ptr(vals_s), _ptr(valid_s), bits, scratch.data_ptr(),
+            scratch.numel(), csrc.stream_ptr(dev)), "window_gather")
+    window_gather.launches += 1
+    return vals_s, valid_s
+
+
+window_gather.launches = 0
+
 
 # a record's words read as integers (its ok word is 0 or 1)
 _WORDS = {4: torch.int32, 8: torch.int64}
@@ -817,6 +816,89 @@ def window_unpermute(ctx: WindowContext, src: torch.Tensor):
 
 
 window_unpermute.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lag/lead, nth_value, first and last: in sorted order, then one unpermute
+# ---------------------------------------------------------------------------
+
+def _record_values(vals: torch.Tensor) -> torch.Tensor:
+    """Values a record holds (4 or 8 bytes): narrower ones widen (int32,
+    or float32); the caller casts the result back."""
+    if vals.element_size() >= 4:
+        return vals
+    return vals.to(torch.float32 if vals.is_floating_point() else torch.int32)
+
+
+def _shifted(t: torch.Tensor, offset: int, fill) -> torch.Tensor:
+    """s[i] = t[i - offset] where 0 <= i - offset < n, else ``fill``."""
+    n = t.shape[0]
+    k = min(abs(offset), n)
+    pad = t.new_full((k,), fill)
+    return torch.cat((pad, t[:n - k]) if offset >= 0 else (t[k:], pad))
+
+
+def _at(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """t[src], src clamped into t (sorted positions)."""
+    return t[torch.clamp(src, 0, max(t.shape[0] - 1, 0))]
+
+
+def _to_rows(ctx: WindowContext, dtype: torch.dtype, data: torch.Tensor,
+             ok: torch.Tensor):
+    """(data, validity) in row order, of ``dtype``, from sorted-order
+    ``data`` and ``ok``: one ``window_unpermute`` of their records; a dead
+    row gets 0 and invalid."""
+    out, valid = window_unpermute(ctx, pack_records(data, ok))
+    return out.to(dtype), valid
+
+
+def shift(ctx: WindowContext, value: Column, offset: int, default=None):
+    """lag (offset > 0 looks back) / lead (negative looks forward): in
+    sorted order, the value ``offset`` positions back where that position
+    is in the row's segment (its segment start is the row's), else the
+    default (valid) or 0 and invalid; then to row order.
+
+    Replaces ``sail_tpu/ops/window.py`` ``shift`` (:169), in its shape:
+    the value gathered into sorted order once per context
+    (``ctx.sorted_values``), shifted slices there, one unpermute."""
+    vals, valid = ctx.sorted_values(value.data, value.validity)
+    vals = _record_values(vals)
+    in_seg = _shifted(ctx.seg_start, offset, -1) == ctx.seg_start
+    fill = vals.new_full((), 0 if default is None else default)
+    data = torch.where(in_seg, _shifted(vals, offset, 0), fill)
+    if valid is not None:
+        ok = _shifted(valid, offset, False)
+        ok = ok & in_seg if default is None else ok | ~in_seg
+    else:
+        ok = in_seg if default is None else torch.ones_like(in_seg)
+    return _to_rows(ctx, value.data.dtype, data, ok)
+
+
+def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None):
+    """nth_value: the value at the n-th row of the frame (frame start =
+    partition start; the default RANGE frame ends at the current row's
+    LAST PEER, so pass peer_end from peer_group_end). In sorted order,
+    read at seg_start + n - 1, then to row order.
+
+    Replaces ``sail_tpu/ops/window.py`` ``nth`` (:188), in its shape."""
+    vals, valid = ctx.sorted_values(value.data, value.validity)
+    ss = ctx.seg_start.to(torch.int64)
+    src = ss + (n_th - 1)
+    end = _positions(ss) if peer_end is None else peer_end.to(torch.int64)
+    ok = (end - ss >= n_th - 1) & (src <= ctx.seg_end)
+    return _read_sorted(ctx, value, vals, valid, src, ok)
+
+
+def _read_sorted(ctx: WindowContext, value: Column, vals: torch.Tensor,
+                 valid: Optional[torch.Tensor], src: torch.Tensor,
+                 ok: torch.Tensor):
+    """(data, validity) in row order of the sorted values read at sorted
+    positions ``src`` where ``ok``; 0 and invalid elsewhere."""
+    vals = _record_values(vals)
+    data = torch.where(ok, _at(vals, src), 0)
+    if valid is not None:
+        ok = ok & _at(valid, src)
+    return _to_rows(ctx, value.data.dtype, data, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -1233,15 +1315,17 @@ def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
     its frame evaluation of its scans, forward where the frame starts at
     the segment start, backward where it ends at the segment end (a float
     sum then subtracts nothing, so no NaN or infinity from outside the
-    frame reaches it). count: K10's count scan; first and last: one
-    gather. The values and their validity go into sorted order once per
-    context (``ctx.sorted_values``): MIN and MAX of one column share
-    them."""
+    frame reaches it). count: K10's count scan; first and last: the
+    sorted values read at the frame's first or last position. The values
+    and their validity go into sorted order once per context
+    (``ctx.sorted_values``): MIN and MAX of one column, and every
+    lag/lead/nth/first/last over it, share them."""
     valid = None if value is None else value.validity
     if fn in ("first", "last"):
         lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
-        return _gather_sorted(ctx, value, lo if fn == "first" else hi,
-                              hi >= lo)
+        vals, valid = ctx.sorted_values(value.data, valid)
+        return _read_sorted(ctx, value, vals, valid,
+                            lo if fn == "first" else hi, hi >= lo)
     if fn == "count":
         return window_frame(ctx, None, ctx.count_scan(valid), "count", lower,
                             upper, peer_end)

@@ -325,8 +325,8 @@ def test_bounds_and_ranks_kernels_match_plain(cuda, n, n_live, segments):
     """K8 from both key sources (the packed word, where the keys fit; each
     key gathered into sorted order) against its plain version and the
     through-perm oracle, the pack pass against its plain version, and K9
-    in both forms (records through inv_perm, the scatter through perm) at
-    one and six outputs against its plain version."""
+    (records through inv_perm) at one and six outputs against its plain
+    version."""
     ctx, parts, order, _ = _card_context(cuda, n, n_live, segments)
     from sail_tpu_torch.ops.sort import order_keys
     keys = [(order_keys(c.data), c.validity, True) for c in parts] + \
@@ -343,9 +343,11 @@ def test_bounds_and_ranks_kernels_match_plain(cuda, n, n_live, segments):
         assert torch.equal(twin.window_pack(keys, sel, layout),
                            twin.window_pack_plain(keys, sel, layout))
     for packed in [False] + ([True] if layout is not None else []):
-        perm, words, was_packed = twin.sort_window_keys(keys, n_part, sel,
-                                                        ctx.n_live, packed)
+        perm, words, was_packed, inv = twin.sort_window_keys(
+            keys, n_part, sel, ctx.n_live, packed)
         assert was_packed == packed and torch.equal(perm, ctx.perm)
+        assert packed or torch.equal(inv, twin.window_inverse_plain(
+            perm, ctx.n_live))
         before = twin.window_bounds.launches
         got = twin.window_bounds(ctx.n_live, words)
         assert twin.window_bounds.launches == before + 1
@@ -355,14 +357,13 @@ def test_bounds_and_ranks_kernels_match_plain(cuda, n, n_live, segments):
     for g, o in zip((ctx.seg_start, ctx.seg_end, ctx.peer_start,
                      ctx.peer_end, ctx.dense), oracle):
         assert torch.equal(g, o)
-    for form in ("records", "scatter"):
-        for wanted in (twin._RANKS, ("ntile",)):
-            before = twin.window_ranks.launches
-            ranks = twin.window_ranks(ctx, wanted, 7, form=form)
-            assert twin.window_ranks.launches == before + 1
-            plain = twin.window_ranks_plain(ctx, wanted, 7, form=form)
-            for name in wanted:
-                assert torch.equal(ranks[name], plain[name]), (form, name)
+    for wanted in (twin._RANKS, ("ntile",)):
+        before = twin.window_ranks.launches
+        ranks = twin.window_ranks(ctx, wanted, 7)
+        assert twin.window_ranks.launches == before + 1
+        plain = twin.window_ranks_plain(ctx, wanted, 7)
+        for name in wanted:
+            assert torch.equal(ranks[name], plain[name]), name
 
 
 def _card_values(cuda, rng, n, dtype, with_validity):
@@ -392,10 +393,9 @@ def test_scan_and_frame_kernels_match_plain(cuda, n, n_live, segments, dtype,
     vals_s, valid_s = ctx.sorted_values(vals, valid)
     finite_s, _ = ctx.sorted_values(finite, None)
     for got, want in zip((vals_s, valid_s, finite_s),
-                         twin.window_gather_plain(ctx.perm, ctx.n_live, vals,
-                                                  valid)
-                         + twin.window_gather_plain(ctx.perm, ctx.n_live,
-                                                    finite, None)[:1]):
+                         twin.window_gather_plain(ctx.inv_perm, vals, valid)
+                         + twin.window_gather_plain(ctx.inv_perm, finite,
+                                                    None)[:1]):
         assert (got is None) == (want is None)
         assert got is None or identical(got, want)
     counts = twin.window_scan(ctx, None, valid_s, "count") \

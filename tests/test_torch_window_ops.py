@@ -203,6 +203,103 @@ def test_shift_and_nth_match_reference(case):
                      jwin.nth(jctx, jcol, n_th, peer))
 
 
+# -- lag/lead, nth_value, first and last in sorted order -------------------
+
+_DEC = (jdt.DecimalType(15, 2), tdt.DecimalType(15, 2))
+
+
+def _value_column(data, valid, spec):
+    return (JColumn(jnp.asarray(data), None if valid is None else
+                    jnp.asarray(valid), spec[0]),
+            TColumn(torch.from_numpy(data), None if valid is None else
+                    torch.from_numpy(valid), spec[1]))
+
+
+def _dead_rows_empty(sel, got) -> None:
+    """A dead row gets 0 and invalid."""
+    data, valid = got
+    assert not data.numpy()[~sel].any() and not valid.numpy()[~sel].any()
+
+
+# (offsets, default, value column); a decimal holds its unscaled int64 and
+# takes a default already scaled (1.50 -> 150), as the executor gives it
+_SHIFT_EDGES = {
+    "past_segment_back": ((5, 40, 299, 300, 10**12), None, "i64"),
+    "past_segment_forward": ((-5, -40, -299, -300, -10**12), -7, "i64"),
+    "decimal_default": ((1, 3, -2), 150, "dec"),
+    "nullable_default": ((1, -1, 2, -4), -7, "nullable"),
+    "no_default_float": ((1, -2), None, "f64"),
+    "zero_offset": ((0,), -7, "nullable"),
+}
+
+
+@pytest.mark.parametrize("case", list(_SHIFT_EDGES))
+def test_shift_edges_match_reference(case):
+    """lag/lead past the segment at both ends (and past every row), with
+    and without a default, over a decimal, a nullable and a float column:
+    the reference's answers on live rows, 0 and invalid on dead ones."""
+    part, order, sel, vals = _inputs("general")
+    jctx, tctx, _ = _both_contexts(part, order, sel)
+    offsets, default, name = _SHIFT_EDGES[case]
+    if name == "dec":
+        jcol, tcol = _value_column(vals["i64"][0] * 25, vals["i64"][1], _DEC)
+    elif name == "nullable":
+        jcol, tcol = _column_pair(vals, "i64")
+        assert tcol.validity is not None and not tcol.validity.all()
+    else:
+        jcol, tcol = _column_pair(vals, name)
+    for offset in offsets:
+        got = twin.shift(tctx, tcol, offset, default)
+        _same_result(sel, got, jwin.shift(jctx, jcol, offset, default))
+        _dead_rows_empty(sel, got)
+        assert got[0].dtype == tcol.data.dtype
+
+
+@pytest.mark.parametrize("case", ["all_dead", "no_rows"])
+def test_shift_nth_first_last_without_live_rows(case):
+    """Every row dead (n_live = 0), and n = 0: lag/lead (with a default),
+    nth_value, first and last give 0 and invalid everywhere."""
+    part, order, sel, vals = _inputs("empty" if case == "no_rows"
+                                     else "general")
+    sel = np.zeros_like(sel)
+    torder = [(torch.from_numpy(d), None if v is None else torch.from_numpy(v),
+               _SPEC[t][1], a, nf) for d, v, t, a, nf in order]
+    tparts = [TColumn(torch.from_numpy(d), None if v is None else
+                      torch.from_numpy(v), _SPEC[t][1]) for d, v, t in part]
+    ctx = twin.build_window_context(tparts, torder, torch.from_numpy(sel))
+    _, tcol = _column_pair(vals, "i64")
+    outs = [twin.shift(ctx, tcol, 1, -1), twin.shift(ctx, tcol, -2),
+            twin.nth(ctx, tcol, 1), twin.nth(ctx, tcol, 2, ctx.peer_end)]
+    outs += [twin.framed_agg(ctx, tcol, fn, lower, upper)
+             for fn in ("first", "last")
+             for lower, upper in ((None, 0), (-2, 3), (None, None))]
+    for data, valid in outs:
+        assert data.shape == valid.shape == sel.shape
+        assert not data.any() and not valid.any()
+
+
+def test_outputs_over_one_column_share_one_gather(monkeypatch):
+    """lag, lead, nth_value, first and last over one column (W4's shape:
+    two outputs over l_quantity) move it into sorted order once, and each
+    matches the reference."""
+    part, order, sel, vals = _inputs("general")
+    jctx, tctx, okbits = _both_contexts(part, order, sel)
+    calls = _counting_gathers(monkeypatch)
+    jcol, tcol = _column_pair(vals, "i64")
+    peer = jwin.peer_group_end(jctx, okbits)
+    pairs = [(twin.shift(tctx, tcol, 1, -7), jwin.shift(jctx, jcol, 1, -7)),
+             (twin.shift(tctx, tcol, -2), jwin.shift(jctx, jcol, -2)),
+             (twin.nth(tctx, tcol, 2, tctx.peer_end),
+              jwin.nth(jctx, jcol, 2, peer))]
+    for fn in ("first", "last"):
+        pairs.append((twin.framed_agg(tctx, tcol, fn, -2, 1),
+                      jwin.framed_agg(jctx, jcol, fn, -2, 1)))
+    for got, want in pairs:
+        _same_result(sel, got, want)
+        _dead_rows_empty(sel, got)
+    assert calls == [(tcol.data, tcol.validity)]
+
+
 _FRAMES = [(-3, 2), (None, 0), (None, None), (0, None), (-2, None),
            (None, 3), (2, 5), (-1, -1), ("range", None, 0)]
 
@@ -331,9 +428,9 @@ def _counting_gathers(monkeypatch) -> list:
     calls = []
     plain = twin.window_gather
 
-    def counted(perm, n_live, vals, valid):
+    def counted(inv, vals, valid):
         calls.append((vals, valid))
-        return plain(perm, n_live, vals, valid)
+        return plain(inv, vals, valid)
 
     monkeypatch.setattr(twin, "window_gather", counted)
     return calls
@@ -552,12 +649,61 @@ def cuda():
     return torch.device("cuda")
 
 
+# the moves' shapes: (n, tile bytes); a bucket holds MOVE_CLUSTER tiles.
+# The default tile (the inverse's 2^15 rows, its bucket 2^18): 5,000 rows
+# are a single part bucket and the first tile of it, 100,000 three whole
+# tiles and a part, 262,144 one whole bucket. A 64 B tile holds 16 rows:
+# 300,001 rows make 2,344 buckets (two binning sweeps), 600,000 make 4,688
+# (three).
+_MOVE_SHAPES = [(100_000, twin.MOVE_TILE_BYTES), (5_000, twin.MOVE_TILE_BYTES),
+                (262_144, twin.MOVE_TILE_BYTES), (300_001, 64), (600_000, 64),
+                (300_001, 4096)]
+_MOVE_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
+                torch.float64)
+
+
+def _check_moves(cuda, rng, order: str) -> None:
+    """The inverse and the gather, torch.equal to their plain versions, at
+    each of _MOVE_SHAPES and n_live of 0, 0.1%, 95% and all of n, perm
+    ``order`` (random, identity or reversed), every value width with and
+    without a validity, and a validity alone."""
+    for n, tile in _MOVE_SHAPES:
+        perm = {"random": torch.from_numpy(rng.permutation(n)),
+                "identity": torch.arange(n),
+                "reversed": torch.arange(n - 1, -1, -1)}[order].to(cuda)
+        valid = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+        for n_live in (0, n // 1000, n * 95 // 100, n):
+            live = torch.tensor(n_live, dtype=torch.int64, device=cuda)
+            inv = twin.window_inverse(perm, live, tile)
+            assert torch.equal(inv, twin.window_inverse_plain(perm, live)), \
+                (n, tile, n_live)
+            cases = [(None, valid)]
+            for dtype in _MOVE_DTYPES:
+                v = torch.from_numpy(rng.integers(-100, 100, n)).to(
+                    cuda).to(dtype)
+                cases += [(v, None), (v, valid)]
+            for v, ok in cases:
+                got = twin.window_gather(inv, v, ok, tile)
+                want = twin.window_gather_plain(inv, v, ok)
+                for g, w, t in zip(got, want, (v, ok)):
+                    assert (g is None) == (t is None)
+                    assert g is None or torch.equal(g, w), \
+                        (n, tile, n_live, None if v is None else v.dtype)
+                # the gather through perm at the live positions
+                if v is not None:
+                    at = torch.arange(n, device=cuda) < n_live
+                    assert torch.equal(got[0][at], v[perm][at])
+
+
 @pytest.mark.gpu
 def test_sorted_order_kernels_match_plain_at_100k_rows(cuda):
     """The gather, the inverse permutation, K10's scan (every op, both
     directions) and frame evaluation, K11 (5 and 1,500 rows) and the
     unpermute at 100,000 rows in a random order, 5% of them
-    dead, each against its plain version on the same inputs."""
+    dead, each against its plain version on the same inputs; lag, lead,
+    nth_value, first and last against the CPU; and the inverse and the
+    gather at their bucket edges (_check_moves) in a random, the identity
+    and the reversed order."""
     rng = np.random.default_rng(8)
     n = 100_000
     sel = torch.from_numpy(rng.random(n) < 0.95).to(cuda)
@@ -574,15 +720,15 @@ def test_sorted_order_kernels_match_plain_at_100k_rows(cuda):
         "window_gather", "window_inverse", "window_scan", "window_frame",
         "window_extreme", "window_unpermute")}
 
-    fs, oks = twin.window_gather(ctx.perm, ctx.n_live, fv, valid)
-    is_, none = twin.window_gather(ctx.perm, ctx.n_live, iv, None)
-    want = twin.window_gather_plain(ctx.perm, ctx.n_live, fv, valid)
-    assert none is None and identical(fs, want[0])
-    assert torch.equal(oks, want[1])
-    assert torch.equal(is_, twin.window_gather_plain(ctx.perm, ctx.n_live,
-                                                     iv, None)[0])
     assert torch.equal(ctx.inv_perm,
                        twin.window_inverse_plain(ctx.perm, ctx.n_live))
+    fs, oks = twin.window_gather(ctx.inv_perm, fv, valid)
+    is_, none = twin.window_gather(ctx.inv_perm, iv, None)
+    want = twin.window_gather_plain(ctx.inv_perm, fv, valid)
+    assert none is None and identical(fs, want[0])
+    assert torch.equal(oks, want[1])
+    assert torch.equal(is_, twin.window_gather_plain(ctx.inv_perm, iv,
+                                                     None)[0])
     counts = twin.window_scan(ctx, None, oks, "count")
     assert torch.equal(counts, twin.window_scan_plain(ctx, None, oks,
                                                       "count"))
@@ -624,3 +770,19 @@ def test_sorted_order_kernels_match_plain_at_100k_rows(cuda):
                        torch.where(sel, iv, 0))
     for name, before in launches.items():
         assert getattr(twin, name).launches > before, name
+    # lag, lead, nth_value, first and last on the card against the CPU
+    col = TColumn(iv, valid, tdt.LongType())
+    cpu_ctx = twin.WindowContext(
+        *[t.cpu() for t in (ctx.perm, ctx.n_live, ctx.seg_start, ctx.seg_end,
+                            ctx.peer_start, ctx.peer_end, ctx.dense)])
+    cpu_col = TColumn(iv.cpu(), valid.cpu(), tdt.LongType())
+    for fn in (lambda c, v: twin.shift(c, v, 1, -7),
+               lambda c, v: twin.shift(c, v, -3),
+               lambda c, v: twin.nth(c, v, 2, c.peer_end),
+               lambda c, v: twin.framed_agg(c, v, "first", -2, 1),
+               lambda c, v: twin.framed_agg(c, v, "last", None, 0,
+                                            c.peer_end)):
+        for g, w in zip(fn(ctx, col), fn(cpu_ctx, cpu_col)):
+            assert torch.equal(g.cpu(), w)
+    for order in ("random", "identity", "reversed"):
+        _check_moves(cuda, rng, order)

@@ -1,7 +1,8 @@
 """The window context's sort over one packed word and K8 over sorted words
 (``sail_tpu_torch/ops/window.py``: ``pack_layout``, ``window_pack``,
-``sort_window_keys``, ``window_bounds``), and K9's two ways to row order,
-on the CPU through the plain versions.
+``sort_window_keys``, ``window_bounds``), K9's records, and lag, lead,
+nth_value, first and last over each context, on the CPU through the plain
+versions.
 
 For every context below, the same numpy inputs (made from a seed) go
 through the port and ``sail_tpu/ops/window.py`` ``build_window_context``:
@@ -10,10 +11,11 @@ the port's ``perm`` equals the reference's and the port's own
 five bounds equal the through-``perm`` oracle of
 ``torch_window_common.bounds_through_perm`` everywhere and the reference's
 on live rows; both key sources of K8 (the packed word, and each key
-gathered into sorted order) give the same perm and bounds; and K9's
-outputs in both forms (the scatter through ``perm``, the records through
-``inv_perm``) equal each other everywhere and the reference's on live
-rows. All comparisons are exact: positions and ranks are integers, and
+gathered into sorted order) give the same perm and bounds; K9's outputs
+(records through ``inv_perm``) and lag/lead/nth/first/last (the sorted
+values read in sorted order, one unpermute an output) equal the
+reference's on live rows and are 0 on dead ones. All comparisons are
+exact: positions and ranks are integers, and
 percent_rank and cume_dist divide the same integers in float64. n = 0
 runs on the port alone (the reference's context needs a row).
 """
@@ -194,9 +196,13 @@ def test_both_key_sources_give_one_context(name):
     ctx, pk, ok = _port(part, order, sel)
 
     def source(packed):
-        perm, words, was_packed = twin.sort_window_keys(
+        perm, words, was_packed, inv = twin.sort_window_keys(
             pk + ok, len(pk), torch.from_numpy(sel), ctx.n_live, packed)
         assert was_packed == packed
+        # the general path gathers its keys through the inverse it built
+        assert (inv is None) == packed
+        assert packed or torch.equal(
+            inv, twin.window_inverse_plain(perm, ctx.n_live))
         return perm, twin.window_bounds(ctx.n_live, words)
 
     general = source(False)
@@ -227,19 +233,14 @@ def _reference_ranks(jctx, okbits, n_tiles):
             "ntile": jwin.ntile(jctx, n_tiles)}
 
 
-@pytest.mark.parametrize("form", ["records", "scatter"])
 @pytest.mark.parametrize("name", _NAMES)
-def test_rank_forms_match_reference(name, form):
+def test_rank_forms_match_reference(name):
     part, order, sel, _ = _case(name)
     ctx, _, _ = _port(part, order, sel)
-    got = twin.window_ranks(ctx, twin._RANKS, 3, form=form)
-    other = twin.window_ranks(ctx, twin._RANKS, 3,
-                              form="scatter" if form == "records"
-                              else "records")
+    got = twin.window_ranks(ctx, twin._RANKS, 3)
     for fn in twin._RANKS:
         assert got[fn].dtype == (torch.float64 if fn in (
             "percent_rank", "cume_dist") else torch.int64)
-        assert torch.equal(got[fn], other[fn]), fn
         assert not got[fn][~torch.from_numpy(sel)].any(), fn  # dead: 0
     if sel.shape[0] == 0:
         return
@@ -250,28 +251,73 @@ def test_rank_forms_match_reference(name, form):
                                           got[fn].numpy().dtype), err_msg=fn)
 
 
+@pytest.mark.parametrize("name", _NAMES)
+def test_shift_nth_first_last_match_reference(name):
+    """lag (with a default), lead, nth_value to the last peer, and first
+    and last over two frames, read from the sorted values: the
+    reference's answers on live rows, 0 and invalid on dead ones."""
+    part, order, sel, _ = _case(name)
+    ctx, _, _ = _port(part, order, sel)
+    rng = np.random.default_rng(zlib.crc32(name.encode()) + 1)
+    n = sel.shape[0]
+    vals = rng.integers(-50, 50, n).astype(np.int64)
+    valid = rng.random(n) < 0.8
+    col = TColumn(torch.from_numpy(vals), torch.from_numpy(valid),
+                  tdt.LongType())
+    got = [twin.shift(ctx, col, 1, -7), twin.shift(ctx, col, -2),
+           twin.nth(ctx, col, 2, ctx.peer_end),
+           twin.framed_agg(ctx, col, "first", -1, 2),
+           twin.framed_agg(ctx, col, "last", None, 0, ctx.peer_end)]
+    for data, ok in got:
+        assert not data.numpy()[~sel].any() and not ok.numpy()[~sel].any()
+    if n == 0:
+        return
+    jctx, okbits = _reference(part, order, sel)
+    jcol = JColumn(jnp.asarray(vals), jnp.asarray(valid), jdt.LongType())
+    # the reference's peer groups may run on into dead rows: clipped to
+    # the segment they are the port's
+    ss = np.asarray(jctx.seg_start)
+    peer = jnp.asarray(np.minimum(
+        np.asarray(jwin.peer_group_end(jctx, okbits)),
+        ss + np.asarray(jctx.seg_len) - 1))
+    want = [jwin.shift(jctx, jcol, 1, -7), jwin.shift(jctx, jcol, -2),
+            jwin.nth(jctx, jcol, 2, peer),
+            jwin.framed_agg(jctx, jcol, "first", -1, 2),
+            jwin.framed_agg(jctx, jcol, "last", None, 0, peer)]
+    for (gd, gv), (wd, wv) in zip(got, want):
+        wv = np.asarray(wv)
+        np.testing.assert_array_equal(gv.numpy()[sel], wv[sel])
+        np.testing.assert_array_equal(gd.numpy()[sel & wv],
+                                      np.asarray(wd)[sel & wv])
+
+
 @pytest.mark.parametrize("wanted", [("row_number",), ("ntile",),
                                     ("rank", "cume_dist")])
-def test_rank_rule_takes_the_scatter_for_one_output_without_inv_perm(
-        wanted, monkeypatch):
-    """The rule: one output on a context without inv_perm goes through
-    perm; more outputs, or a context that built inv_perm, the records."""
+def test_ranks_go_through_one_inverse_a_context(wanted, monkeypatch):
+    """K9's records go to row order through the context's inv_perm, built
+    once (window_inverse) and shared with the later window functions."""
     part, order, sel, _ = _case("nullable_default")
     ctx, _, _ = _port(part, order, sel)
-    forms = []
-    plain = twin.window_ranks_plain
+    built = []
+    inverse = twin.window_inverse
 
-    def spy(ctx_, wanted_, n_tiles=1, form="scatter"):
-        forms.append(form)
-        return plain(ctx_, wanted_, n_tiles, form)
+    def counted(perm, n_live, *args):
+        built.append(perm)
+        return inverse(perm, n_live, *args)
 
-    monkeypatch.setattr(twin, "window_ranks_plain", spy)
+    monkeypatch.setattr(twin, "window_inverse", counted)
     first = twin.window_ranks(ctx, wanted, 2)
-    ctx.inv_perm  # noqa: B018 - builds it
     second = twin.window_ranks(ctx, wanted, 2)
-    assert forms == ["scatter" if len(wanted) == 1 else "records", "records"]
+    col = TColumn(torch.arange(sel.shape[0]), None, tdt.LongType())
+    twin.shift(ctx, col, 1)
+    assert len(built) == 1 and built[0] is ctx.perm
+    jctx, okbits = _reference(part, order, sel)
+    want = _reference_ranks(jctx, okbits, 2)
     for fn in wanted:
         assert torch.equal(first[fn], second[fn])
+        np.testing.assert_array_equal(
+            first[fn].numpy()[sel],
+            np.asarray(want[fn])[sel].astype(first[fn].numpy().dtype))
 
 
 @pytest.mark.parametrize("name", ["nullable_default", "bits_63", "one_value",
