@@ -8,7 +8,7 @@
                                      # (one command) a smaller, quicker run
     python3 chip_smoke.py --profile  # also trace each query once, with
                                      # its K1 (all launches, then by entry
-                                     # point), K2-K11 device ms, its sorts
+                                     # point), K2-K15 device ms, its sorts
                                      # and its host split
 
 Phases, each of which fails the script (non-zero exit, no result line):
@@ -43,13 +43,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
    oracle's is empty. Each run counts the host syncs the query makes
    (``torch.cuda.set_sync_debug_mode``).
 5. Main path: all 22 queries at ``--sf`` (default 10), one warm-up and
-   ``--runs`` timed runs each. The plans of Q2, Q5, Q8 and Q9 hold an
-   intermediate that grows with the square of the scale factor (a cross
-   join of filtered part x supplier in Q2, Q8 and Q9; supplier x customer
-   on their nation in Q5); a query whose intermediate would exceed
-   ``QUADRATIC_ROWS_MAX`` rows at that scale runs on phase 4's data, and
-   says so. Q1 and Q6 also match a numpy oracle in exact integer decimal
-   arithmetic. The launch counts are set to 0 before each query's warm-up
+   ``--runs`` timed runs each, Q2, Q5, Q8 and Q9 too: the join order no
+   longer holds an intermediate that grows with the square of the scale
+   factor (each query prints its largest join output). Q1 and Q6 also
+   match a numpy oracle in exact integer decimal arithmetic. The launch counts are set to 0 before each query's warm-up
    and again before its first timed run, and read after that run: every
    query must launch the kernels ``PATH_KERNELS`` names for it.
 6. ClickBench correctness: the 43 queries and the mechanism queries
@@ -122,9 +119,36 @@ SF10 tables and phase 4's tables):
    against Q17's answer; every query launches what ``PATH_KERNELS``
    names for it.
 
+Then, after phase 10, on the same tables:
+
+11. Expression kernels: K12 (math_unary), K13 (round_number), K14
+   (math_binary) and K15 (calendar) of functions/numeric.py over
+   lineitem's columns at ``--sf`` (l_extendedprice, l_quantity and
+   l_discount as unscaled decimals, l_orderkey; 60M rows at SF10) and
+   l_shipdate and orders' o_orderdate (15M) for K15, in copies with
+   NULLs, NaN, +-inf,
+   x <= 0 for the logarithms, INT64_MIN for abs and shift counts of 64
+   and more planted. Each op against its plain version (integers,
+   decimals, dates and bools exactly; float64 within ``EXPR_ULPS`` ulp),
+   then timed beside it, its bound and, where one PyTorch call computes
+   the same function on the same input, that call (``torch.sqrt``,
+   ``torch.exp``, ``torch.abs``, ``torch.round(x, decimals=3)``,
+   ``torch.pow``, ``torch.atan2``, ``torch.hypot``,
+   ``torch.bitwise_and``). Each kernel's first (headline) op must reach
+   ``EXPR_BOUND_SHARE`` of its bound.
+12. Expression correctness: the queries of
+   ``benchmarks/expr_queries.py`` (E1-E6) over the tables at
+   ``--check-sf`` on the card against the port's CPU session, as phase 9
+   compares; each counts its host syncs.
+13. Expression main path: E1-E6 at ``--sf``, one warm-up and ``--runs``
+   timed runs each, with rows and peak device memory; E3 and E5 against
+   numpy at full size (their answers are integers and dates); every
+   query launches what its ``expr_queries.KERNELS`` entry names.
+
 It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
-over the TPC-H, window and ClickBench queries of their one-run counts,
-``launches_on_path`` gives each, ``qN``, ``wN``/``uN`` and ``cbN``), the
+over the TPC-H, window, expression and ClickBench queries of their
+one-run counts, ``launches_on_path`` gives each, ``qN``, ``wN``/``uN``,
+``eN`` and ``cbN``), the
 ``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -137,6 +161,7 @@ import datetime
 import decimal
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -189,12 +214,13 @@ PROFILED_KERNELS = {
     "K11 window_extreme": re.compile(r"extreme_(narrow|chunks|wide)_kernel<"),
     "window gather, inverse, unpermute": re.compile(
         r"\bbin_kernel<|\bplace_kernel<|\bunpermute_kernel<"),
+    "K12 math_unary": re.compile(r"\bunary_kernel\("),
+    "K13 round_number": re.compile(r"\bround_kernel\("),
+    "K14 math_binary": re.compile(r"\bbinary_kernel\("),
+    "K15 calendar": re.compile(r"\bcalendar_kernel[<(]"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
-# a query whose quadratic intermediate (quadratic_rows) is larger than this
-# runs at the correctness phase's scale
-QUADRATIC_ROWS_MAX = 2.5e8
 
 
 def _nvidia_smi() -> str:
@@ -1141,44 +1167,8 @@ def check_queries(spark, tables: dict, sf: float) -> dict:
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def quadratic_rows(tables: dict, q: int) -> int:
-    """Rows of the intermediate of Q2, Q5, Q8 or Q9 that grows with the
-    square of the scale factor (0 for the other queries), from the data:
-    the cross join of filtered part x supplier (Q2's suppliers are those
-    of EUROPE) or, in Q5, supplier x customer joined on their nation
-    within ASIA."""
-    part, supp = tables["part"], tables["supplier"]
-    nation = tables["nation"]
-
-    def region_nations(region: int) -> np.ndarray:
-        keep = pc.equal(nation.column("n_regionkey"), region)
-        return pc.filter(nation.column("n_nationkey"), keep).to_numpy()
-
-    def per_nation(table: str, column: str) -> np.ndarray:
-        return np.bincount(tables[table].column(column).to_numpy(),
-                           minlength=25)
-
-    ptype = part.column("p_type").cast(pa.string())
-    if q == 9:
-        parts = pc.match_substring(part.column("p_name").cast(pa.string()),
-                                   "green")
-        return int(pc.sum(parts).as_py()) * supp.num_rows
-    if q == 8:
-        parts = pc.equal(ptype, "ECONOMY ANODIZED STEEL")
-        return int(pc.sum(parts).as_py()) * supp.num_rows
-    if q == 2:
-        parts = pc.and_(pc.equal(part.column("p_size"), 15),
-                        pc.ends_with(ptype, "BRASS"))
-        eu = per_nation("supplier", "s_nationkey")[region_nations(3)].sum()
-        return int(pc.sum(parts).as_py()) * int(eu)
-    if q == 5:
-        asia = region_nations(2)
-        return int((per_nation("supplier", "s_nationkey")[asia]
-                    * per_nation("customer", "c_nationkey")[asia]).sum())
-    return 0
-
-
 def _counters():
+    from sail_tpu_torch.functions import numeric as num
     from sail_tpu_torch.ops import aggregate as agg
     from sail_tpu_torch.ops import hash as hsh
     from sail_tpu_torch.ops import join as jn
@@ -1199,7 +1189,9 @@ def _counters():
             "window_extreme": win.window_extreme,
             "window_gather": win.window_gather,
             "window_inverse": win.window_inverse,
-            "window_unpermute": win.window_unpermute}
+            "window_unpermute": win.window_unpermute,
+            "math_unary": num.math_unary, "round_number": num.round_number,
+            "math_binary": num.math_binary, "calendar": num.calendar}
 
 
 @contextlib.contextmanager
@@ -1227,16 +1219,14 @@ def timed_uploads():
         arrow_interop.from_arrow = from_arrow
 
 
-def run_main_path(tables: dict, sf: float, runs: int, small,
+def run_main_path(tables: dict, sf: float, runs: int,
                   profile: bool) -> dict:
-    """``tables``: TPC-H at ``sf``; ``small``: (session, tables, scale
-    factor) of phase 4, where a query whose cross join is too large at
-    ``sf`` runs."""
+    """``tables``: TPC-H at ``sf``."""
     with timed_uploads() as upload:
-        return _run_main_path(tables, sf, runs, small, profile, upload)
+        return _run_main_path(tables, sf, runs, profile, upload)
 
 
-def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
+def _run_main_path(tables, sf, runs, profile, upload) -> dict:
     from sail_tpu_torch import SparkSession
     from sail_tpu_torch.benchmarks.tpch_queries import QUERIES
 
@@ -1252,16 +1242,9 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
             fn.launches = 0
 
     torch.cuda.reset_peak_memory_stats()
-    small_spark, small_tables, small_sf = small
     report = {"launches_on_path": {}}
+    session = spark
     for q in range(1, 23):
-        qrows = quadratic_rows(tables, q)
-        session, q_sf = spark, sf
-        if qrows > QUADRATIC_ROWS_MAX:
-            session, q_sf = small_spark, small_sf
-            print(f"Q{q}: an intermediate of {qrows} rows at SF{sf} exceeds "
-                  f"{QUADRATIC_ROWS_MAX:.0f}; runs at SF{small_sf} "
-                  f"({quadratic_rows(small_tables, q)} rows)", flush=True)
         upload_before = upload["s"]
         zero_counts()
         t = time.perf_counter()
@@ -1281,10 +1264,10 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
                 launches = {n: fn.launches for n, fn in counters.items()}
                 filters = session.last_runtime_filters
         report["launches_on_path"][f"q{q}"] = launches
-        entry = dict(sf=q_sf, quadratic_rows=quadratic_rows(
-            tables if session is spark else small_tables, q),
-            first_s=first, upload_s=upload["s"] - upload_before,
-            query_s=times, rows=result.num_rows, runtime_filters=filters)
+        entry = dict(sf=sf, first_s=first,
+                     upload_s=upload["s"] - upload_before, query_s=times,
+                     rows=result.num_rows, runtime_filters=filters,
+                     largest_join_rows=max(session.last_join_rows or [0]))
         if profile:
             entry["profile"] = profile_query(session, QUERIES[q])
         if q == 1:
@@ -1294,10 +1277,11 @@ def _run_main_path(tables, sf, runs, small, profile, upload) -> dict:
             if got != [want_q6]:
                 raise AssertionError(f"Q6: {got} != {[want_q6]}")
         report[f"q{q}"] = entry
-        print(f"Q{q} SF{q_sf}: first run {first:.3f} s (upload "
+        print(f"Q{q} SF{sf}: first run {first:.3f} s (upload "
               f"{entry['upload_s']:.3f} s), then "
               f"{', '.join(f'{x * 1e3:.1f} ms' for x in times)}; "
-              f"{result.num_rows} rows; launches in one run "
+              f"{result.num_rows} rows; largest join "
+              f"{entry['largest_join_rows']} rows; launches in one run "
               f"{ {k: v for k, v in launches.items() if v} }; runtime "
               f"filters (scan rows, mask rows) "
               f"{[(f['scan_rows'], f['mask_rows']) for f in filters]}",
@@ -1793,18 +1777,17 @@ def _answers_agree(name: str, got: pa.Table, want: pa.Table) -> None:
             raise AssertionError(f"{name} column {cname} differs")
 
 
-def check_window_queries(tables: dict, sf: float) -> dict:
-    """Phase 9: the window and union queries over ``tables`` on the card
-    against the port's CPU session."""
+def check_with_cpu(tables: dict, sf: float, queries: dict) -> dict:
+    """Phases 9 and 12: ``queries`` ({name: sql}) over ``tables`` on the
+    card against the port's CPU session, each counting its host syncs."""
     from sail_tpu_torch import SparkSession
-    from sail_tpu_torch.benchmarks.window_queries import QUERIES
 
     card = SparkSession({"spark.sail.device": "cuda"})
     cpu = SparkSession({"spark.sail.device": "cpu"})
     _register(card, tables)
     _register(cpu, tables)
     report = {}
-    for name, sql in QUERIES.items():
+    for name, sql in queries.items():
         t = time.perf_counter()
         got, syncs = _run_counting_syncs(card, sql)
         torch.cuda.synchronize()
@@ -1847,20 +1830,20 @@ def _check_w1(result: pa.Table, orders: pa.Table) -> None:
             raise AssertionError(f"W1: {label} differs from numpy")
 
 
-def run_window_path(tables: dict, sf: float, runs: int,
-                    profile: bool) -> dict:
-    """Phase 10: the window and union queries at ``sf``, one warm-up and
-    ``runs`` timed runs each; W1 against numpy, W7 against Q17's answer,
-    and every query's launches against PATH_KERNELS."""
+def run_query_path(tables: dict, sf: float, runs: int, profile: bool,
+                   queries: dict, kernels: dict, check) -> dict:
+    """Phases 10 and 13: ``queries`` at ``sf``, one warm-up and ``runs``
+    timed runs each, with rows and peak device memory; ``check(name,
+    result, spark)`` holds an answer to its oracle (and returns what to
+    add to the query's entry, or None); every query launches the kernels
+    ``kernels`` names for it."""
     from sail_tpu_torch import SparkSession
-    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES as TPCH
-    from sail_tpu_torch.benchmarks.window_queries import QUERIES
 
     spark = SparkSession({"spark.sail.device": "cuda"})
     _register(spark, tables)
     counters = _counters()
     report = {"launches_on_path": {}}
-    for name, sql in QUERIES.items():
+    for name, sql in queries.items():
         torch.cuda.reset_peak_memory_stats()
         for fn in counters.values():
             fn.launches = 0
@@ -1884,6 +1867,29 @@ def run_window_path(tables: dict, sf: float, runs: int,
                      peak_bytes=torch.cuda.max_memory_allocated())
         if profile:
             entry["profile"] = profile_query(spark, sql)
+        entry.update(check(name, result, spark) or {})
+        report[name] = entry
+        print(f"{name.upper()} SF{sf}: first run {first:.3f} s, then "
+              f"{', '.join(f'{x * 1e3:.1f} ms' for x in times)}; "
+              f"{result.num_rows} rows; peak "
+              f"{entry['peak_bytes'] / 2**30:.2f} GiB; launches in one run "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        for kernel in kernels[name]:
+            if launches[kernel] == 0:
+                raise AssertionError(f"{kernel} never launched on "
+                                     f"{name.upper()}'s path")
+    spark.stop()
+    return report
+
+
+def run_window_path(tables: dict, sf: float, runs: int,
+                    profile: bool) -> dict:
+    """Phase 10: the window and union queries; W1 against numpy, W7
+    against Q17's answer."""
+    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES as TPCH
+    from sail_tpu_torch.benchmarks.window_queries import QUERIES
+
+    def check(name, result, spark):
         if name == "w1":
             _check_w1(result, tables["orders"])
         elif name == "w7":
@@ -1891,19 +1897,382 @@ def run_window_path(tables: dict, sf: float, runs: int,
             if result.column(0).to_pylist() != q17.column(0).to_pylist():
                 raise AssertionError(f"W7 {result.column(0).to_pylist()} != "
                                      f"Q17 {q17.column(0).to_pylist()}")
-            entry["q17"] = q17.column(0).to_pylist()
-        report[name] = entry
-        print(f"{name.upper()} SF{sf}: first run {first:.3f} s, then "
-              f"{', '.join(f'{x * 1e3:.1f} ms' for x in times)}; "
-              f"{result.num_rows} rows; peak "
-              f"{entry['peak_bytes'] / 2**30:.2f} GiB; launches in one run "
-              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-        for kernel in PATH_KERNELS[name]:
-            if launches[kernel] == 0:
-                raise AssertionError(f"{kernel} never launched on "
-                                     f"{name.upper()}'s path")
-    spark.stop()
-    return report
+            return {"q17": q17.column(0).to_pylist()}
+        return None
+
+    return run_query_path(tables, sf, runs, profile, QUERIES, PATH_KERNELS,
+                          check)
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: the expression kernels and the analytical SQL over them
+# ---------------------------------------------------------------------------
+
+# K12-K15 against their plain versions: float64 within EXPR_ULPS units in
+# the last place of the plain version's value (CUDA's double functions are
+# within 1-2 ulp of the correctly rounded result, torch's and the plain
+# formulas within a few); integers, decimals, dates and bools exactly
+EXPR_ULPS = 8
+# a kernel's time at its headline shape must be within twice its bound
+EXPR_BOUND_SHARE = 0.5
+_EXPR_SOURCE = "sail_tpu_torch/csrc/expr_math.cu"
+
+
+def _ulp_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max abs difference of a kernel's output and its plain version's:
+    exact for integers and bools, within EXPR_ULPS ulp for float64 (NaN
+    and infinities in the same places)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{got.dtype} {tuple(got.shape)} != "
+                             f"{want.dtype} {tuple(want.shape)}")
+    if not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError("exact results differ")
+        return 0.0
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        raise AssertionError("NaN positions differ")
+    fin = torch.isfinite(want)
+    if not torch.equal(got[~fin & ~torch.isnan(want)],
+                       want[~fin & ~torch.isnan(want)]):
+        raise AssertionError("infinities differ")
+    diff = (got[fin] - want[fin]).abs()
+    tol = EXPR_ULPS * 2.0 ** -52 * want[fin].abs()
+    bad = diff > tol
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0])
+        raise AssertionError(f"float64 beyond {EXPR_ULPS} ulp: "
+                             f"{float(got[fin][i])!r} != "
+                             f"{float(want[fin][i])!r}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _cv_err(got, want) -> float:
+    """_ulp_err over (data, validity) pairs (or a lone tensor)."""
+    got = got if isinstance(got, tuple) else (got, None)
+    want = want if isinstance(want, tuple) else (want, None)
+    (g, gv), (w, wv) = got, want
+    if (gv is None) != (wv is None) or \
+            (gv is not None and not torch.equal(gv, wv)):
+        raise AssertionError("validities differ")
+    return _ulp_err(g, w)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None and t.dim() > 0)
+
+
+def _expr_columns(tables: dict, dev) -> dict:
+    """The columns phase 11 runs the kernels over, from the SF tables:
+    lineitem's l_extendedprice (unscaled decimal), l_quantity,
+    l_discount, l_orderkey and orders' o_orderdate, and copies with the
+    edge values planted (NULLs, NaN, +-inf, x <= 0 for the logarithms,
+    INT64_MIN for abs, shift counts of 64 and more)."""
+    li, od = tables["lineitem"], tables["orders"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    price = _device_column(li, "l_extendedprice", dev)
+    n = price.shape[0]
+    c = dict(price=price, qty=_device_column(li, "l_quantity", dev),
+             disc=_device_column(li, "l_discount", dev),
+             okey=_device_column(li, "l_orderkey", dev),
+             ship=_device_column(li, "l_shipdate", dev),
+             date=_device_column(od, "o_orderdate", dev))
+    c["valid"] = torch.rand(n, generator=gen, device=dev) < 0.9
+    edge = c["price"].clone()
+    edge[::1000] = 0
+    edge[1::1001] = -edge[1::1001]
+    c["price_edge"] = edge  # x <= 0 for the logs
+    dbl = c["price"].to(torch.float64) / 100.0
+    dbl[::997] = float("nan")
+    dbl[1::991] = float("inf")
+    dbl[2::983] = float("-inf")
+    dbl[3::13] = -dbl[3::13]
+    dbl[4::1009] = 0.0
+    c["dbl"] = dbl
+    okey = c["okey"].clone()
+    okey[::10_007] = -(1 << 63)
+    c["okey_edge"] = okey
+    c["counts"] = torch.randint(0, 130, (n,), generator=gen, device=dev,
+                                dtype=torch.int64)
+    nd = c["date"].shape[0]
+    c["date_valid"] = torch.rand(nd, generator=gen, device=dev) < 0.9
+    c["months"] = torch.randint(-30, 31, (nd,), generator=gen, device=dev,
+                                dtype=torch.int32)
+    c["us"] = c["date"].to(torch.int64) * 86_400_000_000 + torch.randint(
+        0, 86_400_000_000, (nd,), generator=gen, device=dev)
+    return c
+
+
+def _expr_entry(name: str, replaces: str, rows: list) -> dict:
+    """A kernel's JSON entry: its headline (first) shape's numbers, every
+    shape under ``shapes``; the headline must reach EXPR_BOUND_SHARE of
+    its bound."""
+    head = rows[0]
+    share = head["bound_ms"] / head["ms"]
+    print(f"{name}: headline {head['shape']} {head['ms']:.3f} ms against a "
+          f"bound of {head['bound_ms']:.3f} ms ({share:.0%})", flush=True)
+    if share < EXPR_BOUND_SHARE:
+        raise AssertionError(f"{name}: {share:.0%} of its bound at "
+                             f"{head['shape']}, under "
+                             f"{EXPR_BOUND_SHARE:.0%}")
+    return dict(name=name, source=_EXPR_SOURCE, replaces=replaces,
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], library_ms=head["library_ms"],
+                shapes=rows)
+
+
+def check_expr_kernels(tables: dict, dev) -> list:
+    """Phase 11: K12-K15 over the SF tables' columns with the edge values
+    planted, each op against its plain version, then timed beside it,
+    its bound and, where one PyTorch call computes the same function on
+    the same input, that call."""
+    from sail_tpu_torch.functions import numeric as num
+
+    c = _expr_columns(tables, dev)
+    n, nd = c["price"].shape[0], c["date"].shape[0]
+    valid, dvalid = c["valid"], c["date_valid"]
+    print(f"phase 11: {n} lineitem rows, {nd} orders", flush=True)
+    entries = []
+
+    def unary(label, x, v, op, scale=0, library=None):
+        fresh = op in num.LOG_OPS
+        out_size = 1 if op == "isnan" else (
+            8 if op in num.FLOAT_OPS or op in ("floor", "ceil")
+            else x.element_size())
+        return _timed(f"{op} {label}", x.shape[0],
+                      lambda: num.math_unary(x, v, op, scale),
+                      lambda: num.math_unary_plain(x, v, op, scale),
+                      _nbytes(x, v) + x.shape[0] * (out_size + fresh),
+                      library, _cv_err)
+
+    price, dbl, okey = c["price_edge"], c["dbl"], c["okey_edge"]
+    rows = [unary("l_extendedprice as float64, NaN, +-inf planted", dbl,
+                  None, "sqrt", library=lambda: torch.sqrt(dbl))]
+    rows.append(unary("l_extendedprice decimal(15,2), NULLs", price, valid,
+                      "sqrt", 2))
+    rows.append(unary("float64", dbl, None, "exp",
+                      library=lambda: torch.exp(dbl)))
+    for op in ("ln", "log10", "log1p"):
+        rows.append(unary("l_extendedprice decimal, x <= 0 planted, NULLs",
+                          price, valid, op, 2))
+    for op in ("sin", "tanh", "cbrt", "rint", "sign", "isnan", "floor",
+               "ceil", "expm1", "atan"):
+        rows.append(unary("float64", dbl, valid, op))
+    for op in ("floor", "ceil", "negative", "abs"):
+        rows.append(unary("l_quantity decimal(15,2)", c["qty"], None, op, 2))
+    rows.append(unary("l_orderkey int64, INT64_MIN planted", okey, None,
+                      "abs", library=lambda: torch.abs(okey)))
+    rows.append(unary("l_orderkey int64", okey, valid, "~"))
+    entries.append(_expr_entry("math_unary",
+                               "sail_tpu/plan/compiler.py:937", rows))
+
+    def rounding(label, x, half_even, digits, s, so, library=None):
+        return _timed(f"{'bround' if half_even else 'round'}({digits}) "
+                      f"{label}", x.shape[0],
+                      lambda: num.round_number(x, half_even, digits, s, so),
+                      lambda: num.round_number_plain(x, half_even, digits, s,
+                                                     so),
+                      2 * _nbytes(x), library, _cv_err)
+
+    rows = [rounding("l_extendedprice decimal(15,2) to scale 0", price,
+                     False, -2, 2, 0)]
+    rows.append(rounding("l_extendedprice decimal(15,2) to scale 1", price,
+                         True, 1, 2, 1))
+    rows.append(rounding("l_orderkey int64", okey, False, -1, 0, 0))
+    rows.append(rounding("l_orderkey int64", okey, True, -2, 0, 0))
+    rows.append(rounding("float64", dbl, True, 3, 0, 0,
+                         library=lambda: torch.round(dbl, decimals=3)))
+    rows.append(rounding("float64", dbl, False, 2, 0, 0))
+    entries.append(_expr_entry("round_number",
+                               "sail_tpu/plan/compiler.py:1313", rows))
+
+    two = torch.tensor(2, device=dev, dtype=torch.int32)
+    seven = torch.tensor(7, device=dev, dtype=torch.int32)
+    four = torch.tensor(4, device=dev, dtype=torch.int32)
+    tax_d = c["disc"].to(torch.float64) / 100.0
+
+    def binary(label, x, xv, y, yv, op, sx=0, sy=0, library=None):
+        fresh = op in ("log", "nanvl") or (xv is not None and yv is not None)
+        out_size = x.element_size() if op in num.BITWISE_OPS else 8
+        read = _nbytes(x, xv, y, yv)
+        if op == "nanvl":  # y is read where x is a NaN only
+            read -= _nbytes(y) - int(torch.isnan(x).sum()) * y.element_size()
+        return _timed(f"{op} {label}", n,
+                      lambda: num.math_binary(x, xv, y, yv, op, sx, sy),
+                      lambda: num.math_binary_plain(x, xv, y, yv, op, sx,
+                                                    sy),
+                      read + n * (out_size + fresh), library, _cv_err)
+
+    rows = [binary("l_discount decimal(15,2), 2", c["disc"], None, two, None,
+                   "power", 2, library=lambda: torch.pow(tax_d, 2))]
+    rows.append(binary("float64, l_orderkey", dbl, valid, okey, None,
+                       "atan2", library=lambda: torch.atan2(
+                           dbl, okey.to(torch.float64))))
+    rows.append(binary("float64, l_quantity decimal", dbl, None, c["qty"],
+                       valid, "hypot", 0, 2))
+    rows.append(binary("float64, float64", dbl, None, tax_d, None, "hypot",
+                       library=lambda: torch.hypot(dbl, tax_d)))
+    rows.append(binary("l_extendedprice decimal, float64, x <= 0 planted",
+                       price, valid, dbl, valid, "log", 2))
+    rows.append(binary("float64, l_extendedprice decimal", dbl, valid, price,
+                       None, "nanvl", 0, 2))
+    rows.append(binary("l_orderkey int64, 7", okey, None, seven, None, "&",
+                       library=lambda: torch.bitwise_and(okey, 7)))
+    rows.append(binary("l_orderkey int64, counts", okey, valid, c["counts"],
+                       None, "|"))
+    rows.append(binary("l_orderkey int64, counts", okey, None, c["counts"],
+                       valid, "^"))
+    rows.append(binary("l_orderkey int64 by 0-129", okey, None, c["counts"],
+                       None, "shiftleft"))
+    rows.append(binary("l_orderkey int64 by 4", okey, None, four, None,
+                       "shiftright"))
+    entries.append(_expr_entry("math_binary",
+                               "sail_tpu/plan/compiler.py:954", rows))
+
+    date, us = c["date"], c["us"]
+    base = torch.tensor(10592, device=dev, dtype=torch.int32)  # 1999-01-01
+    three = torch.tensor(3, device=dev, dtype=torch.int32)
+
+    def cal(label, op, x, xv, y=None, yv=None, xm=False, ym=False):
+        out_size = 8 if op == "months_between" else 4
+        fresh = xv is not None and yv is not None
+        rows = max(t.shape[0] for t in (x, y) if t is not None and t.dim())
+        return _timed(f"{op} {label}", rows,
+                      lambda: num.calendar(x, xv, op, y, yv, xm, ym),
+                      lambda: num.calendar_plain(x, xv, op, y, yv, xm, ym),
+                      _nbytes(x, xv, y, yv) + rows * (out_size + fresh),
+                      None, _cv_err)
+
+    one = torch.tensor(1, device=dev, dtype=torch.int32)
+    rows = [cal("l_shipdate, 1 (E5)", "add_months", c["ship"], None, one)]
+    rows.append(cal("o_orderdate, 3", "add_months", date, None, three))
+    rows.append(cal("o_orderdate, months, NULLs", "add_months", date, dvalid,
+                    c["months"], None))
+    rows.append(cal("1999-01-01, o_orderdate", "months_between", base, None,
+                    date, dvalid))
+    rows.append(cal("timestamps", "months_between", us, dvalid,
+                    us.flip(0), dvalid, True, True))
+    rows.append(cal("o_orderdate", "last_day", date, dvalid))
+    rows.append(cal("o_orderdate", "weekofyear", date, None))
+    rows.append(cal("timestamps", "weekofyear", us, None, xm=True))
+    entries.append(_expr_entry("calendar",
+                               "sail_tpu/plan/compiler.py:1177", rows))
+    del c
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _e3_numpy(li: pa.Table) -> list:
+    """E3 in numpy: (bucket, d10, count, sum(l_orderkey & 7),
+    max(l_orderkey >> 4), sum(l_linenumber | 8), sum(l_suppkey ^
+    l_partkey)) of the first 100 groups by (bucket, d10). The groups are
+    few (buckets of 1000 up to l_extendedprice's 104,950, d10 0 or 1), so
+    one small key a row, a radix sort of it and segment reductions; the
+    float64 bincount sums are exact (below 2^53)."""
+    price = _unscaled(li.column("l_extendedprice"))
+    disc = _unscaled(li.column("l_discount"))
+    okey = li.column("l_orderkey").to_numpy()
+    line = li.column("l_linenumber").to_numpy().astype(np.int64)
+    supp = li.column("l_suppkey").to_numpy()
+    part = li.column("l_partkey").to_numpy()
+    bucket = np.floor((price / 100.0) / 1000.0).astype(np.int64)
+    d10 = -((-(disc * 10)) // 100)
+    if bucket.min() < 0 or d10.min() < 0 or d10.max() > 15 or \
+            bucket.max() > 2000:
+        raise AssertionError("E3: keys outside the oracle's packing")
+    key = (bucket * 16 + d10).astype(np.int16)
+    order = np.argsort(key, kind="stable")  # a radix sort of int16
+    k = key[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    groups = k[starts[:100]].astype(np.int64)
+    counts = np.bincount(key, minlength=int(key.max()) + 1)[groups]
+    width = int(key.max()) + 1
+
+    def total(values):
+        return np.bincount(key, weights=values.astype(np.float64),
+                           minlength=width)[groups].astype(np.int64)
+
+    top = np.maximum.reduceat((okey >> 4)[order], starts)[:100]
+    return [(int(g // 16), int(g % 16), int(c), int(a), int(m), int(b),
+             int(x)) for g, c, a, m, b, x in zip(
+                 groups, counts, total(okey & 7), top, total(line | 8),
+                 total(supp ^ part))]
+
+
+def _add_months_np(days: np.ndarray, k: int) -> np.ndarray:
+    month = days.astype("datetime64[D]").astype("datetime64[M]")
+    day = days - month.astype("datetime64[D]").astype(np.int64)
+    target = month + k
+    length = ((target + 1).astype("datetime64[D]") -
+              target.astype("datetime64[D]")).astype(np.int64)
+    return target.astype("datetime64[D]").astype(np.int64) + \
+        np.minimum(day, length - 1)
+
+
+def _e5_numpy(li: pa.Table) -> list:
+    """E5 in numpy, by l_shipmode in order: (mode, avg datediff(receipt,
+    ship), late count, min(ship + 30), max(commit - 7), max(add_months(
+    ship, 1))), dates as days. add_months is monotone in the date, so the
+    last is add_months of the latest ship date."""
+    def days(name):
+        return np.asarray(li.column(name).combine_chunks().view(pa.int32())
+                          ).astype(np.int64)
+    ship, commit, receipt = days("l_shipdate"), days("l_commitdate"), \
+        days("l_receiptdate")
+    modes = li.column("l_shipmode").combine_chunks()
+    if pa.types.is_dictionary(modes.type):
+        modes = modes.cast(modes.type.value_type)
+    names = sorted(pc.unique(modes).to_pylist())
+    codes = np.asarray(pc.index_in(modes, value_set=pa.array(names)))
+    out = []
+    for k, mode in enumerate(names):
+        m = codes == k
+        s = ship[m]
+        out.append((mode, (receipt[m] - s).sum() / m.sum(),
+                    int((receipt[m] - commit[m] > 0).sum()),
+                    int(s.min() + 30), int(commit[m].max() - 7),
+                    int(_add_months_np(s.max(keepdims=True), 1)[0])))
+    return out
+
+
+def _check_e3(result: pa.Table, li: pa.Table) -> None:
+    want = _e3_numpy(li)
+    got = [(r[0], int(r[1]), *r[2:]) for r in
+           (tuple(x.values()) for x in result.to_pylist())]
+    if got != want:
+        bad = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w) \
+            if len(got) == len(want) else None
+        raise AssertionError(f"E3 differs from numpy at row {bad}: "
+                             f"{got[bad] if bad is not None else len(got)} "
+                             f"!= {want[bad] if bad is not None else len(want)}")
+
+
+def _check_e5(result: pa.Table, li: pa.Table) -> None:
+    want = _e5_numpy(li)
+    epoch = datetime.date(1970, 1, 1)
+    got = [tuple(x.values()) for x in result.to_pylist()]
+    if len(got) != len(want):
+        raise AssertionError(f"E5: {len(got)} rows, numpy {len(want)}")
+    for g, w in zip(got, want):
+        g = (g[0], g[1], g[2], *((d - epoch).days for d in g[3:]))
+        if g[0] != w[0] or g[2:] != w[2:] or \
+                not math.isclose(g[1], w[1], rel_tol=FLOAT_RTOL):
+            raise AssertionError(f"E5: {g} != numpy {w}")
+
+
+def run_expr_path(tables: dict, sf: float, runs: int, profile: bool) -> dict:
+    """Phase 13: E1-E6; E3 and E5 against numpy at full size."""
+    from sail_tpu_torch.benchmarks.expr_queries import KERNELS, QUERIES
+
+    def check(name, result, spark):
+        if name == "e3":
+            _check_e3(result, tables["lineitem"])
+        elif name == "e5":
+            _check_e5(result, tables["lineitem"])
+
+    return run_query_path(tables, sf, runs, profile, QUERIES, KERNELS,
+                          check)
 
 
 # ---------------------------------------------------------------------------
@@ -2137,7 +2506,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from sail_tpu_torch import SparkSession, csrc
+    from sail_tpu_torch.benchmarks.expr_queries import QUERIES as EXPR_SQL
     from sail_tpu_torch.benchmarks.tpch_data import generate_tpch_sf
+    from sail_tpu_torch.benchmarks.window_queries import QUERIES as WINDOW_SQL
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -2175,8 +2546,7 @@ def main() -> int:
     phases["correctness"] = time.perf_counter() - t
 
     t = time.perf_counter()
-    report = run_main_path(tables, args.sf, args.runs,
-                           (small, small_tables, args.check_sf), args.profile)
+    report = run_main_path(tables, args.sf, args.runs, args.profile)
     phases["main_path"] = time.perf_counter() - t
 
     t = time.perf_counter()
@@ -2186,12 +2556,24 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
-    win_checks = check_window_queries(small_tables, args.check_sf)
+    win_checks = check_with_cpu(small_tables, args.check_sf, WINDOW_SQL)
     phases["window_correctness"] = time.perf_counter() - t
 
     t = time.perf_counter()
     win_report = run_window_path(tables, args.sf, args.runs, args.profile)
     phases["window_main_path"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    entries += check_expr_kernels(tables, dev)
+    phases["expr_kernels"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    expr_checks = check_with_cpu(small_tables, args.check_sf, EXPR_SQL)
+    phases["expr_correctness"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    expr_report = run_expr_path(tables, args.sf, args.runs, args.profile)
+    phases["expr_main_path"] = time.perf_counter() - t
     small.stop()
     del tables, small_tables, small
     gc.collect()
@@ -2207,6 +2589,7 @@ def main() -> int:
     phases["clickbench_main_path"] = time.perf_counter() - t
     print(f"phase wall times (s): {phases}", flush=True)
     on_path = {**report["launches_on_path"], **win_report["launches_on_path"],
+               **expr_report["launches_on_path"],
                **cb_report["launches_on_path"]}
     kernels = [dict(name=e["name"], route="cuda", source=e["source"],
                     replaces=e["replaces"],
@@ -2224,6 +2607,7 @@ def main() -> int:
     full = {"main_path": report, "checks": checks, "sf": args.sf,
             "check_sf": args.check_sf, "window": win_report,
             "window_checks": win_checks, "window_functions": win_functions,
+            "expr": expr_report, "expr_checks": expr_checks,
             "clickbench": cb_report,
             "clickbench_checks": cb_checks, "cb_rows": args.cb_rows,
             "cb_check_rows": args.cb_check_rows, "seed": args.seed,
@@ -2234,7 +2618,7 @@ def main() -> int:
         args.report.write_text(json.dumps(full, indent=1))
     print(json.dumps({k: full[k] for k in (
         "main_path", "checks", "sf", "check_sf", "window", "window_checks",
-        "window_functions", "clickbench",
+        "window_functions", "expr", "expr_checks", "clickbench",
         "clickbench_checks", "cb_rows", "cb_check_rows", "seed",
         "phases_s")}))
     print(json.dumps({"kernels": kernels}))

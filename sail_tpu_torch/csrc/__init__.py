@@ -27,7 +27,7 @@ _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
            "join_keys.cu", "join_probe.cu", "join_expand.cu", "bloom.cu",
            "window_bounds.cu", "window_ranks.cu", "window_scan.cu",
-           "window_extreme.cu", "window_perm.cu")
+           "window_extreme.cu", "window_perm.cu", "expr_math.cu")
 _HEADERS = ("common.cuh", "join_keys.cuh", "window.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,6 +36,7 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 LL = ctypes.c_longlong
 ULL = ctypes.c_ulonglong
+D = ctypes.c_double
 # C signature of each library's entry points: {name: argtypes}
 _ENTRY = {
     "seg_reduce.cu": {"sail_seg_reduce": [P, P, P, LL, I, I, I, P, P, I, P],
@@ -70,6 +71,12 @@ _ENTRY = {
                                               LL, P],
                        "sail_window_inverse": [P, P, LL, P, I, P, LL, P],
                        "sail_window_unpermute": [P, LL, P, I, P, P, P]},
+    "expr_math.cu": {"sail_math_unary": [P, I, I, P, LL, I, P, P, I, P],
+                     "sail_round": [P, I, LL, I, I, I, I, D, P, I, P],
+                     "sail_math_binary": [P, I, I, I, P, P, I, I, I, P, LL,
+                                          I, I, P, P, I, P],
+                     "sail_calendar": [P, I, I, P, P, I, I, P, LL, I, P, P,
+                                       I, P]},
 }
 
 

@@ -1,0 +1,574 @@
+// K12-K15: the compiler's elementwise math, rounding, bitwise and calendar
+// builders.
+//
+// Replaces the device programs XLA compiled for sail_tpu/plan/compiler.py's
+// `_unary_math` (:937: sqrt, exp, ln, the trig and hyperbolic functions,
+// cbrt, log1p, expm1, rint, degrees, radians, sign, floor, ceil, abs,
+// negative; with `_isnan_builder` :1378 and the `~` of `_strict_builder`),
+// `_round_builder` (:1313) and `_bround_builder` (:1339) with
+// sail_tpu/functions/kernels.py `round_half_up` (:176), the two-operand
+// `_strict_builder` (:954: atan2, power, hypot, log(base, x), &, |, ^,
+// shiftleft, shiftright) with `_nanvl_builder`, and `_add_months_builder`,
+// `_months_between_builder`, `_last_day_builder` and `_weekofyear_builder`
+// (:1177-1230).
+//
+// Each kernel is one pass over a column of int32, int64 (integers and
+// unscaled decimals, whose scale is an argument) or float64, with an
+// optional bool validity; the operation is an argument uniform across the
+// grid, so no warp diverges on it. Where the reference is wrong the
+// kernels give Spark's answer (sail_tpu_torch/functions/numeric.py lists
+// the cases): a decimal becomes a double as unscaled / 10^s (an exact power
+// of ten) for every operand, abs and negative of a decimal stay exact on
+// the unscaled integer, rounding to negative digits drops whole digits, a
+// logarithm of x <= 0 is NULL, and a shift count is masked to 6 bits (5 for
+// an int).
+//
+// Bound: bytes. Each reads its operands once and writes its result (and a
+// validity where the operation makes one) once: 8-24 bytes a row against a
+// few to a few dozen float64 or int32 operations. A grid-stride loop, one
+// row per thread an iteration, keeps neighbouring threads on neighbouring
+// addresses. K13 loads four rows a thread before it computes any, which
+// ran faster there; in the others it took more registers and ran slower.
+// K14 and K15 are held to 32 registers a thread (__launch_bounds__(256,
+// 8)), so that a full SM's worth of threads keeps loads in flight; K12 and
+// K13 ran slower so, spilling.
+// Integer division by
+// a power of ten goes through one float64 division where the dividend is
+// below 2^52 (exact there), and the calendar works in 32-bit integers
+// (days fit in an int32): 64-bit integer division is many instructions on
+// the card. pow by a constant 2 (E2's power(l_tax, 2)) is x * x.
+
+#include <climits>
+
+#include <math_constants.h>
+
+#include "common.cuh"
+
+namespace {
+
+enum Type { kI32 = 0, kI64 = 1, kF64 = 2 };
+
+__constant__ double kPow10[23] = {
+    1e0,  1e1,  1e2,  1e3,  1e4,  1e5,  1e6,  1e7,  1e8,  1e9,  1e10, 1e11,
+    1e12, 1e13, 1e14, 1e15, 1e16, 1e17, 1e18, 1e19, 1e20, 1e21, 1e22};
+
+__device__ __forceinline__ long long ipow10(int k) {
+  long long p = 1;
+  for (int i = 0; i < k; ++i) p *= 10;
+  return p;
+}
+
+// Column or scalar of type t, as int64 or as double with the decimal scale
+// applied.
+__device__ __forceinline__ long long load_i(const void* p, int t, long long i) {
+  if (t == kI32) return (long long)static_cast<const int*>(p)[i];
+  if (t == kI64) return static_cast<const long long*>(p)[i];
+  return (long long)static_cast<const double*>(p)[i];
+}
+
+__device__ __forceinline__ double load_d(const void* p, int t, int scale,
+                                         long long i) {
+  if (t == kF64) return static_cast<const double*>(p)[i];
+  double v = (double)load_i(p, t, i);
+  return scale ? v / kPow10[scale] : v;
+}
+
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  long long q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// floor(v / f) for f = 10^k: one float64 division where |v| < 2^52 and
+// f < 2^52 (the quotient then rounds to no integer but its own floor's),
+// else the integer division.
+__device__ __forceinline__ long long floor_div_pow10(long long v, long long f) {
+  if (v > -(1ll << 52) && v < (1ll << 52) && f < (1ll << 52))
+    return (long long)floor((double)v / (double)f);
+  return floor_div(v, f);
+}
+
+// Spark's non-ANSI cast of a double to a long: NaN is 0, out of range
+// saturates.
+__device__ __forceinline__ long long sat_i64(double v) {
+  if (isnan(v)) return 0;
+  if (v >= 9.2233720368547758e18) return LLONG_MAX;
+  if (v <= -9.2233720368547758e18) return LLONG_MIN;
+  return (long long)v;
+}
+
+// ---------------------------------------------------------------------------
+// K12: one-operand math
+// ---------------------------------------------------------------------------
+
+enum Unary {
+  kSqrt = 0, kExp, kExpm1, kLn, kLog10, kLog2, kLog1p, kSin, kCos, kTan,
+  kAsin, kAcos, kAtan, kSinh, kCosh, kTanh, kCbrt, kRint, kDegrees,
+  kRadians, kSign, kFloor, kCeil, kIsnan, kNot, kAbs, kNegative
+};
+
+__device__ __forceinline__ double float_op(int op, double x) {
+  switch (op) {
+    case kSqrt: return sqrt(x);
+    case kExp: return exp(x);
+    case kExpm1: return expm1(x);
+    case kLn: return log(x);
+    case kLog10: return log10(x);
+    case kLog2: return log2(x);
+    case kLog1p: return log1p(x);
+    case kSin: return sin(x);
+    case kCos: return cos(x);
+    case kTan: return tan(x);
+    case kAsin: return asin(x);
+    case kAcos: return acos(x);
+    case kAtan: return atan(x);
+    case kSinh: return sinh(x);
+    case kCosh: return cosh(x);
+    case kTanh: return tanh(x);
+    case kCbrt: return cbrt(x);
+    case kRint: return rint(x);
+    case kDegrees: return x * (180.0 / CUDART_PI);
+    case kRadians: return x * (CUDART_PI / 180.0);
+  }
+  // kSign
+  return x > 0.0 ? 1.0 : (x < 0.0 ? -1.0 : x);
+}
+
+__global__ void unary_kernel(const void* __restrict__ x, int t, int scale,
+                 const bool* __restrict__ valid, long long n, int op,
+                 void* __restrict__ out, bool* __restrict__ out_valid) {
+  long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    if (op <= kSign) {
+      double v = load_d(x, t, scale, i);
+      static_cast<double*>(out)[i] = float_op(op, v);
+      if (out_valid != nullptr) {  // the logarithms: NULL at x <= 0
+        bool ok = op == kLog1p ? !(v <= -1.0) : !(v <= 0.0);
+        out_valid[i] = ok && (valid == nullptr || valid[i]);
+      }
+    } else if (op == kFloor || op == kCeil) {
+      long long r;
+      if (t == kF64) {
+        double v = static_cast<const double*>(x)[i];
+        r = sat_i64(op == kFloor ? floor(v) : ceil(v));
+      } else {
+        long long v = load_i(x, t, i), f = ipow10(scale);
+        r = op == kFloor ? floor_div_pow10(v, f) : -floor_div_pow10(-v, f);
+      }
+      static_cast<long long*>(out)[i] = r;
+    } else if (op == kIsnan) {
+      static_cast<bool*>(out)[i] =
+          t == kF64 && isnan(static_cast<const double*>(x)[i]) &&
+          (valid == nullptr || valid[i]);
+    } else if (t == kF64) {  // abs, negative
+      double v = static_cast<const double*>(x)[i];
+      static_cast<double*>(out)[i] = op == kAbs ? fabs(v) : -v;
+    } else {  // ~, abs, negative: exact, two's complement (abs(MIN) = MIN)
+      unsigned long long w = (unsigned long long)load_i(x, t, i);
+      unsigned long long neg = 0ull - w;
+      unsigned long long r = op == kNot ? ~w
+                             : op == kNegative ? neg
+                             : ((long long)w < 0 ? neg : w);
+      if (t == kI32)
+        static_cast<int*>(out)[i] = (int)(unsigned)r;
+      else
+        static_cast<long long*>(out)[i] = (long long)r;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K13: round (half up) and bround (half even)
+// ---------------------------------------------------------------------------
+
+constexpr int kUnroll = 4;  // rows a thread loads before it computes any
+
+__global__ void round_kernel(const void* __restrict__ x, int t, long long n,
+                 int half_even, int digits, int in_scale, int out_scale,
+                 double fscale, void* __restrict__ out) {
+  long long stride = (long long)gridDim.x * blockDim.x;
+  int drop = in_scale - digits;
+  long long f = drop > 0 && drop <= 18 ? ipow10(drop) : 1, half = f / 2;
+  long long up_scale = drop <= 0 ? ipow10(out_scale - in_scale)
+                                 : ipow10(out_scale - digits);
+  for (long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i0 < n; i0 += stride * kUnroll) {
+    double d[kUnroll];
+    long long v[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      long long i = i0 + u * stride;
+      if (i < n) {
+        if (t == kF64)
+          d[u] = static_cast<const double*>(x)[i];
+        else
+          v[u] = load_i(x, t, i);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      long long i = i0 + u * stride;
+      if (i >= n) break;
+      if (t == kF64) {
+        double y = d[u] * fscale, r;
+        if (half_even) {
+          r = rint(y);
+        } else {
+          double s = y > 0.0 ? 1.0 : (y < 0.0 ? -1.0 : y);
+          r = s * floor(fabs(y) + 0.5);
+        }
+        static_cast<double*>(out)[i] = r / fscale;
+        continue;
+      }
+      long long r;
+      if (drop <= 0) {
+        r = v[u] * up_scale;
+      } else if (drop > 18) {
+        r = 0;  // |v| < 10^18 <= half of 10^drop
+      } else {
+        // v = q f + rem, 0 <= rem < f; a half goes to the even q (bround)
+        // or away from zero (round): up from q for v >= 0, down for v < 0
+        long long q = floor_div_pow10(v[u], f);
+        long long rem = (long long)((unsigned long long)v[u] -
+                                    (unsigned long long)q *
+                                        (unsigned long long)f);
+        if (half_even)
+          q += (rem > half || (rem == half && (q & 1))) ? 1 : 0;
+        else
+          q += (v[u] < 0 ? rem > half : rem >= half) ? 1 : 0;
+        r = (long long)((unsigned long long)q * (unsigned long long)up_scale);
+      }
+      if (t == kI32)
+        static_cast<int*>(out)[i] = (int)r;
+      else
+        static_cast<long long*>(out)[i] = r;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K14: two-operand math and bitwise
+// ---------------------------------------------------------------------------
+
+enum Binary {
+  kAtan2 = 0, kHypot, kPower, kLogBase, kAnd, kOr, kXor, kShiftLeft,
+  kShiftRight, kNanvl
+};
+
+struct Operand {
+  const void* data;
+  int type, scale;
+  long long step;  // 1 for a column, 0 for a scalar
+  const bool* valid;
+
+  __device__ __forceinline__ long long i64(long long i) const {
+    return load_i(data, type, i * step);
+  }
+  __device__ __forceinline__ double f64(long long i) const {
+    return load_d(data, type, scale, i * step);
+  }
+  __device__ __forceinline__ bool ok(long long i) const {
+    return valid == nullptr || valid[i * step];
+  }
+};
+
+__global__ void __launch_bounds__(256, 8)
+    binary_kernel(Operand a, Operand b, long long n, int op, int out_type,
+                  void* __restrict__ out, bool* __restrict__ out_valid) {
+  long long stride = (long long)gridDim.x * blockDim.x;
+  bool wide = out_type == kI64;
+  // pow(x, 2) as x * x: the correctly rounded square, where pow is within
+  // an ulp or two of it at several times the cost
+  bool square = op == kPower && b.step == 0 && b.f64(0) == 2.0;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    bool ok = a.ok(i) && b.ok(i);
+    if (op == kNanvl) {
+      double x = a.f64(i);
+      bool is_nan = isnan(x) && a.ok(i);
+      static_cast<double*>(out)[i] = is_nan ? b.f64(i) : x;
+      ok = is_nan ? b.ok(i) : a.ok(i);
+    } else if (op <= kLogBase) {
+      double x = a.f64(i), y = b.f64(i), r;
+      if (op == kAtan2) {
+        r = atan2(x, y);
+      } else if (op == kHypot) {
+        r = hypot(x, y);
+      } else if (op == kPower) {
+        r = square ? x * x : pow(x, y);
+      } else {  // log(base x, value y): NULL where either is <= 0
+        r = log(y) / log(x);
+        ok = ok && !(x <= 0.0) && !(y <= 0.0);
+      }
+      static_cast<double*>(out)[i] = r;
+    } else {
+      long long x = a.i64(i), y = b.i64(i), r;
+      if (op == kAnd) {
+        r = x & y;
+      } else if (op == kOr) {
+        r = x | y;
+      } else if (op == kXor) {
+        r = x ^ y;
+      } else if (op == kShiftLeft) {
+        r = wide ? (long long)((unsigned long long)x << (y & 63))
+                 : (long long)(int)((unsigned)x << (y & 31));
+      } else {  // arithmetic shift right
+        r = wide ? x >> (y & 63) : (long long)((int)x >> (y & 31));
+      }
+      if (wide)
+        static_cast<long long*>(out)[i] = r;
+      else
+        static_cast<int*>(out)[i] = (int)r;
+    }
+    if (out_valid != nullptr) out_valid[i] = ok;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K15: the calendar
+// ---------------------------------------------------------------------------
+
+enum Calendar { kAddMonths = 0, kMonthsBetween, kLastDay, kWeekOfYear };
+
+constexpr int kMicros = 2;  // an operand of local microseconds (int64)
+constexpr long long kDayUs = 86400000000ll;
+
+__device__ __forceinline__ int floor_div32(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// days since 1970-01-01 -> (year, month, day), proleptic Gregorian, in
+// 32-bit integers (Hinnant's algorithm, written for truncating division).
+__device__ __forceinline__ void civil_from_days(int days, int& y, int& m,
+                                                int& d) {
+  int z = days + 719468;
+  int era = (z >= 0 ? z : z - 146096) / 146097;
+  int doe = z - era * 146097;
+  int yoe = (doe - doe / 1460 + doe / 36524 - doe / 146096) / 365;
+  int doy = doe - (365 * yoe + yoe / 4 - yoe / 100);
+  int mp = (5 * doy + 2) / 153;
+  d = doy - (153 * mp + 2) / 5 + 1;
+  m = mp < 10 ? mp + 3 : mp - 9;
+  y = yoe + era * 400 + (m <= 2);
+}
+
+__device__ __forceinline__ int days_from_civil(int y, int m, int d) {
+  y -= m <= 2;
+  int era = (y >= 0 ? y : y - 399) / 400;
+  int yoe = y - era * 400;
+  int mp = m > 2 ? m - 3 : m + 9;
+  int doy = (153 * mp + 2) / 5 + d - 1;
+  int doe = yoe * 365 + yoe / 4 - yoe / 100 + doy;
+  return era * 146097 + doe - 719468;
+}
+
+__device__ __forceinline__ int month_len(int y, int m) {
+  bool leap = (y % 4 == 0 && y % 100 != 0) || y % 400 == 0;
+  return m == 2 ? 28 + leap : 30 + ((m + (m >> 3)) & 1);
+}
+
+// A date (days, int32 or int64) or a timestamp (local µs): its days and the
+// fraction of its day.
+__device__ __forceinline__ int day_of(const Operand& o, long long i,
+                                      double* frac) {
+  if (o.type != kMicros) {
+    *frac = 0.0;
+    return (int)o.i64(i);
+  }
+  long long v = static_cast<const long long*>(o.data)[i * o.step];
+  long long days = floor_div(v, kDayUs);
+  *frac = ((double)(v - days * kDayUs) / 1e6) / 86400.0;
+  return (int)days;
+}
+
+// The first day of each month of 1900-2100 (and of 2101-01), in shared
+// memory: a date in that range finds its month from an estimate and one
+// or two comparisons, where the arithmetic takes a dozen divisions.
+constexpr int kYear0 = 1900;
+constexpr int kMonths = 201 * 12;
+
+struct Civil {
+  int y, m, d;
+  int j;  // month index from 1900-01 in the table, -1 outside it
+};
+
+// The table's index of the month holding ``days``, -1 outside the table:
+// an estimate at 30.436875 days a month, then a step or two.
+__device__ __forceinline__ int month_index(const int* ms, int days) {
+  if (days < ms[0] || days >= ms[kMonths]) return -1;
+  int j = (int)((float)(days - ms[0]) * (1.0f / 30.436875f));
+  j = min(max(j, 0), kMonths - 1);
+  while (ms[j] > days) --j;
+  while (ms[j + 1] <= days) ++j;
+  return j;
+}
+
+__device__ __forceinline__ Civil civil(const int* ms, int days) {
+  Civil c;
+  c.j = month_index(ms, days);
+  if (c.j < 0) {
+    civil_from_days(days, c.y, c.m, c.d);
+    return c;
+  }
+  c.y = kYear0 + c.j / 12;
+  c.m = c.j - (c.y - kYear0) * 12 + 1;
+  c.d = days - ms[c.j] + 1;
+  return c;
+}
+
+__device__ __forceinline__ int length_of(const int* ms, const Civil& c) {
+  return c.j >= 0 ? ms[c.j + 1] - ms[c.j] : month_len(c.y, c.m);
+}
+
+__device__ __forceinline__ int month_start(const int* ms, int y, int m) {
+  int j = (y - kYear0) * 12 + (m - 1);
+  return j >= 0 && j < kMonths ? ms[j] : days_from_civil(y, m, 1);
+}
+
+// One instantiation an operation (OP), so each holds only its own code.
+template <int OP>
+__global__ void __launch_bounds__(256, 8)
+    calendar_kernel(Operand a, Operand b, long long n,
+                    void* __restrict__ out, bool* __restrict__ out_valid) {
+  constexpr int op = OP;
+  __shared__ int ms[kMonths + 1];
+  for (int j = threadIdx.x; j <= kMonths; j += blockDim.x)
+    ms[j] = days_from_civil(kYear0 + j / 12, j % 12 + 1, 1);
+  __syncthreads();
+  long long stride = (long long)gridDim.x * blockDim.x;
+  bool two = op == kAddMonths || op == kMonthsBetween;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    double f1, f2 = 0.0;
+    int days = day_of(a, i, &f1);
+    if (op == kWeekOfYear) {  // ISO week: the week of its Thursday
+      int dow = days + 3 - floor_div32(days + 3, 7) * 7;  // Monday 0
+      int thursday = days - dow + 3;
+      Civil t = civil(ms, thursday);
+      static_cast<int*>(out)[i] =
+          (thursday - month_start(ms, t.y, 1)) / 7 + 1;
+    } else {
+      int k = op == kAddMonths ? (int)b.i64(i) : 0;
+      int j = op == kMonthsBetween ? -1 : month_index(ms, days);
+      if (op == kAddMonths && j >= 0 && j + k >= 0 && j + k < kMonths) {
+        // within the table: the day of the month, then the target month's
+        // start and length
+        int start = ms[j + k];
+        int len = ms[j + k + 1] - start;
+        static_cast<int*>(out)[i] = start + min(days - ms[j] + 1, len) - 1;
+      } else if (op == kLastDay && j >= 0) {
+        static_cast<int*>(out)[i] = ms[j + 1] - 1;
+      } else if (op != kMonthsBetween) {
+        int y, m, d;
+        civil_from_days(days, y, m, d);
+        if (op == kAddMonths) {
+          int months = y * 12 + (m - 1) + k;
+          int ny = floor_div32(months, 12);
+          int nm = months - ny * 12 + 1;
+          static_cast<int*>(out)[i] =
+              days_from_civil(ny, nm, min(d, month_len(ny, nm)));
+        } else {
+          static_cast<int*>(out)[i] = days - d + month_len(y, m);
+        }
+      } else {
+        Civil c = civil(ms, days);
+        Civil c2 = civil(ms, day_of(b, i, &f2));
+        // whole months on the same day of the month, or on the last day
+        // of both months (time of day ignored); else 31 days a month
+        bool whole = c.d == c2.d || (c.d == length_of(ms, c) &&
+                                     c2.d == length_of(ms, c2));
+        double months = (double)((c.y - c2.y) * 12 + (c.m - c2.m));
+        double r = months +
+                   (whole ? 0.0 : ((double)(c.d - c2.d) + f1 - f2) / 31.0);
+        static_cast<double*>(out)[i] = rint(r * 1e8) / 1e8;
+      }
+    }
+    if (out_valid != nullptr) out_valid[i] = a.ok(i) && (!two || b.ok(i));
+  }
+}
+
+bool bad_type(int t) { return t < kI32 || t > kF64; }
+
+}  // namespace
+
+// K12. type: 0 int32, 1 int64, 2 float64; scale: the decimal scale of an
+// int64 of unscaled decimals (0 otherwise); out_valid: written by the
+// logarithms only (else null).
+extern "C" int sail_math_unary(const void* x, int type, int scale,
+                               const void* valid, long long n, int op,
+                               void* out, void* out_valid, int grid,
+                               void* stream) {
+  if (bad_type(type) || scale < 0 || scale > 18 || op < kSqrt ||
+      op > kNegative)
+    return (int)cudaErrorInvalidValue;
+  unary_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, type, scale, static_cast<const bool*>(valid), n, op, out,
+      static_cast<bool*>(out_valid));
+  return (int)cudaGetLastError();
+}
+
+// K13. half_even: 0 round, 1 bround; fscale = 10.0 ** digits (doubles).
+extern "C" int sail_round(const void* x, int type, long long n, int half_even,
+                          int digits, int in_scale, int out_scale,
+                          double fscale, void* out, int grid, void* stream) {
+  if (bad_type(type) || in_scale < 0 || in_scale > 18 || out_scale < 0 ||
+      out_scale > 18 || out_scale - digits > 18 || out_scale < in_scale - 18)
+    return (int)cudaErrorInvalidValue;
+  round_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, type, n, half_even, digits, in_scale, out_scale, fscale, out);
+  return (int)cudaGetLastError();
+}
+
+// K14. Each operand: data, type, decimal scale, scalar flag (read row 0 for
+// every row), validity or null. out_type: 0 int32, 1 int64, 2 float64.
+extern "C" int sail_math_binary(const void* x, int x_type, int x_scale,
+                                int x_scalar, const void* x_valid,
+                                const void* y, int y_type, int y_scale,
+                                int y_scalar, const void* y_valid,
+                                long long n, int op, int out_type, void* out,
+                                void* out_valid, int grid, void* stream) {
+  if (bad_type(x_type) || bad_type(y_type) || bad_type(out_type) ||
+      x_scale < 0 || x_scale > 18 || y_scale < 0 || y_scale > 18 ||
+      op < kAtan2 || op > kNanvl)
+    return (int)cudaErrorInvalidValue;
+  Operand a{x, x_type, x_scale, x_scalar ? 0ll : 1ll,
+            static_cast<const bool*>(x_valid)};
+  Operand b{y, y_type, y_scale, y_scalar ? 0ll : 1ll,
+            static_cast<const bool*>(y_valid)};
+  binary_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, n, op, out_type, out, static_cast<bool*>(out_valid));
+  return (int)cudaGetLastError();
+}
+
+// K15. x_type, y_type: 0 int32 days (or months), 1 int64 days (or months),
+// 2 int64 local microseconds.
+extern "C" int sail_calendar(const void* x, int x_type, int x_scalar,
+                             const void* x_valid, const void* y, int y_type,
+                             int y_scalar, const void* y_valid, long long n,
+                             int op, void* out, void* out_valid, int grid,
+                             void* stream) {
+  if (bad_type(x_type) || bad_type(y_type) || op < kAddMonths ||
+      op > kWeekOfYear)
+    return (int)cudaErrorInvalidValue;
+  Operand a{x, x_type, 0, x_scalar ? 0ll : 1ll,
+            static_cast<const bool*>(x_valid)};
+  Operand b{y, y_type, 0, y_scalar ? 0ll : 1ll,
+            static_cast<const bool*>(y_valid)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool* ov = static_cast<bool*>(out_valid);
+  switch (op) {
+    case kAddMonths:
+      calendar_kernel<kAddMonths><<<grid, 256, 0, s>>>(a, b, n, out, ov);
+      break;
+    case kMonthsBetween:
+      calendar_kernel<kMonthsBetween><<<grid, 256, 0, s>>>(a, b, n, out, ov);
+      break;
+    case kLastDay:
+      calendar_kernel<kLastDay><<<grid, 256, 0, s>>>(a, b, n, out, ov);
+      break;
+    default:
+      calendar_kernel<kWeekOfYear><<<grid, 256, 0, s>>>(a, b, n, out, ov);
+  }
+  return (int)cudaGetLastError();
+}

@@ -108,6 +108,9 @@ class LocalExecutor:
         self.dict_tables = DictTables() if dict_tables is None \
             else dict_tables
         self.runtime_filters: List[dict] = []
+        # the rows (live and dead) each join of the plan put out, in the
+        # order they ran: what a join order makes the card hold
+        self.join_rows: List[int] = []
         self._subquery_cache: Dict[int, LV] = {}
         # per-fid (rows before, rows after as a device scalar) of the
         # runtime-filter conjuncts applied at a scan of this plan
@@ -124,7 +127,10 @@ class LocalExecutor:
         if method is None:
             raise NotImplementedError(
                 f"{type(plan).__name__} is not ported yet")
-        return method(plan)
+        out = method(plan)
+        if isinstance(plan, pn.JoinExec):
+            self.join_rows.append(int(out.device.sel.shape[0]))
+        return out
 
     # -- scalar subqueries ----------------------------------------------------
     def _pre_eval_subqueries(self, plan: pn.PlanNode) -> None:
@@ -141,6 +147,7 @@ class LocalExecutor:
         inner._subquery_cache = self._subquery_cache
         table = inner.execute(sub.plan)
         self.runtime_filters.extend(inner.runtime_filters)
+        self.join_rows.extend(inner.join_rows)
         if table.num_rows == 0:
             return LV(sub.dtype, None)
         if table.num_rows > 1:
@@ -510,9 +517,9 @@ class LocalExecutor:
                     default = LV(arg.dtype, default).physical_value()
                 d, v = wink.shift(ctx, arg, int(opts["offset"]), default)
             elif f == "nth_value":
-                peer = ctx.peer_end if s.frame_type == "range" or \
-                    s.frame_lower is None else None
-                d, v = wink.nth(ctx, arg, int(opts["n"]), peer)
+                d, v = wink.nth(ctx, arg, int(opts["n"]),
+                                _range_peer(ctx, s), s.frame_lower,
+                                s.frame_upper)
             else:
                 d, v = self._framed_window(ctx, s, arg, src_dict)
             tdt = physical_torch_dtype(s.out_dtype)
@@ -532,15 +539,9 @@ class LocalExecutor:
             rank_of, inverse = self._dict_order(dictionary)
             arg = Column(rank_of[arg.data.long()], arg.validity,
                          dt.IntegerType())
-        peer = None
-        if s.frame_type == "range":
-            if s.frame_lower is None and s.frame_upper == 0:
-                peer = ctx.peer_end
-            elif not (s.frame_lower is None and s.frame_upper is None):
-                raise NotImplementedError(
-                    "RANGE frames with value offsets are not supported yet")
         d, v = wink.framed_agg(ctx, arg, f, s.frame_lower, s.frame_upper,
-                               peer)
+                               _range_peer(ctx, s),
+                               bool(dict(s.options).get("ignore_nulls")))
         if inverse is not None:
             d = inverse[torch.clamp(d, 0, len(dictionary) - 1).long()]
         if f == "avg" and isinstance(arg.dtype, dt.DecimalType):
@@ -1043,6 +1044,19 @@ class LocalExecutor:
                 dicts[_col_name(n_left + i)] = right.dicts[_col_name(i)]
         return HostBatch(DeviceBatch(cols, torch.ones(
             total, dtype=torch.bool, device=self.device)), dicts)
+
+
+def _range_peer(ctx, s: pn.WindowSpec):
+    """The peer ends a RANGE frame that ends at the current row reads
+    (None for ROWS frames and unbounded RANGE frames)."""
+    if s.frame_type != "range":
+        return None
+    if s.frame_lower is None and s.frame_upper == 0:
+        return ctx.peer_end
+    if s.frame_lower is None and s.frame_upper is None:
+        return None
+    raise NotImplementedError(
+        "RANGE frames with value offsets are not supported yet")
 
 
 def _positional(hb: HostBatch) -> HostBatch:

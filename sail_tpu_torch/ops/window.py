@@ -874,19 +874,21 @@ def shift(ctx: WindowContext, value: Column, offset: int, default=None):
     return _to_rows(ctx, value.data.dtype, data, ok)
 
 
-def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None):
-    """nth_value: the value at the n-th row of the frame (frame start =
-    partition start; the default RANGE frame ends at the current row's
-    LAST PEER, so pass peer_end from peer_group_end). In sorted order,
-    read at seg_start + n - 1, then to row order.
+def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None,
+        lower: Optional[int] = None, upper: Optional[int] = 0):
+    """nth_value: the value at the n-th row of each row's frame [lower,
+    upper] (``framed_agg``'s frames: None unbounded, ``peer_end`` with
+    upper 0 ends a RANGE frame at the current row's last peer; by default
+    the partition start to the current row), NULL where the frame holds
+    fewer than n rows. In sorted order, read at the frame's first
+    position + n - 1, then to row order.
 
-    Replaces ``sail_tpu/ops/window.py`` ``nth`` (:188), in its shape."""
+    Replaces ``sail_tpu/ops/window.py`` ``nth`` (:188), in its shape; the
+    reference counts from the partition start whatever the frame."""
     vals, valid = ctx.sorted_values(value.data, value.validity)
-    ss = ctx.seg_start.to(torch.int64)
-    src = ss + (n_th - 1)
-    end = _positions(ss) if peer_end is None else peer_end.to(torch.int64)
-    ok = (end - ss >= n_th - 1) & (src <= ctx.seg_end)
-    return _read_sorted(ctx, value, vals, valid, src, ok)
+    lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
+    src = lo + (n_th - 1)
+    return _read_sorted(ctx, value, vals, valid, src, src <= hi)
 
 
 def _read_sorted(ctx: WindowContext, value: Column, vals: torch.Tensor,
@@ -1303,9 +1305,22 @@ def _kernel_values(vals: torch.Tensor) -> torch.Tensor:
         torch.bool, torch.int8, torch.int16) else vals
 
 
+def _nearest_valid(valid: torch.Tensor, at: torch.Tensor, forward: bool
+                   ) -> torch.Tensor:
+    """The first position >= ``at`` (``forward``) or the last <= ``at``
+    where ``valid`` (sorted order) holds; len(valid) or -1 where none."""
+    n = valid.shape[0]
+    pos = _positions(valid)
+    if forward:
+        nxt = torch.where(valid, pos, n).flip(0).cummin(0).values.flip(0)
+        return torch.where(at < n, _at(nxt, at), n)
+    prv = torch.where(valid, pos, -1).cummax(0).values
+    return torch.where(at >= 0, _at(prv, at), -1)
+
+
 def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
                lower: Optional[int], upper: Optional[int],
-               peer_end=None):
+               peer_end=None, ignore_nulls: bool = False):
     """Aggregate over a frame [lower, upper] relative to the current row
     (None = unbounded), in row order. ROWS semantics by default; passing
     ``peer_end`` (from peer_group_end) with upper 0 gives RANGE semantics
@@ -1316,7 +1331,8 @@ def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
     the segment start, backward where it ends at the segment end (a float
     sum then subtracts nothing, so no NaN or infinity from outside the
     frame reaches it). count: K10's count scan; first and last: the
-    sorted values read at the frame's first or last position. The values
+    sorted values read at the frame's first or last position (with
+    ``ignore_nulls``, its first or last non-null one). The values
     and their validity go into sorted order once per context
     (``ctx.sorted_values``): MIN and MAX of one column, and every
     lag/lead/nth/first/last over it, share them."""
@@ -1324,8 +1340,11 @@ def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
     if fn in ("first", "last"):
         lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
         vals, valid = ctx.sorted_values(value.data, valid)
-        return _read_sorted(ctx, value, vals, valid,
-                            lo if fn == "first" else hi, hi >= lo)
+        at = lo if fn == "first" else hi
+        if ignore_nulls and valid is not None:
+            at = _nearest_valid(valid, at, fn == "first")
+        return _read_sorted(ctx, value, vals, valid, at,
+                            (hi >= lo) & (at >= lo) & (at <= hi))
     if fn == "count":
         return window_frame(ctx, None, ctx.count_scan(valid), "count", lower,
                             upper, peer_end)

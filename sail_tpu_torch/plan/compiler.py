@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import datetime
 import decimal
+import hashlib
 import re
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -40,6 +41,9 @@ import torch
 from ..columnar.arrow_interop import dictionary_ranks, unify_dictionaries
 from ..columnar.batch import physical_torch_dtype
 from ..functions import kernels as K
+from ..functions import numeric as NUM
+from ..functions.numeric import civil_from_days, days_from_civil
+from ..functions.numeric import month_len as _month_len
 from ..spec import data_type as dt
 from ..spec.literal import Literal as LV
 from ..utils.tz import session_timezone_name
@@ -777,44 +781,40 @@ _STRING_TRANSFORMS: Dict[str, Callable] = {
     "translate": lambda v, frm, to: v.translate(
         str.maketrans(frm[: len(to)], to[: len(frm)])),
     "space_trimmed_length": lambda v: len(v.rstrip()),
+    "soundex": lambda v: _soundex(v),
+    "md5": lambda v: hashlib.md5(v.encode()).hexdigest(),
+    "sha1": lambda v: hashlib.sha1(v.encode()).hexdigest(),
+    "sha2": lambda v, bits=256: hashlib.new(f"sha{int(bits) or 256}",
+                                            v.encode()).hexdigest(),
 }
+
+
+def _soundex(s: str) -> str:
+    """American Soundex, as Spark's ``soundex``: the first letter, then
+    the codes of the letters after it, a code not repeated across
+    neighbours (nor across an H or a W between them), padded or cut to
+    four characters."""
+    if not s:
+        return s
+    s = s.upper()
+    codes = {"B": "1", "F": "1", "P": "1", "V": "1",
+             "C": "2", "G": "2", "J": "2", "K": "2", "Q": "2", "S": "2",
+             "X": "2", "Z": "2", "D": "3", "T": "3", "L": "4",
+             "M": "5", "N": "5", "R": "6"}
+    out = s[0]
+    prev = codes.get(s[0], "")
+    for ch in s[1:]:
+        c = codes.get(ch, "")
+        if c and c != prev:
+            out += c
+        if ch not in "HW":
+            prev = c
+    return (out + "000")[:4]
 
 
 # ---------------------------------------------------------------------------
 # temporal helpers (proleptic Gregorian; days since 1970-01-01)
 # ---------------------------------------------------------------------------
-
-def civil_from_days(z: torch.Tensor):
-    """days → (year, month, day) — vectorized Hinnant algorithm."""
-    z = z.to(torch.int64) + 719468
-    era = torch.where(z >= 0, z, z - 146096) // 146097
-    doe = z - era * 146097
-    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
-    y = yoe + era * 400
-    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
-    mp = (5 * doy + 2) // 153
-    d = doy - (153 * mp + 2) // 5 + 1
-    m = torch.where(mp < 10, mp + 3, mp - 9)
-    y = torch.where(m <= 2, y + 1, y)
-    return y, m, d
-
-
-def days_from_civil(y, m, d):
-    y = y - (m <= 2).to(y.dtype)
-    era = torch.where(y >= 0, y, y - 399) // 400
-    yoe = y - era * 400
-    mp = torch.where(m > 2, m - 3, m + 9)
-    doy = (153 * mp + 2) // 5 + d - 1
-    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
-    return era * 146097 + doe - 719468
-
-
-def _month_len(y, m):
-    lengths = torch.tensor([31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31],
-                           dtype=torch.int64, device=m.device)
-    leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
-    return torch.where((m == 2) & leap, 29, lengths[m - 1])
-
 
 def _utc_offset(us: torch.Tensor, d: dt.DataType) -> torch.Tensor:
     """Per-value session-zone UTC offset (microseconds) for tz-aware
@@ -1131,6 +1131,166 @@ def _rtf_member_builder(args, r):
     return fn
 
 
+def _math_unary(op: str):
+    """K12 (``functions/numeric.py`` ``math_unary``) over one operand, a
+    decimal read at its scale."""
+    def build(args, r):
+        (a,) = args
+        scale = _decimal_scale(a.dtype) or 0
+        tdt = physical_torch_dtype(r.dtype)
+
+        def fn(cols):
+            x, v = a.fn(cols)
+            out, ok = NUM.math_unary(x, v, op, scale)
+            return out.to(tdt), ok
+
+        return fn
+
+    return build
+
+
+def _math_binary(op: str):
+    """K14 (``functions/numeric.py`` ``math_binary``) over two operands,
+    each decimal read at its own scale."""
+    def build(args, r):
+        a, b = args
+        sa, sb = _decimal_scale(a.dtype) or 0, _decimal_scale(b.dtype) or 0
+        tdt = physical_torch_dtype(r.dtype)
+
+        def fn(cols):
+            (x, xv), (y, yv) = a.fn(cols), b.fn(cols)
+            out, ok = NUM.math_binary(x, xv, y, yv, op, sa, sb)
+            return out.to(tdt), ok
+
+        return fn
+
+    return build
+
+
+def _log_builder(args, r):
+    """log(x) is ln; log(base, x) is K14's log."""
+    if len(args) == 1:
+        return _math_unary("ln")(args, r)
+    return _math_binary("log")(args, r)
+
+
+def _nanvl_builder(args, r):
+    a, b = args
+    if not isinstance(a.dtype, (dt.DoubleType, dt.FloatType)):
+        return a.fn  # no NaN to replace
+    return _math_binary("nanvl")(args, r)
+
+
+def _round_builder(half_even: bool):
+    """round (half up) and bround (half even): K13
+    (``functions/numeric.py`` ``round_number``); digits a literal."""
+    def build(args, r):
+        a = args[0]
+        digits = 0
+        if len(args) > 1:
+            lit = _extract_literal(args[1])
+            if lit is None:
+                raise _unported(r, "round digits that are not a literal")
+            digits = int(lit)
+        s = _decimal_scale(a.dtype)
+        so = _decimal_scale(r.dtype)
+        tdt = physical_torch_dtype(r.dtype)
+
+        def fn(cols):
+            x, v = a.fn(cols)
+            if s is not None:
+                out = NUM.round_number(x, half_even, digits, s,
+                                       s if so is None else so)
+            else:
+                out = NUM.round_number(x, half_even, digits)
+            return out.to(tdt), v
+
+        return fn
+
+    return build
+
+
+def _calendar_builder(op: str):
+    """add_months, months_between, last_day, weekofyear: K15
+    (``functions/numeric.py`` ``calendar``); a timestamp goes in as local
+    microseconds."""
+    def build(args, r):
+        if op == "months_between" and len(args) != 2:
+            raise _unported(r, "months_between with its roundOff flag")
+        a = args[0]
+        b = args[1] if len(args) > 1 else None
+
+        def operand(c: Compiled, data: torch.Tensor):
+            if isinstance(c.dtype, dt.TimestampType):
+                return _local_us(data, c.dtype), True
+            return data, False
+
+        def fn(cols):
+            xd, xv = a.fn(cols)
+            x, x_us = operand(a, xd)
+            if b is None:
+                return NUM.calendar(x, xv, op, x_micros=x_us)
+            yd, yv = b.fn(cols)
+            if op == "add_months":  # a count of months
+                return NUM.calendar(x, xv, op, yd, yv, x_us)
+            y, y_us = operand(b, yd)
+            return NUM.calendar(x, xv, op, y, yv, x_us, y_us)
+
+        return fn
+
+    return build
+
+
+def _day_arith(op: str):
+    """datediff, date_add, date_sub: one integer subtraction or addition
+    of days (torch ops)."""
+    def build(args, r):
+        a, b = args
+
+        def fn(cols):
+            (xd, xv), (yd, yv) = a.fn(cols), b.fn(cols)
+            x, y = _to_days(xd, a.dtype), yd.to(torch.int64)
+            if op == "datediff":
+                y = _to_days(yd, b.dtype)
+            out = x - y if op in ("datediff", "date_sub") else x + y
+            return out.to(torch.int32), K.merge_validity(xv, yv)
+
+        return fn
+
+    return build
+
+
+def _nvl2_builder(args, r):
+    """nvl2(c, t, f): t where c is not NULL, else f (one select)."""
+    cond, t, f = args
+    tdt = physical_torch_dtype(r.dtype)
+
+    def fn(cols):
+        cd, cv = cond.fn(cols)
+        not_null = torch.ones_like(cd, dtype=torch.bool) if cv is None \
+            else cv
+        (td, tv), (fd, fv) = t.fn(cols), f.fn(cols)
+        return K.if_((not_null, None), (td.to(tdt), tv), (fd.to(tdt), fv))
+
+    return fn
+
+
+def _sample_mask_builder(args, r):
+    """TABLESAMPLE's row mask: splitmix64 of the row index and the seed
+    (``functions/numeric.py`` ``sample_mask``, torch ops)."""
+    frac_c, seed_c = args
+    fraction, seed = _extract_literal(frac_c), _extract_literal(seed_c)
+    if fraction is None or seed is None:
+        raise _unported(r, "a sample fraction or seed that is not a literal")
+
+    def fn(cols):
+        n = cols[0][0].shape[0] if cols else 8
+        device = cols[0][0].device if cols else torch.device("cpu")
+        return NUM.sample_mask(n, float(fraction), int(seed), device), None
+
+    return fn
+
+
 def _strict1(k):
     def build(args, r):
         (a,) = args
@@ -1193,4 +1353,20 @@ _BUILDERS: Dict[str, Callable] = {
     "trunc": _trunc_builder,
     "date_trunc": _trunc_builder,
     "rtf_member": _rtf_member_builder,
+    "datediff": _day_arith("datediff"),
+    "date_add": _day_arith("date_add"),
+    "date_sub": _day_arith("date_sub"),
+    "round": _round_builder(half_even=False),
+    "bround": _round_builder(half_even=True),
+    "log": _log_builder,
+    "nanvl": _nanvl_builder,
+    "nvl2": _nvl2_builder,
+    "sample_mask": _sample_mask_builder,
 }
+_BUILDERS.update({op: _math_unary(op) for op in NUM.UNARY_OPS})
+_BUILDERS.update({op: _math_binary(op) for op in NUM.BINARY_OPS
+                  if op not in ("log", "nanvl")})
+_BUILDERS.update({op: _calendar_builder(op) for op in NUM.CALENDAR_OPS})
+# Spark's other names
+_BUILDERS.update({"ceiling": _BUILDERS["ceil"], "signum": _BUILDERS["sign"],
+                  "week": _BUILDERS["weekofyear"]})

@@ -17,9 +17,19 @@ sail-cache statistics cache is the eventual source):
   parquet scans, a large default otherwise
 - filters: per-conjunct selectivity guesses (equality 0.05, IN 0.2,
   range 0.3, LIKE 0.25, other 0.25)
-- equi joins: |A ⋈ B| = |A|·|B| / Π_e max(ndv_a(e), ndv_b(e)), with
-  ndv of a key approximated by the unfiltered base rows of its leaf —
-  exact for PK/FK equi joins, conservative elsewhere
+- equi joins: |A ⋈ B| = |A|·|B| / Π_c ndv(c) over the key classes c
+  the join's keys fall in. A class holds the key columns that the
+  query's equalities make equal (``c_nationkey = s_nationkey`` and
+  ``s_nationkey = n_nationkey``: one class); its ndv is the unfiltered
+  base rows of its smallest leaf, the one taken to own the key (nation).
+  A join where neither side owns its keys (supplier ⋈ customer on their
+  nation) grows with the product of the sides, so with the square of
+  the scale factor: the greedy order takes one only where no other
+  connected leaf is left.
+- cross joins inside an inner-join tree are flattened with it, so a
+  written ``FROM part, supplier, partsupp`` is reordered by its
+  predicates, and a cross join stays only between leaves that no
+  predicate connects.
 """
 
 from __future__ import annotations
@@ -84,6 +94,12 @@ def _is_reorderable(j: pn.JoinExec) -> bool:
     return j.join_type == "inner" and not j.null_aware and bool(j.left_keys)
 
 
+def _is_flattenable(j: pn.JoinExec) -> bool:
+    """A join below a reorderable root that joins its tree: inner, with
+    keys or without (a cross join)."""
+    return j.join_type in ("inner", "cross") and not j.null_aware
+
+
 def _reorder_tree(root: pn.JoinExec, est: EstFn = None) -> pn.PlanNode:
     leaves: List[_Leaf] = []
     edges: List[_Edge] = []
@@ -118,7 +134,7 @@ def _reorder_tree(root: pn.JoinExec, est: EstFn = None) -> pn.PlanNode:
 def _collect(p: pn.PlanNode, leaves, edges, residuals, offset,
              est: EstFn = None) -> bool:
     """Flatten an inner-join tree; returns False on unsupported shapes."""
-    if isinstance(p, pn.JoinExec) and _is_reorderable(p):
+    if isinstance(p, pn.JoinExec) and _is_flattenable(p):
         wl = len(p.left.schema)
         if not _collect(p.left, leaves, edges, residuals, offset, est):
             return False
@@ -355,19 +371,84 @@ def clear_observed_rows() -> None:
 # greedy ordering + tree construction
 # ---------------------------------------------------------------------------
 
-def _join_card(rows_a: float, rows_b: float,
-               ndvs: List[Tuple[float, float]]) -> float:
-    card = rows_a * rows_b
-    for na, nb in ndvs:
-        # a join key's distinct count is bounded by the PK side's size:
-        # ndv(fk) ≈ ndv(pk) ≈ min(base_a, base_b)
-        card /= max(min(na, nb), 1.0)
-    return max(card, 1.0)
+def _key_classes(edges: List[_Edge]) -> List[int]:
+    """The class of each edge: edges whose key columns the equalities make
+    equal share one (union-find over (leaf, key expression))."""
+    parent: Dict[tuple, tuple] = {}
+
+    def find(x):
+        parent.setdefault(x, x)
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    ends = [((e.a, pn._rex_str(e.a_expr)), (e.b, pn._rex_str(e.b_expr)))
+            for e in edges]
+    for x, y in ends:
+        parent[find(x)] = find(y)
+    roots: Dict[tuple, int] = {}
+    return [roots.setdefault(find(x), len(roots)) for x, _ in ends]
+
+
+class _KeyModel:
+    """Which leaves own which keys, and the distinct count of each key
+    class (see the module docstring)."""
+
+    def __init__(self, leaves: List[_Leaf], edges: List[_Edge]):
+        self.leaves = leaves
+        self.cls = _key_classes(edges)
+        self.carriers: Dict[int, set] = {}
+        for e, c in zip(edges, self.cls):
+            self.carriers.setdefault(c, set()).update((e.a, e.b))
+        self.ndv = {c: min(leaves[i].base_rows for i in ls)
+                    for c, ls in self.carriers.items()}
+        self.edge_class = {id(e): c for e, c in zip(edges, self.cls)}
+
+    def owns(self, leaf: int, classes: frozenset) -> bool:
+        """``leaf`` is the smallest of the leaves that carry every key
+        class of ``classes``: its rows are taken as unique on them."""
+        holders = set.intersection(*(self.carriers[c] for c in classes))
+        return leaf in holders and self.leaves[leaf].base_rows <= min(
+            self.leaves[i].base_rows for i in holders)
+
+    def join(self, rows_s: float, grain: frozenset, r: int,
+             es: List[_Edge]):
+        """(linear, estimated rows, new grain) of joining leaf ``r`` to a
+        set of ``rows_s`` rows whose rows each ``grain`` leaf's row
+        appears in at most once, through edges ``es``."""
+        by_leaf: Dict[int, set] = {}
+        for e in es:
+            other = e.b if e.a == r else e.a
+            by_leaf.setdefault(other, set()).add(self.edge_class[id(e)])
+        classes = frozenset(self.edge_class[id(e)] for e in es)
+        r_unique = self.owns(r, classes) or any(
+            self.owns(r, frozenset(k)) for k in by_leaf.values())
+        s_unique = any(leaf in grain and self.owns(leaf, frozenset(k))
+                       for leaf, k in by_leaf.items())
+        card = rows_s * self.leaves[r].rows
+        for c in classes:
+            card /= max(self.ndv[c], 1.0)
+        if r_unique:
+            card = min(card, rows_s)
+        if s_unique:
+            card = min(card, self.leaves[r].rows)
+        if r_unique and s_unique:
+            grain = grain | {r}
+        elif s_unique:
+            grain = frozenset((r,))
+        elif not r_unique:
+            grain = frozenset()
+        return r_unique or s_unique, max(card, 1.0), grain
 
 
 def _greedy(leaves: List[_Leaf], edges: List[_Edge], residuals):
+    """Greedy operator ordering: seed with the connected pair of smallest
+    estimated output, then add the connected leaf of smallest estimated
+    output; a join that grows faster than its larger side (neither side
+    owns the keys) only where every connected candidate does."""
     n = len(leaves)
-    remaining = set(range(n))
+    model = _KeyModel(leaves, edges)
     by_pair: Dict[Tuple[int, int], List[_Edge]] = {}
     for e in edges:
         key = (min(e.a, e.b), max(e.a, e.b))
@@ -376,18 +457,18 @@ def _greedy(leaves: List[_Leaf], edges: List[_Edge], residuals):
     # seed: the connected pair with the smallest estimated join output
     best = None
     for (a, b), es in by_pair.items():
-        ndvs = [(leaves[e.a].base_rows, leaves[e.b].base_rows) for e in es]
-        card = _join_card(leaves[a].rows, leaves[b].rows, ndvs)
-        if best is None or card < best[0]:
-            best = (card, a, b)
+        if leaves[b].rows < leaves[a].rows:
+            a, b = b, a  # smaller side leads (build side of the first join)
+        linear, card, grain = model.join(leaves[a].rows, frozenset((a,)), b,
+                                         es)
+        cand = (not linear, card, a, b, grain)
+        if best is None or cand[:2] < best[:2]:
+            best = cand
     if best is None:
         return None, None
-    card, a, b = best
-    if leaves[b].rows < leaves[a].rows:
-        a, b = b, a  # smaller side leads (build side of the first join)
+    _, cur_rows, a, b, grain = best
     order = [a, b]
-    remaining -= {a, b}
-    cur_rows = card
+    remaining = set(range(n)) - {a, b}
 
     while remaining:
         in_set = set(order)
@@ -398,16 +479,14 @@ def _greedy(leaves: List[_Leaf], edges: List[_Edge], residuals):
                   or (e.b == r and e.a in in_set)]
             if not es:
                 continue
-            ndvs = [(leaves[e.a].base_rows, leaves[e.b].base_rows)
-                    for e in es]
-            c = _join_card(cur_rows, leaves[r].rows, ndvs)
-            if cand is None or c < cand[0]:
-                cand = (c, r)
+            linear, c, g = model.join(cur_rows, grain, r, es)
+            if cand is None or (not linear, c) < cand[:2]:
+                cand = (not linear, c, r, g)
         if cand is None:
             # disconnected: take the smallest remaining as a cross join
             r = min(remaining, key=lambda i: leaves[i].rows)
-            cand = (cur_rows * leaves[r].rows, r)
-        cur_rows, r = cand
+            cand = (True, cur_rows * leaves[r].rows, r, frozenset())
+        _, cur_rows, r, grain = cand
         order.append(r)
         remaining.discard(r)
 

@@ -894,6 +894,9 @@ class Resolver:
                     at = dt.LongType()
                 out_t = freg.aggregate_result_type(
                     "avg" if canon == "avg" else canon, at)
+                if canon in ("first", "last") and f.ignore_nulls:
+                    # first(v, true): the parser's ignore_nulls
+                    options.append(("ignore_nulls", True))
             else:
                 raise ResolutionError(f"window function {fname!r} not supported")
             frame_type = "rows"
@@ -903,7 +906,7 @@ class Resolver:
                 frame_type = w.frame.frame_type
                 lower, upper = w.frame.lower, w.frame.upper
             elif fname in ("sum", "count", "min", "max", "avg", "first",
-                           "last"):
+                           "last", "nth_value"):
                 if not w.order_by:
                     upper = None  # whole partition when no ORDER BY
                 else:

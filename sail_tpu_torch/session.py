@@ -86,6 +86,9 @@ class SparkSession:
         # the runtime filters the last query built, with the rows each saw
         # and kept (LocalExecutor.runtime_filters)
         self.last_runtime_filters: list = []
+        # the rows each join of the last query put out
+        # (LocalExecutor.join_rows)
+        self.last_join_rows: list = []
 
     def sql(self, query: str) -> "DataFrame":
         from .sql import parse_one
@@ -122,6 +125,7 @@ class SparkSession:
                 return executor.execute(node)
             finally:
                 self.last_runtime_filters = executor.runtime_filters
+                self.last_join_rows = executor.join_rows
         finally:
             reset_session_timezone(token)
 

@@ -1,6 +1,6 @@
 """The PyTorch port's expression compiler against the JAX reference's, on
 TPC-H Q1's and Q6's filters and projections over the same batch (with
-NULLs), and on an unported function."""
+NULLs), and on an unported expression."""
 
 import jax.numpy as jnp  # noqa: F401  (the reference's closures return jnp)
 import numpy as np
@@ -106,10 +106,12 @@ def test_unported_function_raises_naming_it(lineitem):
     catalog = TCatalog()
     catalog.register_temp_view("lineitem", tsp.LocalRelation(lineitem))
     node = toptimize(TResolver(catalog).resolve(tparse(
-        "select sqrt(l_quantity) from lineitem")))
+        "select cast(l_quantity as string) from lineitem")))
     rex = node.exprs[0][1]
     comp = TCompiler([f.dtype for f in node.input.schema], {}, "cpu")
-    with pytest.raises(NotImplementedError, match="sqrt"):
+    # every function of the reference's compiler is ported; the cast of a
+    # number to a string is not (ROADMAP Queue A)
+    with pytest.raises(NotImplementedError, match="cast to a string"):
         comp.compile(rex)
 
 

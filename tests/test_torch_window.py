@@ -66,6 +66,11 @@ def _window_tables():
         "i": [1, 2, 3, 4],
         "q": pa.array([Decimal("2.50"), Decimal("1.25"), None,
                        Decimal("7.00")], pa.decimal128(15, 2))})
+    tables["nv"] = pa.table({"o": [1, 1, 2, 3, 4],
+                             "v": [10, 20, 30, 40, 50]})
+    tables["fl"] = pa.table({"i": [1, 2, 3, 4, 5],
+                             "v": pa.array([None, 20, None, 40, 50],
+                                           pa.int64())})
     tables["nf"] = pa.table({
         "g": [0, 0, 0, 0, 1, 1, 1, 1], "i": [1, 2, 3, 4, 1, 2, 3, 4],
         "f": [np.nan, 1.0, 2.0, 3.0, np.inf, 1.0, 2.0, -np.inf]})
@@ -225,6 +230,39 @@ _SPARK_CASES = {
          (1, 2, np.inf, np.inf, -np.inf, -np.inf),
          (1, 3, 3.0, 1.5, -np.inf, -np.inf),
          (1, 4, -np.inf, -np.inf, None, -np.inf)]),
+    # nth_value counts from its frame's first row and ends at its last
+    "nth_value_whole_frame": ("""
+        SELECT o, v, nth_value(v, 2) OVER (ORDER BY o, v ROWS BETWEEN
+            UNBOUNDED PRECEDING AND UNBOUNDED FOLLOWING) nv
+        FROM nv ORDER BY o, v""",
+        [(1, 10, 20), (1, 20, 20), (2, 30, 20), (3, 40, 20), (4, 50, 20)]),
+    "nth_value_sliding_frame": ("""
+        SELECT o, v, nth_value(v, 2) OVER (ORDER BY o, v ROWS BETWEEN
+            1 PRECEDING AND 1 FOLLOWING) nv
+        FROM nv ORDER BY o, v""",
+        [(1, 10, 20), (1, 20, 20), (2, 30, 30), (3, 40, 40), (4, 50, 50)]),
+    "nth_value_frame_from_current_row": ("""
+        SELECT o, v, nth_value(v, 2) OVER (ORDER BY o, v ROWS BETWEEN
+            CURRENT ROW AND UNBOUNDED FOLLOWING) nv
+        FROM nv ORDER BY o, v""",
+        [(1, 10, 20), (1, 20, 30), (2, 30, 40), (3, 40, 50), (4, 50, None)]),
+    # a ROWS frame ends at the current row, not at its last peer: of the
+    # two rows tied on o = 1 the first sees one row (which of the two it
+    # is, the sort decides)
+    "nth_value_rows_frame_with_ties": ("""
+        SELECT o, nth_value(v, 2) OVER (ORDER BY o ROWS BETWEEN
+            UNBOUNDED PRECEDING AND CURRENT ROW) IS NULL missing
+        FROM nv ORDER BY o, missing""",
+        [(1, False), (1, True), (2, False), (3, False), (4, False)]),
+    # first/last with ignoreNulls take the frame's first or last non-null
+    "first_last_ignore_nulls": ("""
+        SELECT i, first(v, true) OVER (ORDER BY i ROWS BETWEEN
+                   UNBOUNDED PRECEDING AND CURRENT ROW) f,
+               last(v, true) OVER (ORDER BY i ROWS BETWEEN
+                   UNBOUNDED PRECEDING AND CURRENT ROW) l
+        FROM fl ORDER BY i""",
+        [(1, None, None), (2, 20, 20), (3, 20, 20), (4, 20, 40),
+         (5, 20, 50)]),
 }
 
 
