@@ -140,10 +140,26 @@ Then, after phase 10, on the same tables:
    ``benchmarks/expr_queries.py`` (E1-E6) over the tables at
    ``--check-sf`` on the card against the port's CPU session, as phase 9
    compares; each counts its host syncs.
-13. Expression main path: E1-E6 at ``--sf``, one warm-up and ``--runs``
+13. Expression main path: E1-E7 at ``--sf``, one warm-up and ``--runs``
    timed runs each, with rows and peak device memory; E3 and E5 against
    numpy at full size (their answers are integers and dates); every
    query launches what its ``expr_queries.KERNELS`` entry names.
+14. Chain kernels: K16 (chain) and K17 (chain_reduce) of ops/chain.py at
+   the path's shapes: K17 over Q1's, Q6's and E2's chains at ``--sf``
+   (and each of those chains as a K16 program), K16 over Q3's lineitem
+   filter and Q19's predicate, and, inside phase 7, K17 over ClickBench
+   Q30's 90 sums at ``--cb-rows``. Each against its plain version
+   (run_chain_plain; K17: its registers reduced by the K1 route):
+   integers, decimals, dates, codes and bools exactly, K16's float64
+   exactly (EXPR_ULPS ulp where the chain calls a libm function), K17's
+   float sums within FLOAT_RTOL; then timed beside it, its bound (bytes
+   once) and the closures it replaced (``library_ms``: the chain's torch
+   ops, then for K17 the K2/sort and K1 route).
+
+Every query of phases 5, 7, 10 and 13 prints its chains' routes (K16,
+K17, per-op, with the first expression that kept a chain on its
+closures); a TPC-H, E or ClickBench Q30 chain that computes an expression
+must run K16 or K17.
 
 It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
 over the TPC-H, window, expression and ClickBench queries of their
@@ -181,18 +197,24 @@ _JOIN = ("join_keys", "probe_ranges")
 # reaches them (Q13's and Q21's residual joins expand; Q5's and Q21's
 # dimension filters prune their scans, so their runtime filters keep
 # building)
-PATH_KERNELS = {f"q{q}": _JOIN for q in range(1, 23) if q not in (1, 6)}
+PATH_KERNELS = {f"q{q}": _JOIN + ("chain",) for q in range(1, 23)
+                if q not in (1, 6, 13)}
 PATH_KERNELS.update({
-    "q1": ("seg_reduce", "direct_group_ids", "order_keys"),
-    "q6": ("seg_reduce",),
-    "q5": _JOIN + ("bloom_build", "bloom_apply"),
+    "q1": ("chain_reduce", "chain", "order_keys"),
+    "q6": ("chain_reduce",),
+    "q5": _JOIN + ("chain", "bloom_build", "bloom_apply"),
     "q13": _JOIN + ("join_expand",),
-    "q21": _JOIN + ("join_expand", "bloom_build", "bloom_apply"),
+    "q21": _JOIN + ("chain", "join_expand", "bloom_build", "bloom_apply"),
 })
 # the queries that group by sort: every aggregate there goes through K1's
 # runs entry point
 for _q in (2, 3, 7, 8, 9, 10, 11, 13, 15, 16, 17, 18, 20):
     PATH_KERNELS[f"q{_q}"] += ("seg_reduce_runs",)
+# the queries whose keyless or direct aggregate absorbs its chain (K17;
+# Q21's s_name takes more than 4096 bins from SF1 up, so it sorts); every
+# other query's computed chains run K16 (Q13 computes none)
+for _q in (4, 5, 11, 12, 14, 15, 17, 19, 22):
+    PATH_KERNELS[f"q{_q}"] += ("chain_reduce",)
 # device functions of the kernels whose time and launches each profiled
 # query reports: K1 over all its launches, then split by entry point (a
 # runs call launches its grid, then one block over the grid's records)
@@ -218,6 +240,8 @@ PROFILED_KERNELS = {
     "K13 round_number": re.compile(r"\bround_kernel\("),
     "K14 math_binary": re.compile(r"\bbinary_kernel\("),
     "K15 calendar": re.compile(r"\bcalendar_kernel[<(]"),
+    "K16 chain": re.compile(r"\bchain_kernel<false>"),
+    "K17 chain_reduce": re.compile(r"\bchain_kernel<true>"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -1170,6 +1194,7 @@ def check_queries(spark, tables: dict, sf: float) -> dict:
 def _counters():
     from sail_tpu_torch.functions import numeric as num
     from sail_tpu_torch.ops import aggregate as agg
+    from sail_tpu_torch.ops import chain as chn
     from sail_tpu_torch.ops import hash as hsh
     from sail_tpu_torch.ops import join as jn
     from sail_tpu_torch.ops import runtime_filter as rf
@@ -1191,7 +1216,8 @@ def _counters():
             "window_inverse": win.window_inverse,
             "window_unpermute": win.window_unpermute,
             "math_unary": num.math_unary, "round_number": num.round_number,
-            "math_binary": num.math_binary, "calendar": num.calendar}
+            "math_binary": num.math_binary, "calendar": num.calendar,
+            "chain": chn.run_chain, "chain_reduce": chn.run_chain_reduce}
 
 
 @contextlib.contextmanager
@@ -1263,11 +1289,13 @@ def _run_main_path(tables, sf, runs, profile, upload) -> dict:
                 # the launches of this path's one run, counted from 0
                 launches = {n: fn.launches for n, fn in counters.items()}
                 filters = session.last_runtime_filters
+                routes = session.last_chain_routes
         report["launches_on_path"][f"q{q}"] = launches
         entry = dict(sf=sf, first_s=first,
                      upload_s=upload["s"] - upload_before, query_s=times,
                      rows=result.num_rows, runtime_filters=filters,
-                     largest_join_rows=max(session.last_join_rows or [0]))
+                     largest_join_rows=max(session.last_join_rows or [0]),
+                     chain_routes=_print_routes(f"Q{q}", routes, True))
         if profile:
             entry["profile"] = profile_query(session, QUERIES[q])
         if q == 1:
@@ -1323,8 +1351,8 @@ WINDOW_PATH = {
     "w5": _K8 + _K9 + ("window_inverse",),
     "w6": _K8 + _K9 + _JOIN,
     "w7": _K8 + _K10 + _JOIN, "w8": _K8 + _K9 + _K10,
-    "u1": ("direct_group_ids", "seg_reduce"),
-    "u2": ("direct_group_ids", "seg_reduce"),
+    "u1": ("chain_reduce",),
+    "u2": ("chain_reduce",),
 }
 PATH_KERNELS.update(WINDOW_PATH)
 # float64 answers of a window query on the card against the CPU session:
@@ -1862,9 +1890,12 @@ def run_query_path(tables: dict, sf: float, runs: int, profile: bool,
             times.append(time.perf_counter() - t)
             if i == 0:
                 launches = {k: fn.launches for k, fn in counters.items()}
+                routes = spark.last_chain_routes
         report["launches_on_path"][name] = launches
         entry = dict(first_s=first, query_s=times, rows=result.num_rows,
-                     peak_bytes=torch.cuda.max_memory_allocated())
+                     peak_bytes=torch.cuda.max_memory_allocated(),
+                     chain_routes=_print_routes(name.upper(), routes,
+                                                name.startswith("e")))
         if profile:
             entry["profile"] = profile_query(spark, sql)
         entry.update(check(name, result, spark) or {})
@@ -2276,31 +2307,262 @@ def run_expr_path(tables: dict, sf: float, runs: int, profile: bool) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: K16 and K17 at the path's shapes
+# ---------------------------------------------------------------------------
+
+CHAIN_SOURCE = "sail_tpu_torch/csrc/chain.cu"
+CHAIN_REPLACES = {"chain": "sail_tpu/exec/local.py:1598",
+                  "chain_reduce": "sail_tpu/exec/local.py:1869"}
+# the queries phase 14 runs at --sf: K17 over Q1's, Q6's and E2's chains
+# (and each of them as a K16 program, as an aggregate past K17's limits
+# would run it), K16 where Q3 filters lineitem under its joins and over
+# Q19's predicate; Q30's K17 runs in phase 7 at --cb-rows
+CHAIN_QUERIES = ("q1", "q6", "e2", "q3", "q19")
+# the ops whose float64 results the card's math library and torch's may
+# round apart (K12 and K14 are held to EXPR_ULPS ulp for them)
+_LIBM_UNARY = frozenset(("exp", "expm1", "ln", "log10", "log2", "log1p",
+                         "sin", "cos", "tan", "asin", "acos", "atan",
+                         "sinh", "cosh", "tanh", "cbrt"))
+
+
+@contextlib.contextmanager
+def captured_chains():
+    """Records each K16 stage and each K17 aggregate the executors run
+    while the block runs: {"k16": [(executor, stage, child)], "k17":
+    [(executor, aggregate, stage, child)]}."""
+    from sail_tpu_torch.exec import local as xl
+
+    got = {"k16": [], "k17": []}
+    apply, reduce = xl.LocalExecutor._apply_stage, \
+        xl.LocalExecutor._reduce_chain
+
+    def applied(ex, stage, child, consumer):
+        if stage.route == "K16":
+            got["k16"].append((ex, stage, child))
+        return apply(ex, stage, child, consumer)
+
+    def reduced(ex, p, stage, child):
+        got["k17"].append((ex, p, stage, child))
+        return reduce(ex, p, stage, child)
+
+    xl.LocalExecutor._apply_stage = applied
+    xl.LocalExecutor._reduce_chain = reduced
+    try:
+        yield got
+    finally:
+        xl.LocalExecutor._apply_stage = apply
+        xl.LocalExecutor._reduce_chain = reduce
+
+
+def _libm(prog) -> bool:
+    """The program calls a function that libm and the card may round
+    apart."""
+    from sail_tpu_torch.functions import numeric as num
+    from sail_tpu_torch.ops import chain as chn
+
+    for ins in prog.instrs:
+        name = chn.OPCODES[ins[0]]
+        if name == "NUM1" and num.UNARY_OPS[ins[5]] in _LIBM_UNARY or \
+                name == "NUM2" and num.BINARY_OPS[ins[5]] in (
+                    "atan2", "hypot", "power", "log") or \
+                name == "CAL" and num.CALENDAR_OPS[ins[5]] == \
+                "months_between":
+            return True
+    return False
+
+
+def _cv_compare(ulps: bool):
+    """K16's outputs against the plain version's: (data, validity) pairs,
+    the validity exactly and the data where valid, exactly (float64 too)
+    or, with ``ulps``, within EXPR_ULPS ulp."""
+    def compare(got, want):
+        (g, gv), (w, wv) = got, want
+        if (gv is None) != (wv is None) or \
+                (gv is not None and not torch.equal(gv, wv)):
+            raise AssertionError("validities differ")
+        if gv is not None:
+            g, w = g[wv], w[wv]
+        if g.is_floating_point():
+            if ulps:
+                return _ulp_err(g, w)
+            same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+            if not bool(same.all()):
+                raise AssertionError("float64 differs")
+            return 0.0
+        if not torch.equal(g, w):
+            raise AssertionError("values differ")
+        return 0.0
+    return compare
+
+
+def _elem(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _chain_bytes(prog, n: int) -> int:
+    """What a program must move: each input (and validity) and the
+    selection read once; K16 writes each stored column (and validity) and
+    the selection once."""
+    read = n + sum(n * _elem(d) + (n if null else 0)
+                   for _, d, null in prog.inputs)
+    if prog.reduces:
+        return read
+    return read + n + sum(n * _elem(d) + (n if null else 0)
+                          for d, null in prog.outputs)
+
+
+def _k16_row(label, prog, chain_fn, cols, sel) -> dict:
+    from sail_tpu_torch.ops import chain as chn
+
+    n = sel.shape[0]
+
+    def flat(res):
+        outs, s = res
+        return [(s, None)] + list(outs)
+
+    return _timed(f"{label} ({len(prog.instrs)} instructions, "
+                  f"{prog.nreg} registers)", n,
+                  lambda: flat(chn.run_chain(prog, cols, sel)),
+                  lambda: flat(chn.run_chain_plain(prog, cols, sel)),
+                  _chain_bytes(prog, n),
+                  library=lambda: chain_fn(cols, sel),
+                  compare=_cv_compare(_libm(prog)))
+
+
+def _k17_row(label, ex, p, stage, child) -> dict:
+    from sail_tpu_torch.ops import chain as chn
+
+    cols, sel = ex._cols(child), child.device.sel
+    kt = [p.input.schema[g].dtype for g in p.group_indices]
+    at = [a.out_dtype for a in p.aggs]
+    n = sel.shape[0]
+
+    def flat(red):
+        return [red.group_sel] + [c.data for c in red.keys + red.aggs] + \
+            [c.validity for c in red.keys + red.aggs]
+
+    def closures():
+        out, s = stage.chain_fn(cols, sel)
+        return ex._aggregate(p, out, s, stage.dicts)
+
+    prog = stage.prog
+    return _timed(f"{label} ({len(prog.instrs)} instructions, "
+                  f"{prog.nreg} registers, {prog.nbins} bins x "
+                  f"{len(prog.slots)} accumulators)", n,
+                  lambda: flat(chn.run_chain_reduce(prog, cols, sel, kt,
+                                                    at)),
+                  lambda: flat(chn.run_chain_reduce_plain(prog, cols, sel,
+                                                          kt, at)),
+                  _chain_bytes(prog, n), library=closures)
+
+
+def check_chain_query(spark, name: str, sql: str, k16_too: bool) -> dict:
+    """Phase 14 for one query: each K17 aggregate of ``sql`` against its
+    plain version, timed beside it and beside the closures it replaced
+    (``library_ms``: the chain's torch ops, then K2 or the sort and K1);
+    with ``k16_too``, each K17 aggregate's chain also as a K16 program,
+    else the query's largest K16 chain."""
+    from sail_tpu_torch.ops import chain as chn
+
+    with captured_chains() as got:
+        spark.sql(sql).toArrow()
+    torch.cuda.synchronize()
+    rows = {"chain": [], "chain_reduce": []}
+    for ex, p, stage, child in got["k17"]:
+        rows["chain_reduce"].append(_k17_row(f"{name} K17", ex, p, stage,
+                                             child))
+        if k16_too:
+            chain, node = ex._split_chain(p.input)
+            fn, filters, frags, _, _, _ = ex._lower_chain(chain, child, node)
+            prog = chn.build_program(filters, frags, child.device.sel.device)
+            rows["chain"].append(_k16_row(
+                f"{name}'s chain as K16", prog, fn, ex._cols(child),
+                child.device.sel))
+    if got["k16"] and not k16_too:
+        ex, stage, child = max(got["k16"],
+                               key=lambda x: x[2].device.sel.shape[0])
+        rows["chain"].append(_k16_row(f"{name} K16", stage.prog,
+                                      stage.chain_fn, ex._cols(child),
+                                      child.device.sel))
+    return rows
+
+
+def check_chain_kernels(tables: dict) -> dict:
+    """Phase 14: K16 and K17 over the SF tables (CHAIN_QUERIES)."""
+    from sail_tpu_torch import SparkSession
+    from sail_tpu_torch.benchmarks.expr_queries import QUERIES as EXPR
+    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES as TPCH
+
+    spark = SparkSession({"spark.sail.device": "cuda"})
+    _register(spark, tables)
+    print("phase 14: K16 and K17 against their plain versions", flush=True)
+    rows = {"chain": [], "chain_reduce": []}
+    for name in CHAIN_QUERIES:
+        sql = EXPR[name] if name.startswith("e") else TPCH[int(name[1:])]
+        spark.sql(sql).toArrow()  # the uploads and the programs' build
+        for k, v in check_chain_query(spark, name, sql,
+                                      k16_too=name in ("q1", "q6", "e2")
+                                      ).items():
+            rows[k] += v
+    spark.stop()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _chain_entry(name: str, rows: list) -> dict:
+    head = rows[0]
+    return dict(name=name, source=CHAIN_SOURCE, replaces=CHAIN_REPLACES[name],
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], library_ms=head["library_ms"],
+                shapes=rows)
+
+
+def _print_routes(label: str, routes: list, strict: bool) -> list:
+    """Print a query's chain routes; with ``strict``, fail where a chain
+    that computes an expression kept its closures."""
+    computing = [r for r in routes if r["route"] != "refs"]
+    print(f"  {label} chains: " + ", ".join(
+        f"{r['route']}->{r['consumer']}" + (f" [{r['first_unfused']}]"
+                                            if r["first_unfused"] else "")
+        for r in computing), flush=True)
+    if strict and any(r["route"] == "per-op" for r in computing):
+        raise AssertionError(f"{label}: a chain kept its closures: "
+                             f"{computing}")
+    return [[r["route"], r["consumer"], r["first_unfused"]]
+            for r in computing]
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: ClickBench
 # ---------------------------------------------------------------------------
 
-_KEYLESS = ("seg_reduce",)
+_K17 = ("chain_reduce",)
 _DIRECT = ("direct_group_ids", "seg_reduce")
 _SORTED = ("order_keys", "seg_reduce_runs")
 _ORDER = ("order_keys",)
+_K16 = ("chain",)
 # the kernels each ClickBench query's plan launches, from the plan: a
-# keyless aggregate launches the binned K1; a grouping over small
-# dictionary domains (SearchPhrase, MobilePhoneModel, Q29's Referer
-# host) launches K2 and the binned K1; any other grouping sorts (K3) and
-# reduces through K1's runs entry point; COUNT(DISTINCT) beside other
-# aggregates (Q10, Q23) sorts by (group, value) through K3; a lone
-# COUNT(DISTINCT x) groups by x first, then counts; an ORDER BY launches
-# K3 over the rows it sorts (none in Q22, whose groups are empty at any
-# size: no generated URL holds "google"). Q20 filters and projects only.
-CB_PLANS = {1: _KEYLESS, 2: _KEYLESS, 3: _KEYLESS, 4: _KEYLESS,
-            5: _SORTED + _KEYLESS, 6: _DIRECT + _KEYLESS, 7: _KEYLESS,
-            8: _SORTED, 9: _SORTED, 10: _SORTED, 11: _SORTED + _DIRECT,
-            12: _SORTED, 13: _DIRECT + _ORDER, 14: _SORTED + _DIRECT,
-            20: (), 21: _KEYLESS, 22: _DIRECT, 23: _DIRECT + _ORDER,
-            24: _ORDER, 25: _ORDER, 26: _ORDER, 27: _ORDER,
-            29: _DIRECT + _ORDER, 30: _KEYLESS}
+# keyless aggregate, or a grouping over small dictionary domains
+# (SearchPhrase, MobilePhoneModel), of COUNT, SUM, MIN and MAX of numbers
+# absorbs its chain into K17; a chain that computes anything else runs
+# K16; a direct grouping with string MIN/MAX or DISTINCT (Q22, Q23, Q29)
+# launches K2 and the binned K1 after K16; any other grouping sorts (K3)
+# and reduces through K1's runs entry point; a lone COUNT(DISTINCT x)
+# groups by x first (K17), then counts (K1 binned, Q6); an ORDER BY
+# launches K3 over the rows it sorts (none in Q22, whose groups are empty
+# at any size: no generated URL holds "google"). Q20 filters and projects
+# only.
+CB_PLANS = {1: _K17, 2: _K17, 3: _K17 + _K16, 4: _K17 + _K16,
+            5: _SORTED + _K17, 6: _K17 + ("seg_reduce",), 7: _K17,
+            9: _SORTED, 11: _SORTED + _K17 + _K16, 13: _K17 + _ORDER,
+            14: _SORTED + _K17 + _K16, 16: _SORTED, 17: _SORTED,
+            18: _SORTED, 20: _K16, 21: _K17, 22: _K16 + _DIRECT,
+            23: _K16 + _DIRECT + _ORDER, 24: _K16 + _ORDER,
+            25: _K16 + _ORDER, 26: _K16 + _ORDER, 27: _K16 + _ORDER,
+            29: _K16 + _DIRECT + _ORDER, 30: _K17, 34: _SORTED}
 for _q in range(1, 44):
-    PATH_KERNELS[f"cb{_q}"] = CB_PLANS.get(_q, _SORTED)
+    PATH_KERNELS[f"cb{_q}"] = CB_PLANS.get(_q, _SORTED + _K16)
 
 
 def _cb_queries(mechanisms: bool) -> dict:
@@ -2438,6 +2700,7 @@ def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
                 times.append(time.perf_counter() - t)
                 if i == 0:
                     launches = {k: fn.launches for k, fn in counters.items()}
+                    routes = spark.last_chain_routes
             if spark.dict_tables.builds != built:
                 raise AssertionError(f"ClickBench Q{q}: a steady run built "
                                      f"{spark.dict_tables.builds - built} "
@@ -2445,7 +2708,9 @@ def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
             entry = dict(first_s=first, upload_s=upload["s"] - upload_before,
                          query_s=times, rows=result.num_rows,
                          peak_bytes=torch.cuda.max_memory_allocated(),
-                         dict_tables=built)
+                         dict_tables=built,
+                         chain_routes=_print_routes(f"ClickBench Q{q}",
+                                                    routes, q == 30))
             report["launches_on_path"][name] = launches
             if profile:
                 entry["profile"] = profile_query(spark, sql)
@@ -2460,6 +2725,9 @@ def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
                   flush=True)
             if q in (1, 5, 10):
                 check_cb_oracle(q, result, hits)
+            if q == 30:  # phase 14 at Q30's 90 sums
+                report["chain_rows"] = check_chain_query(
+                    spark, "cb30", sql, k16_too=False)["chain_reduce"]
             for kernel in PATH_KERNELS[name]:
                 if launches[kernel] == 0:
                     raise AssertionError(f"{kernel} never launched on "
@@ -2574,6 +2842,10 @@ def main() -> int:
     t = time.perf_counter()
     expr_report = run_expr_path(tables, args.sf, args.runs, args.profile)
     phases["expr_main_path"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    chain_rows = check_chain_kernels(tables)
+    phases["chain_kernels"] = time.perf_counter() - t
     small.stop()
     del tables, small_tables, small
     gc.collect()
@@ -2587,6 +2859,9 @@ def main() -> int:
     cb_report = run_clickbench(args.cb_rows, args.seed, args.runs,
                                args.profile)
     phases["clickbench_main_path"] = time.perf_counter() - t
+    chain_rows["chain_reduce"] += cb_report.pop("chain_rows")
+    entries += [_chain_entry(k, chain_rows[k])
+                for k in ("chain", "chain_reduce")]
     print(f"phase wall times (s): {phases}", flush=True)
     on_path = {**report["launches_on_path"], **win_report["launches_on_path"],
                **expr_report["launches_on_path"],

@@ -27,10 +27,14 @@ _HERE = pathlib.Path(__file__).resolve().parent
 SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
            "join_keys.cu", "join_probe.cu", "join_expand.cu", "bloom.cu",
            "window_bounds.cu", "window_ranks.cu", "window_scan.cu",
-           "window_extreme.cu", "window_perm.cu", "expr_math.cu")
-_HEADERS = ("common.cuh", "join_keys.cuh", "window.cuh")
+           "window_extreme.cu", "window_perm.cu", "expr_math.cu",
+           "chain.cu")
+_HEADERS = ("common.cuh", "join_keys.cuh", "window.cuh", "expr_math.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's own flags after NVCC_FLAGS: K16/K17 mirror torch's float64
+# operations one rounding each, so nvcc may not contract a*b+c into an FMA
+_SOURCE_FLAGS = {"chain.cu": ("--fmad=false",)}
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -77,11 +81,15 @@ _ENTRY = {
                                           I, I, P, P, I, P],
                      "sail_calendar": [P, I, I, P, P, I, I, P, LL, I, P, P,
                                        I, P]},
+    "chain.cu": {name: [P, I, P, P, P, P, I, I, P, P, P, P, P, LL, P, I, I,
+                        P, P, P, I, P]
+                 for name in ("sail_chain", "sail_chain_reduce")},
 }
 
 
 def build_dir() -> pathlib.Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(_SOURCE_FLAGS.items())).encode())
     for name in SOURCES + _HEADERS:
         digest.update(name.encode())
         digest.update((_HERE / name).read_bytes())
@@ -115,7 +123,8 @@ def build() -> Dict[str, str]:
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_HERE / src)]
+        cmd = [nvcc, *NVCC_FLAGS, *_SOURCE_FLAGS.get(src, ()), "-o", tmp,
+               str(_HERE / src)]
         procs[src] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []

@@ -10,11 +10,23 @@ subqueries. Any other operator raises ``NotImplementedError``.
 As in the reference, a Filter/Project chain runs as one stage with the
 operator above it (aggregate, sort or join): the chain narrows ``sel``
 and computes its output columns, and the consumer reads them directly.
-Torch runs eagerly, so there is no program to compile or cache; every
-stage is rebuilt per query from the plan. The host waits for the device
-only where it needs a value to go on: a join fetches its decision
-scalars (duplicate keys, hash ambiguity, output size, filter counts) in
-one transfer.
+A chain whose every expression has a program fragment runs as one
+program (``ops/chain.py``): K16 on the card, which writes the selection
+and each computed column once (a column the chain only passes through
+is not copied). An aggregate whose grouping is keyless or direct
+(dictionary codes and booleans, at most 4096 bins) and whose aggregates
+are COUNT, SUM, MIN and MAX of non-string values absorbs its chain into
+K17, which reduces in the same pass and materializes no column. Any
+other chain runs its closures, one torch op a node; the route is decided
+from the plan when the chain is bound, and ``chain_routes`` lists each
+chain's route (with the first expression that kept a chain on the
+closures). A chain's program or closures are compiled once per
+(``plan/stages.py`` ``stage_fingerprint``, the dictionaries' identities,
+the subquery values, the device, the session's time zone) and kept in
+the session's ``chain_programs``, so a steady run compiles nothing. The
+host waits for the device only where it needs a value to go on: a join
+fetches its decision scalars (duplicate keys, hash ambiguity, output
+size, filter counts) in one transfer.
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from ..config import _DEFAULTS as config_defaults
 from ..config import get as config_get
 from ..config import truthy_value
 from ..ops import aggregate as aggk
+from ..ops import chain as chainop
 from ..ops import hash as hashk
 from ..ops import join as joink
 from ..ops import runtime_filter as rtfk
@@ -41,9 +54,11 @@ from ..plan import join_reorder as jr
 from ..plan import nodes as pn
 from ..plan import rex as rx
 from ..plan import runtime_filters as rtfp
+from ..plan import stages
 from ..plan.compiler import DictTables, ExprCompiler
 from ..spec import data_type as dt
 from ..spec.literal import Literal as LV
+from ..utils.tz import session_timezone_name
 
 
 # window functions computed by K9, and those whose output keeps the
@@ -86,6 +101,27 @@ class _Rtf(NamedTuple):
     reverse: bool = False
 
 
+class _Stage(NamedTuple):
+    """A bound chain: its route ("K16", "K17", "per-op", or "refs" where it
+    only passes columns through), its program (K16, K17) or closures
+    (``chain_fn``), its top's dictionaries and schema, and for a per-op
+    chain the first expression without a fragment."""
+
+    route: str
+    prog: Optional[chainop.ChainProgram]
+    chain_fn: object
+    dicts: Dict[str, pa.Array]
+    schema: pn.Schema
+    unfused: Optional[str]
+    nodes: int
+    # the dictionaries the key holds by identity
+    held: tuple
+
+
+# the most chain programs a session keeps
+_MAX_PROGRAMS = 512
+
+
 class LocalExecutor:
     """Runs one plan on ``device``. The session passes the same
     ``scan_cache`` (a memory scan's key → its uploaded batch, so a table's
@@ -93,20 +129,26 @@ class LocalExecutor:
     → the prune ratio it last observed; joins whose filters proved useless
     skip the build on later runs) and ``dict_tables`` (the lookup and
     rank tables made from string dictionaries) to every executor it
-    makes. ``config`` is the session's conf. ``runtime_filters`` logs, for
-    each filter this executor built, the rows it saw and kept at the
-    scans and at the join."""
+    makes, and ``chain_programs`` (each chain's bound program or closures,
+    by its key). ``config`` is the session's conf. ``runtime_filters``
+    logs, for each filter this executor built, the rows it saw and kept at
+    the scans and at the join; ``chain_routes`` each chain's route, in the
+    order the chains ran."""
 
     def __init__(self, device, scan_cache: Optional[dict] = None,
                  config: Optional[dict] = None,
                  rtf_history: Optional[dict] = None,
-                 dict_tables: Optional[DictTables] = None):
+                 dict_tables: Optional[DictTables] = None,
+                 chain_programs: Optional[dict] = None):
         self.device = torch.device(device)
         self.scan_cache = {} if scan_cache is None else scan_cache
         self.config = config or {}
         self.rtf_history = {} if rtf_history is None else rtf_history
         self.dict_tables = DictTables() if dict_tables is None \
             else dict_tables
+        self.chain_programs = {} if chain_programs is None \
+            else chain_programs
+        self.chain_routes: List[dict] = []
         self.runtime_filters: List[dict] = []
         # the rows (live and dead) each join of the plan put out, in the
         # order they ran: what a join order makes the card hold
@@ -143,11 +185,13 @@ class LocalExecutor:
 
     def _eval_scalar(self, sub: rx.RScalarSubquery) -> LV:
         inner = LocalExecutor(self.device, self.scan_cache, self.config,
-                              self.rtf_history, self.dict_tables)
+                              self.rtf_history, self.dict_tables,
+                              self.chain_programs)
         inner._subquery_cache = self._subquery_cache
         table = inner.execute(sub.plan)
         self.runtime_filters.extend(inner.runtime_filters)
         self.join_rows.extend(inner.join_rows)
+        self.chain_routes.extend(inner.chain_routes)
         if table.num_rows == 0:
             return LV(sub.dtype, None)
         if table.num_rows > 1:
@@ -155,12 +199,12 @@ class LocalExecutor:
         return LV(sub.dtype, table.column(0)[0].as_py())
 
     # -- expression plumbing ------------------------------------------------
-    def _compiler(self, dicts: Dict[str, pa.Array],
-                  schema: pn.Schema) -> ExprCompiler:
+    def _compiler(self, dicts: Dict[str, pa.Array], schema: pn.Schema,
+                  frags=None) -> ExprCompiler:
         by_index = {i: dicts[_col_name(i)] for i in range(len(schema))
                     if _col_name(i) in dicts}
         return ExprCompiler([f.dtype for f in schema], by_index, self.device,
-                            self._subquery_cache, self.dict_tables)
+                            self._subquery_cache, self.dict_tables, frags)
 
     def _dict_order(self, dictionary: pa.Array
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -192,26 +236,51 @@ class LocalExecutor:
                  dev.columns[_col_name(i)].validity)
                 for i in range(len(dev.columns))]
 
-    def _compile_chain(self, chain: List[pn.PlanNode], bottom: HostBatch,
-                       bottom_node: pn.PlanNode):
-        """Returns (chain_fn, out_dicts, out_schema): chain_fn maps the
-        bottom batch's (cols, sel) to the top of the chain's (cols, sel).
-        ``chain`` is top-down; dictionaries propagate level by level."""
+    # -- chains -------------------------------------------------------------
+    @staticmethod
+    def _split_chain(top: pn.PlanNode):
+        """(the Filter/Project chain from ``top`` down, top-down; the node
+        below it)."""
+        chain = []
+        node = top
+        while isinstance(node, stages.FUSABLE_OPS):
+            chain.append(node)
+            node = node.input
+        return chain, node
+
+    def _lower_chain(self, chain: List[pn.PlanNode], bottom: HostBatch,
+                     bottom_node: pn.PlanNode):
+        """Compile a chain (top-down) over the bottom batch: (chain_fn,
+        filter fragments, the top's column fragments, its dictionaries,
+        its schema, the first expression without a fragment). chain_fn
+        maps the bottom's (cols, sel) to the top's, one torch op a node;
+        dictionaries propagate level by level."""
         dicts = dict(bottom.dicts)
         schema = bottom_node.schema
-        steps = []
+        frags = [chainop.col(i, d.dtype, v is not None)
+                 for i, (d, v) in enumerate(self._cols(bottom))]
+        steps, filters = [], []
+        unfused = None
         for node in reversed(chain):
-            comp = self._compiler(dicts, schema)
+            comp = self._compiler(dicts, schema, frags)
             if isinstance(node, pn.FilterExec):
-                steps.append((comp.compile(node.condition), None))
-                continue
-            compiled = [comp.compile(e) for _, e in node.exprs]
-            steps.append((compiled, [physical_torch_dtype(rx.rex_type(e))
-                                     for _, e in node.exprs]))
-            dicts = {_col_name(i): c.dictionary
-                     for i, c in enumerate(compiled)
-                     if c.dictionary is not None}
-            schema = node.schema
+                c = comp.compile(node.condition)
+                steps.append((c, None))
+                filters.append(c.frag)
+            else:
+                compiled = [comp.compile(e) for _, e in node.exprs]
+                types = [physical_torch_dtype(rx.rex_type(e))
+                         for _, e in node.exprs]
+                steps.append((compiled, types))
+                frags = [None if c.frag is None else chainop.conv(c.frag, t)
+                         for c, t in zip(compiled, types)]
+                dicts = {_col_name(i): c.dictionary
+                         for i, c in enumerate(compiled)
+                         if c.dictionary is not None}
+                schema = node.schema
+            if unfused is None and comp.unfused:
+                unfused = f"{type(node).__name__}: " \
+                          f"{_describe(comp.unfused[0])}"
 
         def chain_fn(cols, sel):
             n = sel.shape[0]
@@ -229,21 +298,115 @@ class LocalExecutor:
                 cols = new_cols
             return cols, sel
 
-        return chain_fn, dicts, schema
+        return chain_fn, filters, frags, dicts, schema, unfused
 
-    def _run_chain(self, top: pn.PlanNode) -> Tuple[List, torch.Tensor,
-                                                   Dict, pn.Schema]:
+    def _stage(self, chain: List[pn.PlanNode], bottom: HostBatch,
+               bottom_node: pn.PlanNode,
+               agg: Optional[pn.AggregateExec] = None) -> _Stage:
+        """The chain bound to a route, from ``chain_programs`` where it was
+        bound before."""
+        key = self._stage_key(chain, bottom, bottom_node, agg)
+        hit = None if key is None else self.chain_programs.get(key)
+        if hit is None:
+            hit = self._bind_stage(chain, bottom, bottom_node, agg)
+            if key is not None:
+                while len(self.chain_programs) >= _MAX_PROGRAMS:
+                    self.chain_programs.pop(next(iter(self.chain_programs)))
+                self.chain_programs[key] = hit
+        return hit
+
+    def _stage_key(self, chain, bottom: HostBatch, bottom_node, agg):
+        nodes = ([agg] if agg is not None else []) + \
+            [self._bind_subqueries(n) for n in chain]
+        key = ("K17" if agg is not None else "K16",
+               stages.stage_fingerprint(nodes, bottom_node.schema),
+               tuple((d.dtype, v is not None)
+                     for d, v in self._cols(bottom)),
+               tuple(sorted((k, id(v)) for k, v in bottom.dicts.items())),
+               self.device, session_timezone_name())
+        try:
+            hash(key)
+        except TypeError:  # an expression holds an unhashable option
+            return None
+        return key
+
+    def _bind_subqueries(self, node: pn.PlanNode) -> pn.PlanNode:
+        """``node`` with each scalar subquery replaced by its value (the
+        value the program bakes in, and so keys on)."""
+        def bind(r: rx.Rex) -> rx.Rex:
+            if isinstance(r, rx.RScalarSubquery):
+                return rx.RLit(self._subquery_cache[id(r)])
+            if isinstance(r, rx.RCall):
+                return dataclasses.replace(r, args=tuple(bind(a)
+                                                         for a in r.args))
+            if isinstance(r, rx.RCast):
+                return dataclasses.replace(r, child=bind(r.child))
+            if isinstance(r, rx.RCase):
+                return dataclasses.replace(
+                    r, branches=tuple((bind(c), bind(v))
+                                      for c, v in r.branches),
+                    else_value=None if r.else_value is None
+                    else bind(r.else_value))
+            return r
+
+        exprs = [node.condition] if isinstance(node, pn.FilterExec) else \
+            [e for _, e in node.exprs]
+        if not any(isinstance(x, rx.RScalarSubquery)
+                   for e in exprs for x in rx.walk(e)):
+            return node
+        if isinstance(node, pn.FilterExec):
+            return dataclasses.replace(node, condition=bind(node.condition))
+        return dataclasses.replace(node, exprs=tuple(
+            (n, bind(e)) for n, e in node.exprs))
+
+    def _bind_stage(self, chain, bottom: HostBatch, bottom_node,
+                    agg) -> _Stage:
+        chain_fn, filters, frags, dicts, schema, unfused = \
+            self._lower_chain(chain, bottom, bottom_node)
+        held = tuple(bottom.dicts.values())
+
+        def stage(route, prog, why=None):
+            return _Stage(route, prog, chain_fn, dicts, schema, why,
+                          len(chain), held)
+
+        if unfused is not None:
+            return stage("per-op", None, unfused)
+        if agg is not None:
+            sinks = _agg_sinks(agg, frags, dicts, schema)
+            if sinks is not None:
+                try:
+                    return stage("K17", chainop.build_program(
+                        filters, (), self.device, *sinks))
+                except ValueError:
+                    pass  # past K17's limits: K16, then the K1 route
+        try:
+            prog = chainop.build_program(filters, frags, self.device)
+        except ValueError as e:
+            return stage("per-op", None, f"{e}")
+        return stage("refs" if not prog.instrs else "K16", prog)
+
+    def _run_chain(self, top: pn.PlanNode, consumer: str
+                   ) -> Tuple[List, torch.Tensor, Dict, pn.Schema]:
         """Execute the Filter/Project chain from ``top`` down over the batch
         below it; returns (cols, sel, dicts, schema) of the chain's top."""
-        chain = []
-        node = top
-        while isinstance(node, (pn.FilterExec, pn.ProjectExec)):
-            chain.append(node)
-            node = node.input
+        chain, node = self._split_chain(top)
         child = self.run(node)
-        chain_fn, dicts, schema = self._compile_chain(chain, child, node)
-        cols, sel = chain_fn(self._cols(child), child.device.sel)
-        return cols, sel, dicts, schema
+        stage = self._stage(chain, child, node)
+        cols, sel = self._apply_stage(stage, child, consumer)
+        return cols, sel, stage.dicts, stage.schema
+
+    def _apply_stage(self, stage: _Stage, child: HostBatch, consumer: str):
+        """Run a bound chain (K16, its closures, or nothing where it only
+        passes columns through) over ``child``; logs its route."""
+        self.chain_routes.append(dict(route=stage.route, nodes=stage.nodes,
+                                      consumer=consumer,
+                                      first_unfused=stage.unfused))
+        cols, sel = self._cols(child), child.device.sel
+        if stage.route == "K16":
+            return chainop.run_chain(stage.prog, cols, sel)
+        if stage.route == "refs":
+            return [cols[k] for _, k in stage.prog.out_map], sel
+        return stage.chain_fn(cols, sel)
 
     # -- leaves -------------------------------------------------------------
     def _exec_ScanExec(self, p: pn.ScanExec) -> HostBatch:
@@ -306,7 +469,7 @@ class LocalExecutor:
         return self._chain_batch(p)
 
     def _chain_batch(self, top: pn.PlanNode) -> HostBatch:
-        cols, sel, dicts, schema = self._run_chain(top)
+        cols, sel, dicts, schema = self._run_chain(top, "output")
         return HostBatch(DeviceBatch(
             {_col_name(i): Column(d, v, f.dtype)
              for i, ((d, v), f) in enumerate(zip(cols, schema))}, sel), dicts)
@@ -324,7 +487,7 @@ class LocalExecutor:
         return HostBatch(out, child.dicts)
 
     def _exec_SortExec(self, p: pn.SortExec) -> HostBatch:
-        cols, sel, dicts, schema = self._run_chain(p.input)
+        cols, sel, dicts, schema = self._run_chain(p.input, "SortExec")
         comp = self._compiler(dicts, schema)
         n = sel.shape[0]
         keys = []
@@ -353,7 +516,20 @@ class LocalExecutor:
         if any(a.fn.startswith("__host__") for a in p.aggs):
             raise NotImplementedError(
                 "host-evaluated aggregates are not ported yet")
-        cols, sel, dicts, _ = self._run_chain(p.input)
+        chain, node = self._split_chain(p.input)
+        child = self.run(node)
+        stage = self._stage(chain, child, node, agg=p)
+        dicts = stage.dicts
+        if stage.route == "K17":
+            return self._reduce_chain(p, stage, child)
+        cols, sel = self._apply_stage(stage, child, "AggregateExec")
+        return self._aggregate(p, cols, sel, dicts)
+
+    def _aggregate(self, p: pn.AggregateExec, cols: List,
+                   sel: torch.Tensor, dicts: Dict[str, pa.Array]
+                   ) -> HostBatch:
+        """The aggregate over its input's columns: K2 or a sort groups the
+        rows, K1 reduces each aggregate."""
         in_schema = p.input.schema
         n = sel.shape[0]
 
@@ -404,6 +580,31 @@ class LocalExecutor:
                                                  "last"):
                 out_dicts[_col_name(ng + j)] = src_dict
         out = sortk.compact(DeviceBatch(out_cols, aggk.group_sel(ctx)))
+        return HostBatch(out, out_dicts)
+
+    def _reduce_chain(self, p: pn.AggregateExec, stage: _Stage,
+                      child: HostBatch) -> HostBatch:
+        """K17: the chain and the aggregate in one pass; its bins numbered
+        as K2 numbers them, its columns as the K1 route's."""
+        self.chain_routes.append(dict(route="K17", nodes=stage.nodes,
+                                      consumer="AggregateExec",
+                                      first_unfused=None))
+        in_schema = p.input.schema
+        red = chainop.run_chain_reduce(
+            stage.prog, self._cols(child), child.device.sel,
+            [in_schema[gi].dtype for gi in p.group_indices],
+            [a.out_dtype for a in p.aggs])
+        out_cols: Dict[str, Column] = {}
+        out_dicts: Dict[str, pa.Array] = {}
+        for j, (gi, g) in enumerate(zip(p.group_indices, red.keys)):
+            out_cols[_col_name(j)] = g
+            if _col_name(gi) in stage.dicts:
+                out_dicts[_col_name(j)] = stage.dicts[_col_name(gi)]
+        ng = len(p.group_indices)
+        for j, (a, col) in enumerate(zip(p.aggs, red.aggs)):
+            out_cols[_col_name(ng + j)] = Column(col.data, col.validity,
+                                                 a.out_dtype)
+        out = sortk.compact(DeviceBatch(out_cols, red.group_sel))
         return HostBatch(out, out_dicts)
 
     def _run_agg(self, ctx, a: pn.AggSpec, arg: Optional[Column],
@@ -1044,6 +1245,67 @@ class LocalExecutor:
                 dicts[_col_name(n_left + i)] = right.dicts[_col_name(i)]
         return HostBatch(DeviceBatch(cols, torch.ones(
             total, dtype=torch.bool, device=self.device)), dicts)
+
+
+def _agg_sinks(agg: pn.AggregateExec, frags, dicts, schema):
+    """K17's direct keys (fragment, domain) and aggregates for ``agg`` over
+    a chain whose top has ``frags``; None where the aggregate is not
+    K17's: a grouping that is not keyless or direct (every key a
+    dictionary code or a boolean, at most 4096 bins), or an aggregate that
+    is not a COUNT, SUM, MIN or MAX of a non-string value without DISTINCT
+    or FILTER."""
+    if not stages.agg_absorbs_chain(agg):
+        return None
+    for a in agg.aggs:
+        if a.fn not in ("count", "sum", "min", "max") or \
+                a.filter is not None:
+            return None
+        if a.arg is not None and (
+                _col_name(a.arg) in dicts or frags[a.arg] is None or
+                isinstance(schema[a.arg].dtype, (dt.StringType,
+                                                 dt.BinaryType))):
+            return None
+    keys = []
+    total = 1
+    for gi in agg.group_indices:
+        f = frags[gi]
+        if f is None:
+            return None
+        if _col_name(gi) in dicts and f.dtype == torch.int32:
+            dom = len(dicts[_col_name(gi)])
+        elif isinstance(schema[gi].dtype, dt.BooleanType) and \
+                f.dtype == torch.bool:
+            dom = 2
+        else:
+            return None
+        if dom == 0:
+            return None
+        total *= dom + 1
+        keys.append((f, dom))
+    if total > 4096:
+        return None
+    sinks = []
+    for a in agg.aggs:
+        if a.arg is None:
+            sinks.append(chainop.AggSink("count", None))
+            continue
+        f = frags[a.arg]
+        if a.fn == "sum":
+            f = chainop.conv(f, physical_torch_dtype(a.out_dtype))
+        sinks.append(chainop.AggSink(a.fn, f))
+    return keys, sinks
+
+
+def _describe(r: rx.Rex) -> str:
+    """A short name of an expression, for the route report."""
+    if isinstance(r, rx.RCall):
+        return f"{r.fn}({', '.join(type(a.dtype).__name__ for a in r.args)})"
+    if isinstance(r, rx.RCast):
+        return f"cast({type(rx.rex_type(r.child)).__name__} as " \
+               f"{type(r.dtype).__name__})"
+    if isinstance(r, rx.BoundRef):
+        return f"column {r.name} ({type(r.dtype).__name__})"
+    return type(r).__name__
 
 
 def _range_peer(ctx, s: pn.WindowSpec):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import csrc
@@ -77,6 +78,11 @@ def seg_reduce_plain(vals: torch.Tensor, seg_ids: torch.Tensor,
     last[:-1] = seg[1:] != seg[:-1]
     out[seg[last]] = v[last]
     return out
+
+
+def k1_work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type K1 reduces ``dtype`` values in."""
+    return _K1_WIDEN.get(dtype, dtype)
 
 
 def _k1_work(vals: torch.Tensor, name: str) -> torch.Tensor:
@@ -555,6 +561,62 @@ def agg_min_max(ctx: GroupContext, value: Column, is_min: bool) -> Column:
     if value.data.dtype == torch.bool:
         out = out.to(torch.bool)
     return Column(out, has, value.dtype)
+
+
+def direct_key_columns(domains: Sequence[int], dtypes: Sequence[torch.dtype],
+                       nullable: Sequence[bool], types: Sequence[dt.DataType],
+                       device) -> List[Column]:
+    """The key columns of every bin of a direct grouping, decoded from the
+    bin number as ``direct_group_ids`` makes it (the first key most
+    significant, ``domain + 1`` slots a key, the last one NULL): for
+    K17, which reads no row of a group's. A bin's code is the one every
+    live row of it has (K2 clips a code into its domain, so an
+    out-of-range code decodes as the clipped one)."""
+    g = torch.arange(int(np.prod([d + 1 for d in domains])),
+                     dtype=torch.int64, device=device)
+    out: List[Column] = []
+    for dom, dtype, null, t in reversed(list(zip(domains, dtypes, nullable,
+                                                 types))):
+        digit = g % (dom + 1)
+        g = g // (dom + 1)
+        ok = digit < dom
+        code = torch.where(ok, digit, 0)
+        data = code.to(torch.bool) if dtype == torch.bool else \
+            code.to(torch.int32)
+        out.append(Column(data, ok if null else None, t))
+    return out[::-1]
+
+
+def chain_agg_columns(words: torch.Tensor,
+                      aggs: Sequence[Tuple[str, Optional[torch.dtype]]],
+                      slots: Sequence[Tuple[int, int]],
+                      types: Sequence[dt.DataType]) -> List[Column]:
+    """K17's per-bin partials (int64 words[bins, slots]: slot 0 the live
+    rows of each bin, then each aggregate's value and, where its argument
+    is nullable, its count of non-null rows) as the columns agg_count,
+    agg_sum and agg_min_max give. ``aggs``: (fn, the dtype of the values
+    reduced: SUM's output type, MIN/MAX's argument type); ``slots``: each
+    aggregate's (value slot, count slot)."""
+    out = []
+    for (fn, dtype), (slot, cnt), t in zip(aggs, slots, types):
+        counts = words[:, cnt]
+        if fn == "count":
+            out.append(Column(counts, None, dt.LongType()))
+            continue
+        w = words[:, slot]
+        if dtype.is_floating_point:
+            vals = w.view(torch.float64).to(dtype)
+        elif fn == "sum":
+            vals = w.to(dtype)
+        else:
+            work = k1_work_dtype(torch.int8 if dtype == torch.bool
+                                 else dtype)
+            vals = w.to(work).to(torch.int8 if dtype == torch.bool
+                                 else dtype)
+            if dtype == torch.bool:
+                vals = vals.to(torch.bool)
+        out.append(Column(vals, counts > 0, t))
+    return out
 
 
 def agg_bool(ctx: GroupContext, value: Column, is_any: bool) -> Column:

@@ -22,6 +22,14 @@ Those tables are kept from one query to the next in a ``DictTables``
 (the session's), keyed by the dictionary objects they were made from: a
 steady query builds none. Anything else raises ``NotImplementedError``
 naming the expression; nothing falls back silently.
+
+Beside its closure, each expression the chain program covers gets a
+fragment (``Compiled.frag``, an ``ops/chain.py`` ``Frag``): the same
+computation as program nodes, torch type for torch type and NULL for
+NULL, which a Filter/Project chain lowers to one K16 or K17 program. A
+builder without a fragment (or one whose arguments have none) leaves
+``frag`` None, and its chain keeps the closures; ``ExprCompiler.unfused``
+lists the first such expressions.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ..functions import kernels as K
 from ..functions import numeric as NUM
 from ..functions.numeric import civil_from_days, days_from_civil
 from ..functions.numeric import month_len as _month_len
+from ..ops import chain as ch
 from ..spec import data_type as dt
 from ..spec.literal import Literal as LV
 from ..utils.tz import session_timezone_name
@@ -60,6 +69,8 @@ class Compiled:
     fn: Callable[[List[CV]], CV]
     dtype: dt.DataType
     dictionary: Optional[pa.Array] = None  # for string/binary outputs
+    # the same computation as a chain program's nodes (None: not covered)
+    frag: Optional[ch.Frag] = None
 
 
 class DictTables:
@@ -163,13 +174,19 @@ class ExprCompiler:
     def __init__(self, column_types: Sequence[dt.DataType],
                  dictionaries: Dict[int, pa.Array], device,
                  subquery_values: Optional[Dict[int, LV]] = None,
-                 tables: Optional[DictTables] = None):
+                 tables: Optional[DictTables] = None,
+                 column_frags: Optional[Sequence[Optional[ch.Frag]]] = None):
         self.column_types = list(column_types)
         self.dicts = dictionaries  # column index → dictionary
         self.device = torch.device(device)
         # id(RScalarSubquery) → its value, evaluated before the plan runs
         self.subquery_values = subquery_values or {}
         self.tables = DictTables() if tables is None else tables
+        # each column's fragment where the compiler lowers a chain (None:
+        # closures only)
+        self.column_frags = column_frags
+        # the innermost expressions that got no fragment, in compile order
+        self.unfused: List[rx.Rex] = []
 
     def _cached(self, dictionaries: Sequence[pa.Array], key, build):
         """``build()``'s value for tables on this compiler's device, kept
@@ -178,10 +195,20 @@ class ExprCompiler:
                                build)
 
     def compile(self, r: rx.Rex) -> Compiled:
+        seen = len(self.unfused)
+        out = self._compile(r)
+        if out.frag is None and self.column_frags is not None and \
+                len(self.unfused) == seen:
+            self.unfused.append(r)
+        return out
+
+    def _compile(self, r: rx.Rex) -> Compiled:
         if isinstance(r, rx.BoundRef):
             idx = r.index
+            frag = None if self.column_frags is None else \
+                self.column_frags[idx]
             return Compiled(lambda cols, i=idx: cols[i], r.dtype,
-                            self.dicts.get(idx))
+                            self.dicts.get(idx), frag)
         if isinstance(r, rx.RLit):
             return self._compile_literal(r.value, r)
         if isinstance(r, rx.RScalarSubquery):
@@ -205,15 +232,23 @@ class ExprCompiler:
             tdt = physical_torch_dtype(d if d.physical_dtype else dt.NullType())
             data = torch.zeros((), dtype=tdt, device=self.device)
             invalid = torch.zeros((), dtype=torch.bool, device=self.device)
+            # the fragments' constants come from host tensors: reading a
+            # value back from the card would wait for it
             return Compiled(lambda cols: (data, invalid), d,
-                            self._literal_dict("") if _is_str(d) else None)
+                            self._literal_dict("") if _is_str(d) else None,
+                            ch.const_of(torch.zeros((), dtype=tdt),
+                                        torch.zeros((), dtype=torch.bool)))
         if _is_str(d):
             code = torch.zeros((), dtype=torch.int32, device=self.device)
             return Compiled(lambda cols: (code, None), d,
-                            self._literal_dict(v.value))
-        value = torch.tensor(v.physical_value(), dtype=physical_torch_dtype(d),
+                            self._literal_dict(v.value),
+                            ch.const(0, torch.int32))
+        tdt = physical_torch_dtype(d)
+        value = torch.tensor(v.physical_value(), dtype=tdt,
                              device=self.device)
-        return Compiled(lambda cols: (value, None), d)
+        return Compiled(lambda cols: (value, None), d,
+                        frag=ch.const_of(torch.tensor(v.physical_value(),
+                                                      dtype=tdt), None))
 
     def _literal_dict(self, value) -> pa.Array:
         """A string literal's one-entry dictionary: one object for each
@@ -230,7 +265,7 @@ class ExprCompiler:
         if isinstance(src, dt.NullType):
             return self._compile_literal(LV(dst, None), r)
         if _is_str(src) and _is_str(dst):
-            return Compiled(child.fn, dst, child.dictionary)
+            return Compiled(child.fn, dst, child.dictionary, child.frag)
         if _is_str(src) and child.dictionary is not None and \
                 dst.physical_dtype:
             return self._cast_from_string(child, dst)
@@ -248,7 +283,9 @@ class ExprCompiler:
                 # 86,400,000,000)
                 x, validity = child.fn(cols)
                 return _to_days(x, src).to(tdt), validity
-            return Compiled(to_date, dst)
+            days = _f_to_days(child.frag, src)
+            return Compiled(to_date, dst,
+                            frag=None if days is None else ch.conv(days, tdt))
 
         def fn(cols):
             x, validity = child.fn(cols)
@@ -272,7 +309,8 @@ class ExprCompiler:
                 x = torch.trunc(x)
             return x.to(tdt), validity
 
-        return Compiled(fn, dst)
+        return Compiled(fn, dst, frag=_f_cast(child.frag, src_scale,
+                                              dst_scale, dst, tdt))
 
     def _cast_from_string(self, child: Compiled, dst: dt.DataType
                           ) -> Compiled:
@@ -296,7 +334,7 @@ class ExprCompiler:
             return lut[data.long()], \
                 good if validity is None else validity & good
 
-        return Compiled(fn, dst)
+        return Compiled(fn, dst, frag=_f_by_code(child.frag, lut, ok))
 
     def _lut(self, values, tdt: torch.dtype) -> torch.Tensor:
         """A per-dictionary-code lookup table on the device (one neutral
@@ -328,7 +366,12 @@ class ExprCompiler:
                 return (hit if v is None else hit & v), None
             return hit, v
 
-        return Compiled(fn, dt.BooleanType())
+        frag = _f_by_code(col.frag, lut)
+        if frag is not None and name == "<=>" and frag.nullable:
+            frag = ch.op("band_nv", frag, ch.op(
+                "isnotnull", col.frag, dtype=torch.bool, nullable=False),
+                dtype=torch.bool, nullable=False)
+        return Compiled(fn, dt.BooleanType(), frag=frag)
 
     def _unified_luts(self, dict_a: pa.Array, dict_b: pa.Array,
                       ordering: bool):
@@ -368,7 +411,8 @@ class ExprCompiler:
                     accv = torch.where(cd, new_v, old_v)
             return acc, accv
 
-        return Compiled(fn, r.dtype)
+        return Compiled(fn, r.dtype, frag=_f_case(
+            branches, else_c, tdt, lambda c: ch.conv(c.frag, tdt)))
 
     def _compile_case_string(self, r: rx.RCase, branches, else_c
                              ) -> Compiled:
@@ -405,7 +449,12 @@ class ExprCompiler:
                     accv = torch.where(cd, new_v, old_v)
             return acc, accv
 
-        return Compiled(fn, r.dtype, merged)
+        remap = {id(c): lut for c, lut in
+                 zip([v for _, v in branches] +
+                     ([else_c] if else_c is not None else []), luts)}
+        return Compiled(fn, r.dtype, merged, _f_case(
+            branches, else_c, torch.int32,
+            lambda c: _f_by_code(c.frag, remap[id(c)])))
 
     # -- calls -----------------------------------------------------------
     def _compile_call(self, r: rx.RCall) -> Compiled:
@@ -419,7 +468,11 @@ class ExprCompiler:
         builder = _BUILDERS.get(r.fn)
         if builder is None:
             raise _unported(r, f"function {r.fn!r}")
-        return Compiled(builder(args, r), r.dtype)
+        built = builder(args, r)
+        fn, frag = built if isinstance(built, tuple) else (built, None)
+        if frag is not None and any(a.frag is None for a in args):
+            frag = None
+        return Compiled(fn, r.dtype, frag=frag)
 
     # -- string calls ------------------------------------------------------
     def _compile_string_call(self, r: rx.RCall, args: List[Compiled]
@@ -442,7 +495,7 @@ class ExprCompiler:
                     return lut[d.long()], v
                 good = ok[d.long()]
                 return lut[d.long()], good if v is None else v & good
-            return Compiled(fn, dtype)
+            return Compiled(fn, dtype, frag=_f_by_code(child.frag, lut, ok))
 
         if name in _CMP_OPS or name == "<=>":
             a, b = args
@@ -468,7 +521,14 @@ class ExprCompiler:
                         return K.eq_null_safe((x, av), (y, bv))
                     return _CMP_OPS[name](x, y), K.merge_validity(av, bv)
 
-                return Compiled(fn, dt.BooleanType())
+                fx, fy = _f_by_code(a.frag, lut_a), _f_by_code(b.frag, lut_b)
+                frag = None
+                if fx is not None and fy is not None:
+                    frag = ch.op("eqns", fx, fy, dtype=torch.bool,
+                                 nullable=False) if name == "<=>" else \
+                        ch.strict("cmp", fx, fy, dtype=torch.bool,
+                                  imm=(name,))
+                return Compiled(fn, dt.BooleanType(), frag=frag)
             # string vs non-string: parse the string side's dictionary
             sa, other = (a, b) if _is_str(a.dtype) else (b, a)
             if sa.dictionary is None or not other.dtype.physical_dtype:
@@ -482,7 +542,12 @@ class ExprCompiler:
                 x, y = _promote(x, y)
                 return op(x, y), K.merge_validity(xv, yv)
 
-            return Compiled(fn2, dt.BooleanType())
+            frag = None
+            if x_c.frag is not None and y_c.frag is not None:
+                fx, fy = _f_promote(x_c.frag, y_c.frag)
+                frag = ch.strict("cmp", fx, fy, dtype=torch.bool,
+                                 imm=(name if name in _CMP_OPS else "==",))
+            return Compiled(fn2, dt.BooleanType(), frag=frag)
 
         if name in ("like", "ilike", "rlike"):
             child, pat = args
@@ -566,8 +631,8 @@ class ExprCompiler:
 
                 new_dict, lut, ok = self._cached([values],
                                                  (name, tuple(extra)), build)
-                return Compiled(by_code(child, lut, r.dtype, ok).fn, r.dtype,
-                                new_dict)
+                coded = by_code(child, lut, r.dtype, ok)
+                return Compiled(coded.fn, r.dtype, new_dict, coded.frag)
             tdt = physical_torch_dtype(r.dtype)
 
             def build():
@@ -615,7 +680,14 @@ class ExprCompiler:
             validity = K.merge_validity(*[a.fn(cols)[1] for a in args])
             return col.fn(cols)[0], validity
 
-        return Compiled(fn, r.dtype, out_dict)
+        frag = col.frag
+        for a in args:
+            if frag is None or a.frag is None:
+                frag = None
+            elif a is not col and a.frag.nullable:
+                frag = ch.op("passv", frag, a.frag, dtype=frag.dtype,
+                             nullable=True)
+        return Compiled(fn, r.dtype, out_dict, frag)
 
 
 def _string_literal(r: rx.Rex) -> Optional[str]:
@@ -878,6 +950,141 @@ def _rescale_down(x: torch.Tensor, digits: int) -> torch.Tensor:
     return torch.sign(x) * ((torch.abs(x) + f // 2) // f)
 
 
+# ---------------------------------------------------------------------------
+# fragments: each mirrors its closure's torch ops, type for type
+# ---------------------------------------------------------------------------
+
+_F64 = torch.float64
+_I64 = torch.int64
+_DAY_US = 86_400_000_000
+
+
+def _frags(*cs: Compiled):
+    """The fragments of ``cs``, or None where one has none."""
+    fs = [c.frag for c in cs]
+    return None if any(f is None for f in fs) else fs
+
+
+def _f_promote(x: ch.Frag, y: ch.Frag):
+    """``_promote``: both in their common type."""
+    t = torch.promote_types(x.dtype, y.dtype)
+    return ch.conv(x, t), ch.conv(y, t)
+
+
+def _f_times(x: ch.Frag, k) -> Optional[ch.Frag]:
+    """``x * k`` for a Python number k, as torch computes it on an int64 or
+    a float64 tensor (None for other types)."""
+    if x.dtype == _I64 and isinstance(k, int):
+        return ch.strict("mul", x, ch.const(k, _I64), dtype=_I64)
+    if x.dtype == _F64:
+        return ch.strict("mul", x, ch.const(float(k), _F64), dtype=_F64)
+    return None
+
+
+def _f_over(x: ch.Frag, k: float) -> ch.Frag:
+    """``x.to(float64) / k`` (a true division)."""
+    return ch.strict("div", ch.conv(x, _F64), ch.const(k, _F64), dtype=_F64)
+
+
+def _zero_offset(d: dt.DataType) -> bool:
+    """``_utc_offset`` is 0 for every value of ``d``."""
+    return not (isinstance(d, dt.TimestampType) and d.timezone is not None) \
+        or session_timezone_name().upper() == "UTC"
+
+
+def _f_local_us(f: Optional[ch.Frag], d: dt.DataType) -> Optional[ch.Frag]:
+    """``_local_us`` where the zone adds nothing (else no fragment)."""
+    if f is None or not _zero_offset(d):
+        return None
+    return ch.conv(f, _I64)
+
+
+def _f_floordiv(x: ch.Frag, k: int) -> ch.Frag:
+    return ch.strict("floordiv", x, ch.const(k, _I64), dtype=_I64)
+
+
+def _f_floormod(x: ch.Frag, k: int) -> ch.Frag:
+    return ch.strict("floormod", x, ch.const(k, _I64), dtype=_I64)
+
+
+def _f_to_days(f: Optional[ch.Frag], d: dt.DataType) -> Optional[ch.Frag]:
+    """``_to_days``."""
+    if f is None:
+        return None
+    if isinstance(d, dt.TimestampType):
+        us = _f_local_us(f, d)
+        return None if us is None else _f_floordiv(us, _DAY_US)
+    return ch.conv(f, _I64)
+
+
+def _f_cast(x: Optional[ch.Frag], src_scale, dst_scale, dst: dt.DataType,
+            tdt: torch.dtype) -> Optional[ch.Frag]:
+    """``_compile_cast``'s numeric fn."""
+    if x is None:
+        return None
+    if src_scale is not None and dst_scale is None:
+        x = _f_over(x, 10.0 ** src_scale)
+    if dst_scale is not None:
+        if src_scale is not None:
+            if dst_scale > src_scale:
+                x = _f_times(x, 10 ** (dst_scale - src_scale))
+            elif dst_scale < src_scale:
+                x = None if x.dtype != _I64 else ch.op(
+                    "rescale", x, dtype=_I64, nullable=x.nullable,
+                    imm=(src_scale - dst_scale,))
+        elif ch.is_float(x.dtype):
+            y = _f_times(x, 10.0 ** dst_scale)
+            x = None if y is None else ch.conv(ch.op(
+                "rha_f", y, dtype=_F64, nullable=y.nullable), _I64)
+        else:
+            x = _f_times(ch.conv(x, _I64), 10 ** dst_scale)
+    elif isinstance(dst, dt.BooleanType):
+        x = ch.op("ne0", x, dtype=torch.bool, nullable=x.nullable)
+    elif not tdt.is_floating_point and ch.is_float(x.dtype):
+        x = ch.op("trunc_f", x, dtype=x.dtype, nullable=x.nullable)
+    return None if x is None else ch.conv(x, tdt)
+
+
+def _f_by_code(f: Optional[ch.Frag], lut: torch.Tensor,
+               ok: Optional[torch.Tensor] = None) -> Optional[ch.Frag]:
+    """``lut[code]``, NULL also where ``ok[code]`` is false."""
+    if f is None or lut.dtype not in ch.TYPE_CODE:
+        return None
+    base = ch.op("lut", f, dtype=lut.dtype, nullable=f.nullable,
+                 imm=(ch.Table(lut),))
+    if ok is None:
+        return base
+    good = ch.op("lut", f, dtype=torch.bool, nullable=False,
+                 imm=(ch.Table(ok),))
+    return ch.op("andv", base, good, dtype=lut.dtype, nullable=True)
+
+
+def _f_case(branches, else_c, tdt: torch.dtype, value) -> Optional[ch.Frag]:
+    """CASE as selects from the last branch up: ``value(c)`` is a branch
+    value's fragment in the result's type."""
+    if else_c is not None:
+        acc = None if else_c.frag is None else value(else_c)
+    else:
+        acc = ch.const_of(torch.zeros((), dtype=tdt),
+                          torch.zeros((), dtype=torch.bool))
+    for cond_c, val_c in reversed(branches):
+        v = None if val_c.frag is None else value(val_c)
+        if acc is None or v is None or cond_c.frag is None:
+            return None
+        acc = ch.op("select", cond_c.frag, v, acc, dtype=tdt,
+                    nullable=acc.nullable or v.nullable)
+    return acc
+
+
+def _kernel_dtype(d: torch.dtype) -> torch.dtype:
+    """The type ``functions/numeric.py`` reads a ``d`` column in."""
+    if d in (torch.bool, torch.int8, torch.int16, torch.uint8):
+        return torch.int32
+    if d in (torch.float16, torch.bfloat16, torch.float32):
+        return _F64
+    return d
+
+
 def _binary_numeric(op: str):
     def build(args, r):
         a, b = args
@@ -912,9 +1119,45 @@ def _binary_numeric(op: str):
                         res = _rescale_down(res, extra)
             return res.to(tdt), validity
 
-        return fn
+        return fn, _f_binary_numeric(op, a.frag, b.frag, sa, sb, so, tdt)
 
     return build
+
+
+def _f_binary_numeric(op: str, x, y, sa, sb, so, tdt):
+    if x is None or y is None:
+        return None
+    if op in ("+", "-") or op in _CMP_OPS:
+        if sa is not None or sb is not None:
+            s = max(sa or 0, sb or 0)
+            x, y = _f_to_scale(x, sa, s), _f_to_scale(y, sb, s)
+            if x is None or y is None:
+                return None
+            if ch.is_float(x.dtype) or ch.is_float(y.dtype):
+                x, y = _f_over(x, 10.0 ** s), _f_over(y, 10.0 ** s)
+    x, y = _f_promote(x, y)
+    if op in _CMP_OPS:
+        return ch.strict("cmp", x, y, dtype=torch.bool, imm=(op,))
+    if x.dtype == torch.bool:
+        return None
+    res = ch.strict({"+": "add", "-": "sub", "*": "mul"}[op], x, y,
+                    dtype=x.dtype)
+    if op == "*" and so is not None and (sa is not None or sb is not None):
+        extra = (sa or 0) + (sb or 0) - so
+        if extra > 0:
+            if res.dtype != _I64:
+                return None
+            res = ch.op("rescale", res, dtype=_I64, nullable=res.nullable,
+                        imm=(extra,))
+    return ch.conv(res, tdt)
+
+
+def _f_to_scale(x: ch.Frag, scale: Optional[int], target: int):
+    if scale is not None:
+        return x if scale == target else _f_times(x, 10 ** (target - scale))
+    if ch.is_float(x.dtype):
+        return _f_times(x, 10 ** target)
+    return _f_times(ch.conv(x, _I64), 10 ** target)
 
 
 def _to_scale(x: torch.Tensor, scale: Optional[int], target: int):
@@ -935,7 +1178,11 @@ def _div_builder(args, r):
         y = y.to(torch.float64) / (10.0 ** (sb or 0))
         return K.div((x, xv), (y, yv))
 
-    return fn
+    fs = _frags(a, b)
+    frag = None if fs is None else ch.op(
+        "sdiv", _f_over(fs[0], 10.0 ** (sa or 0)),
+        _f_over(fs[1], 10.0 ** (sb or 0)), dtype=_F64, nullable=True)
+    return fn, frag
 
 
 def _date_arith(op: str):
@@ -973,9 +1220,42 @@ def _date_arith(op: str):
             # date ± integer days
             return (val + sign * amt.to(val.dtype)).to(val.dtype), validity
 
-        return fn
+        fs = _frags(a, b)
+        if fs is None:
+            return fn, None
+        val, amt = (fs[1], fs[0]) if swap else (fs[0], fs[1])
+        return fn, _f_date_arith(sign, val, amt, t_dtype, o_dtype)
 
     return build
+
+
+def _f_date_arith(sign: int, val: ch.Frag, amt: ch.Frag,
+                  t_dtype: dt.DataType, o_dtype: dt.DataType):
+    nullable = val.nullable or amt.nullable
+    if isinstance(o_dtype, dt.YearMonthIntervalType):
+        days = _f_to_days(val, t_dtype)
+        if days is None:
+            return None
+        out_days = ch.op("ymadd", days, ch.conv(amt, _I64), dtype=_I64,
+                         nullable=nullable, imm=(sign,))
+        if isinstance(t_dtype, dt.TimestampType):
+            day = ch.const(_DAY_US, _I64)
+            tod = ch.strict("sub", val, ch.strict("mul", days, day,
+                                                  dtype=_I64), dtype=_I64)
+            return ch.strict("add", ch.strict("mul", out_days, day,
+                                              dtype=_I64), tod, dtype=_I64)
+        return ch.conv(out_days, torch.int32)
+    name = "add" if sign > 0 else "sub"
+    if isinstance(o_dtype, dt.DayTimeIntervalType):
+        if amt.dtype != _I64:
+            return None
+        if isinstance(t_dtype, dt.TimestampType):
+            return None if val.dtype != _I64 else \
+                ch.strict(name, val, amt, dtype=_I64)
+        us = ch.strict(name, _f_times(ch.conv(val, _I64), _DAY_US), amt,
+                       dtype=_I64)
+        return ch.conv(_f_floordiv(us, _DAY_US), torch.int32)
+    return ch.strict(name, val, ch.conv(amt, val.dtype), dtype=val.dtype)
 
 
 def _temporal_field(which: str):
@@ -1003,7 +1283,10 @@ def _temporal_field(which: str):
                                              torch.ones_like(d)) + 1
             return out.to(torch.int32), xv
 
-        return fn
+        days = _f_to_days(a.frag, a.dtype)
+        return fn, None if days is None else ch.conv(ch.op(
+            "datefield", days, dtype=_I64, nullable=days.nullable,
+            imm=(which,)), torch.int32)
 
     return build
 
@@ -1025,7 +1308,17 @@ def _time_field(which: str):
                 out = sec_of_day % 60
             return out.to(torch.int32), xv
 
-        return fn
+        us = _f_local_us(a.frag, a.dtype)
+        if us is None:
+            return fn, None
+        sec = _f_floormod(_f_floordiv(us, 1_000_000), 86_400)
+        if which == "hour":
+            out = _f_floordiv(sec, 3600)
+        elif which == "minute":
+            out = _f_floormod(_f_floordiv(sec, 60), 60)
+        else:
+            out = _f_floormod(sec, 60)
+        return fn, ch.conv(out, torch.int32)
 
     return build
 
@@ -1082,12 +1375,31 @@ def _trunc_builder(args, r):
                 return local_mid - _utc_offset(guess, date_arg.dtype), xv
             return out_days.to(torch.int32), xv
 
-        return fn
+        return fn, _f_trunc(date_arg, fmt, out_is_ts)
 
     if isinstance(args[0].dtype, dt.TimestampType) or _is_str(args[0].dtype):
         # date_trunc(fmt, ts): fmt first
         return build_fn(args[1], args[0], out_is_ts=True)
     return build_fn(args[0], args[1], out_is_ts=False)
+
+
+def _f_trunc(date_arg: Compiled, fmt: str, out_is_ts: bool):
+    if date_arg.frag is None or not _zero_offset(date_arg.dtype):
+        return None
+    if out_is_ts and fmt in _TIME_TRUNC_US:
+        unit = _TIME_TRUNC_US[fmt]
+        return _f_times(_f_floordiv(ch.conv(date_arg.frag, _I64), unit),
+                        unit)
+    days = _f_to_days(date_arg.frag, date_arg.dtype)
+    if fmt in ("year", "yyyy", "yy"):
+        days = ch.op("truncdays", days, dtype=_I64, nullable=days.nullable,
+                     imm=("year",))
+    elif fmt in ("quarter", "month", "mon", "mm", "week"):
+        days = ch.op("truncdays", days, dtype=_I64, nullable=days.nullable,
+                     imm=({"mon": "month", "mm": "month"}.get(fmt, fmt),))
+    if out_is_ts:
+        return _f_times(days, _DAY_US)
+    return ch.conv(days, torch.int32)
 
 
 def _in_builder(args, r):
@@ -1113,7 +1425,47 @@ def _in_builder(args, r):
             hit = hit | eq
         return hit, xv
 
-    return fn
+    return fn, _f_in(child, items, s)
+
+
+def _f_in(child: Compiled, items, s):
+    """IN over items that read no column: each compared as its literal,
+    converted on the host as the closure converts it."""
+    if child.frag is None:
+        return None
+    x0 = child.frag
+    hit = None
+    for it in items:
+        if it.frag is not None and it.frag.op == "const":
+            yd, yv = ch.host_value(it.frag)  # no wait for the card
+        else:
+            try:
+                yd, yv = it.fn([])
+            except IndexError:  # it reads a column
+                return None
+        if yd.dim() != 0:
+            return None
+        si = _decimal_scale(it.dtype)
+        x, y = x0, yd
+        if s is not None or si is not None:
+            sc = max(s or 0, si or 0)
+            if s is not None and sc != s:
+                x = _f_times(x, 10 ** (sc - s))
+            if si is not None:
+                y = y * (10 ** (sc - si))
+        if x is None:
+            return None
+        if yv is not None and not bool(yv):
+            continue  # a NULL item matches no row
+        lit = ch.const_of(y.to(x.dtype).cpu(), None)
+        if lit is None:
+            return None
+        eq = ch.strict("cmp", x, lit, dtype=torch.bool, imm=("==",))
+        hit = eq if hit is None else ch.strict("bor", hit, eq,
+                                               dtype=torch.bool)
+    if hit is None:
+        hit = ch.const(False, torch.bool)
+    return ch.op("setv", hit, x0, dtype=torch.bool, nullable=x0.nullable)
 
 
 def _rtf_member_builder(args, r):
@@ -1144,9 +1496,29 @@ def _math_unary(op: str):
             out, ok = NUM.math_unary(x, v, op, scale)
             return out.to(tdt), ok
 
-        return fn
+        return fn, _f_math_unary(a.frag, op, scale, tdt)
 
     return build
+
+
+def _f_math_unary(x: Optional[ch.Frag], op: str, scale: int, tdt):
+    if x is None or not 0 <= scale <= 18 or x.dtype not in ch.TYPE_CODE:
+        return None
+    kt = _kernel_dtype(x.dtype)
+    if op == "~" and ch.is_float(kt):
+        return None
+    if op in NUM.FLOAT_OPS:
+        raw = _F64
+    elif op in ("floor", "ceil"):
+        raw = _I64
+    elif op == "isnan":
+        raw = torch.bool
+    else:
+        raw = kt
+    nullable = True if op in NUM.LOG_OPS else \
+        False if op == "isnan" else x.nullable
+    return ch.conv(ch.op("num1", x, dtype=raw, nullable=nullable,
+                         imm=(op, scale)), tdt)
 
 
 def _math_binary(op: str):
@@ -1162,9 +1534,27 @@ def _math_binary(op: str):
             out, ok = NUM.math_binary(x, xv, y, yv, op, sa, sb)
             return out.to(tdt), ok
 
-        return fn
+        return fn, _f_math_binary(a.frag, b.frag, op, sa, sb, tdt)
 
     return build
+
+
+def _f_math_binary(x, y, op: str, sa: int, sb: int, tdt):
+    if x is None or y is None or not (0 <= sa <= 18 and 0 <= sb <= 18) or \
+            x.dtype not in ch.TYPE_CODE or y.dtype not in ch.TYPE_CODE:
+        return None
+    kx, ky = _kernel_dtype(x.dtype), _kernel_dtype(y.dtype)
+    if op in NUM.BITWISE_OPS and (ch.is_float(kx) or ch.is_float(ky)):
+        return None
+    if op == "nanvl" and not ch.is_float(kx):
+        return None
+    raw = kx if op in NUM.BITWISE_OPS else _F64
+    if op == "log":
+        nullable = True
+    else:
+        nullable = x.nullable or y.nullable
+    return ch.conv(ch.op("num2", x, y, dtype=raw, nullable=nullable,
+                         imm=(op, sa, sb)), tdt)
 
 
 def _log_builder(args, r):
@@ -1177,7 +1567,7 @@ def _log_builder(args, r):
 def _nanvl_builder(args, r):
     a, b = args
     if not isinstance(a.dtype, (dt.DoubleType, dt.FloatType)):
-        return a.fn  # no NaN to replace
+        return a.fn, a.frag  # no NaN to replace
     return _math_binary("nanvl")(args, r)
 
 
@@ -1205,7 +1595,17 @@ def _round_builder(half_even: bool):
                 out = NUM.round_number(x, half_even, digits)
             return out.to(tdt), v
 
-        return fn
+        in_s = 0 if s is None else s
+        out_s = 0 if s is None else (s if so is None else so)
+        frag = None
+        if a.frag is not None and a.frag.dtype in ch.TYPE_CODE and \
+                0 <= in_s <= 18 and 0 <= out_s <= 18 and \
+                out_s - digits <= 18 and out_s >= in_s - 18:
+            frag = ch.conv(ch.op(
+                "round", a.frag, dtype=_kernel_dtype(a.frag.dtype),
+                nullable=a.frag.nullable,
+                imm=(half_even, digits, in_s, out_s)), tdt)
+        return fn, frag
 
     return build
 
@@ -1236,9 +1636,32 @@ def _calendar_builder(op: str):
             y, y_us = operand(b, yd)
             return NUM.calendar(x, xv, op, y, yv, x_us, y_us)
 
-        return fn
+        return fn, _f_calendar(op, a, b)
 
     return build
+
+
+def _f_calendar(op: str, a: Compiled, b: Optional[Compiled]):
+    def operand(c: Compiled):
+        if isinstance(c.dtype, dt.TimestampType):
+            return _f_local_us(c.frag, c.dtype), True
+        return c.frag, False
+
+    x, xm = operand(a)
+    y, ym = (None, False) if b is None else \
+        (b.frag, False) if op == "add_months" else operand(b)
+    if x is None or (b is not None and y is None):
+        return None
+    for f, micros in ((x, xm), (y, ym)):
+        if f is not None and (f.dtype not in ch.TYPE_CODE or
+                              ch.is_float(_kernel_dtype(f.dtype)) or
+                              (micros and f.dtype != _I64)):
+            return None
+    raw = _F64 if op == "months_between" else torch.int32
+    nullable = x.nullable or (y is not None and y.nullable)
+    args = (x,) if y is None else (x, y)
+    return ch.op("cal", *args, dtype=raw, nullable=nullable,
+                 imm=(op, xm, ym))
 
 
 def _day_arith(op: str):
@@ -1255,7 +1678,14 @@ def _day_arith(op: str):
             out = x - y if op in ("datediff", "date_sub") else x + y
             return out.to(torch.int32), K.merge_validity(xv, yv)
 
-        return fn
+        x = _f_to_days(a.frag, a.dtype)
+        y = _f_to_days(b.frag, b.dtype) if op == "datediff" else \
+            None if b.frag is None else ch.conv(b.frag, _I64)
+        if x is None or y is None:
+            return fn, None
+        return fn, ch.conv(ch.strict(
+            "sub" if op in ("datediff", "date_sub") else "add", x, y,
+            dtype=_I64), torch.int32)
 
     return build
 
@@ -1272,7 +1702,14 @@ def _nvl2_builder(args, r):
         (td, tv), (fd, fv) = t.fn(cols), f.fn(cols)
         return K.if_((not_null, None), (td.to(tdt), tv), (fd.to(tdt), fv))
 
-    return fn
+    fs = _frags(cond, t, f)
+    if fs is None:
+        return fn, None
+    fc, ft, ff = fs
+    return fn, ch.op("select", ch.op("isnotnull", fc, dtype=torch.bool,
+                                     nullable=False),
+                     ch.conv(ft, tdt), ch.conv(ff, tdt), dtype=tdt,
+                     nullable=ft.nullable or ff.nullable)
 
 
 def _sample_mask_builder(args, r):
@@ -1291,23 +1728,81 @@ def _sample_mask_builder(args, r):
     return fn
 
 
-def _strict1(k):
+def _strict1(k, frag=None):
     def build(args, r):
         (a,) = args
-        return lambda cols: k(a.fn(cols))
+        fn = lambda cols: k(a.fn(cols))  # noqa: E731
+        return fn, None if frag is None or a.frag is None else frag(a.frag)
     return build
 
 
-def _strict2(k):
+def _strict2(k, frag=None):
     def build(args, r):
         a, b = args
-        return lambda cols: k(a.fn(cols), b.fn(cols))
+        fn = lambda cols: k(a.fn(cols), b.fn(cols))  # noqa: E731
+        fs = _frags(a, b)
+        return fn, None if frag is None or fs is None else frag(*fs)
     return build
 
 
-def _variadic(k):
+def _variadic(k, frag=None):
     def build(args, r):
-        return lambda cols: k(*[a.fn(cols) for a in args])
+        fn = lambda cols: k(*[a.fn(cols) for a in args])  # noqa: E731
+        fs = _frags(*args)
+        return fn, None if frag is None or fs is None else frag(*fs)
+    return build
+
+
+def _same(*fs: ch.Frag) -> bool:
+    return all(f.dtype == fs[0].dtype for f in fs)
+
+
+def _f_int_div(x, y):
+    """``K.int_div``."""
+    if not _same(x, y):
+        return None
+    q = ch.op("sdiv", x, y, dtype=x.dtype, nullable=True)
+    return ch.conv(q, _I64) if ch.is_float(x.dtype) else q
+
+
+def _f_mod(x, y):
+    return ch.op("smod", x, y, dtype=x.dtype, nullable=True) \
+        if _same(x, y) else None
+
+
+def _f_pmod(x, y):
+    m = _f_mod(x, y)
+    return None if m is None else ch.op("pmodfix", m, y, dtype=x.dtype,
+                                        nullable=True)
+
+
+def _f_kleene(name):
+    return lambda x, y: ch.strict(name, x, y, dtype=torch.bool)
+
+
+def _f_coalesce(*fs):
+    acc = fs[-1]
+    for f in reversed(fs[:-1]):
+        c = ch.conv(f, acc.dtype)
+        acc = c if not f.nullable else ch.op(
+            "selv", c, acc, dtype=acc.dtype, nullable=acc.nullable)
+    return acc
+
+
+def _f_if(c, t, f):
+    return ch.op("select", c, ch.conv(t, f.dtype), f, dtype=f.dtype,
+                 nullable=t.nullable or f.nullable)
+
+
+def _f_extreme(is_max: bool):
+    def build(*fs):
+        if not _same(*fs):
+            return None
+        acc = fs[0]
+        for f in fs[1:]:
+            acc = ch.op("ext", acc, f, dtype=acc.dtype,
+                        nullable=acc.nullable or f.nullable, imm=(is_max,))
+        return acc
     return build
 
 
@@ -1322,20 +1817,27 @@ _BUILDERS: Dict[str, Callable] = {
     ">": _binary_numeric(">"),
     ">=": _binary_numeric(">="),
     "/": _div_builder,
-    "div": _strict2(K.int_div),
-    "%": _strict2(K.mod),
-    "pmod": _strict2(K.pmod),
-    "and": _strict2(K.kleene_and),
-    "or": _strict2(K.kleene_or),
-    "not": _strict1(K.not_),
-    "isnull": _strict1(K.isnull),
-    "isnotnull": _strict1(K.isnotnull),
-    "coalesce": _variadic(K.coalesce),
-    "nullif": _strict2(K.nullif),
-    "if": _variadic(K.if_),
-    "greatest": _variadic(K.greatest),
-    "least": _variadic(K.least),
-    "<=>": _strict2(K.eq_null_safe),
+    "div": _strict2(K.int_div, _f_int_div),
+    "%": _strict2(K.mod, _f_mod),
+    "pmod": _strict2(K.pmod, _f_pmod),
+    "and": _strict2(K.kleene_and, _f_kleene("and3")),
+    "or": _strict2(K.kleene_or, _f_kleene("or3")),
+    "not": _strict1(K.not_, lambda x: ch.op("not", x, dtype=torch.bool,
+                                            nullable=x.nullable)),
+    "isnull": _strict1(K.isnull, lambda x: ch.op(
+        "isnull", x, dtype=torch.bool, nullable=False)),
+    "isnotnull": _strict1(K.isnotnull, lambda x: ch.op(
+        "isnotnull", x, dtype=torch.bool, nullable=False)),
+    "coalesce": _variadic(K.coalesce, _f_coalesce),
+    "nullif": _strict2(K.nullif, lambda x, y: ch.op(
+        "nullif", x, y, dtype=x.dtype, nullable=True) if _same(x, y)
+        else None),
+    "if": _variadic(K.if_, _f_if),
+    "greatest": _variadic(K.greatest, _f_extreme(True)),
+    "least": _variadic(K.least, _f_extreme(False)),
+    "<=>": _strict2(K.eq_null_safe, lambda x, y: ch.op(
+        "eqns", x, y, dtype=torch.bool, nullable=False) if _same(x, y)
+        else None),
     "date+interval": _date_arith("+"),
     "date-interval": _date_arith("-"),
     "in": _in_builder,

@@ -89,6 +89,15 @@ class SparkSession:
         # the rows each join of the last query put out
         # (LocalExecutor.join_rows)
         self.last_join_rows: list = []
+        # each Filter/Project chain's bound program or closures, by
+        # (stage fingerprint, dictionaries, subquery values, device, zone)
+        # (LocalExecutor._stage)
+        self.chain_programs: dict = {}
+        # each chain of the last query: its route (K16, K17, per-op, or
+        # refs where it only passes columns through), its nodes, the
+        # operator it feeds and, for a per-op chain, the first expression
+        # without a program fragment (LocalExecutor.chain_routes)
+        self.last_chain_routes: list = []
 
     def sql(self, query: str) -> "DataFrame":
         from .sql import parse_one
@@ -106,6 +115,7 @@ class SparkSession:
         self._scan_cache.clear()
         self._rtf_history.clear()
         self.dict_tables.clear()
+        self.chain_programs.clear()
         with SparkSession._lock:
             if SparkSession._active is self:
                 SparkSession._active = None
@@ -120,12 +130,14 @@ class SparkSession:
         try:
             node = optimize(Resolver(self.catalog_manager).resolve(plan))
             executor = LocalExecutor(self.device, self._scan_cache, self.conf,
-                                     self._rtf_history, self.dict_tables)
+                                     self._rtf_history, self.dict_tables,
+                                     self.chain_programs)
             try:
                 return executor.execute(node)
             finally:
                 self.last_runtime_filters = executor.runtime_filters
                 self.last_join_rows = executor.join_rows
+                self.last_chain_routes = executor.chain_routes
         finally:
             reset_session_timezone(token)
 
