@@ -15,7 +15,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
 
 1. Device: the card's name, count and power limit.
 2. Build: compile the CUDA kernels (sail_tpu_torch/csrc, one nvcc per
-   source, all at once) and print the compiler's register report.
+   source, all at once) and print the compiler's register report. The
+   chain kernels (K16, K17) are generated for each chain program
+   (ops/chain_codegen.py) and compiled with NVRTC where a query binds
+   the chain (csrc/chain_jit.cu, the cubins under build/): the run counts
+   the programs compiled and their seconds.
 3. Kernels: run K1's two entry points (seg_reduce, binned;
    seg_reduce_runs, for sort-based grouping), K2 (direct_group_ids), K3
    (order_keys), K4 (join_keys), K5 (probe_ranges), K6 (join_expand) and
@@ -144,17 +148,24 @@ Then, after phase 10, on the same tables:
    timed runs each, with rows and peak device memory; E3 and E5 against
    numpy at full size (their answers are integers and dates); every
    query launches what its ``expr_queries.KERNELS`` entry names.
-14. Chain kernels: K16 (chain) and K17 (chain_reduce) of ops/chain.py at
-   the path's shapes: K17 over Q1's, Q6's and E2's chains at ``--sf``
-   (and each of those chains as a K16 program), K16 over Q3's lineitem
-   filter and Q19's predicate, and, inside phase 7, K17 over ClickBench
-   Q30's 90 sums at ``--cb-rows``. Each against its plain version
-   (run_chain_plain; K17: its registers reduced by the K1 route):
-   integers, decimals, dates, codes and bools exactly, K16's float64
-   exactly (EXPR_ULPS ulp where the chain calls a libm function), K17's
-   float sums within FLOAT_RTOL; then timed beside it, its bound (bytes
-   once) and the closures it replaced (``library_ms``: the chain's torch
-   ops, then for K17 the K2/sort and K1 route).
+14. Chain kernels: K16 (chain) and K17 (chain_reduce) of ops/chain.py, the
+   kernels generated for each program, at the path's shapes: K17 over
+   Q1's, Q6's and E2's chains at ``--sf`` (and each of those chains as a
+   K16 program), K16 over Q3's lineitem filter and Q19's predicate, and,
+   inside phase 7, K17 over ClickBench Q30's 90 sums at ``--cb-rows``.
+   Each against its plain version (run_chain_plain; K17: its registers
+   reduced by the K1 route): integers, decimals, dates, codes and bools
+   exactly, K16's float64 exactly (EXPR_ULPS ulp where the chain calls a
+   libm function), K17's float sums within FLOAT_RTOL; then timed beside
+   it, its bound (bytes once; K17 reads each input only in the 32-byte
+   sectors that hold a row its filters have left, ``_k17_bytes``) and the
+   closures it replaced
+   (``library_ms``: the chain's torch ops, then for K17 the K2/sort and
+   K1 route), the program's compile ms and the registers and local bytes
+   (spills and stack) the driver reports of its kernel; the printed line
+   adds the earlier interpreter's time where it had one
+   (``INTERPRETER_MS``, from PERF.md, in brackets). The run prints the
+   programs compiled, their seconds and how many of them spill.
 
 Every query of phases 5, 7, 10 and 13 prints its chains' routes (K16,
 K17, per-op, with the first expression that kept a chain on its
@@ -240,8 +251,8 @@ PROFILED_KERNELS = {
     "K13 round_number": re.compile(r"\bround_kernel\("),
     "K14 math_binary": re.compile(r"\bbinary_kernel\("),
     "K15 calendar": re.compile(r"\bcalendar_kernel[<(]"),
-    "K16 chain": re.compile(r"\bchain_kernel<false>"),
-    "K17 chain_reduce": re.compile(r"\bchain_kernel<true>"),
+    "K16 chain": re.compile(r"\bsail_chain_k16\b"),
+    "K17 chain_reduce": re.compile(r"\bsail_chain_k17\b"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -2310,7 +2321,7 @@ def run_expr_path(tables: dict, sf: float, runs: int, profile: bool) -> dict:
 # phase 14: K16 and K17 at the path's shapes
 # ---------------------------------------------------------------------------
 
-CHAIN_SOURCE = "sail_tpu_torch/csrc/chain.cu"
+CHAIN_SOURCE = "sail_tpu_torch/ops/chain_codegen.py"
 CHAIN_REPLACES = {"chain": "sail_tpu/exec/local.py:1598",
                   "chain_reduce": "sail_tpu/exec/local.py:1869"}
 # the queries phase 14 runs at --sf: K17 over Q1's, Q6's and E2's chains
@@ -2318,6 +2329,17 @@ CHAIN_REPLACES = {"chain": "sail_tpu/exec/local.py:1598",
 # would run it), K16 where Q3 filters lineitem under its joins and over
 # Q19's predicate; Q30's K17 runs in phase 7 at --cb-rows
 CHAIN_QUERIES = ("q1", "q6", "e2", "q3", "q19")
+# the chain interpreter's times (ms) at these shapes, before the kernels
+# were generated a program (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W):
+# (kernel, query, whether it is a K17 chain run as a K16 program)
+INTERPRETER_MS = {("chain", "q1", True): 3.964, ("chain", "q6", True): 5.606,
+                  ("chain", "e2", True): 10.662, ("chain", "q3", False): 0.541,
+                  ("chain", "q19", False): 1.002,
+                  ("chain_reduce", "q1", False): 8.183,
+                  ("chain_reduce", "q6", False): 6.504,
+                  ("chain_reduce", "e2", False): 13.346,
+                  ("chain_reduce", "q19", False): 0.169,
+                  ("chain_reduce", "cb30", False): 50.414}
 # the ops whose float64 results the card's math library and torch's may
 # round apart (K12 and K14 are held to EXPR_ULPS ulp for them)
 _LIBM_UNARY = frozenset(("exp", "expm1", "ln", "log10", "log2", "log1p",
@@ -2399,19 +2421,82 @@ def _elem(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
-def _chain_bytes(prog, n: int) -> int:
-    """What a program must move: each input (and validity) and the
-    selection read once; K16 writes each stored column (and validity) and
-    the selection once."""
+def _sectors(live: torch.Tensor, width: int) -> int:
+    """The bytes of the 32-byte sectors of a column of ``width``-byte
+    values that hold at least one ``live`` row."""
+    per = 32 // width
+    pad = -live.shape[0] % per
+    if pad:
+        live = torch.cat([live, live.new_zeros(pad)])
+    return 32 * int(live.view(-1, per).any(1).sum())
+
+
+def _k16_bytes(prog, sel) -> int:
+    """What a K16 program must move: the selection read once, each input
+    (and validity) read once, each stored column (and validity) and the
+    selection written once."""
+    n = sel.shape[0]
     read = n + sum(n * _elem(d) + (n if null else 0)
                    for _, d, null in prog.inputs)
-    if prog.reduces:
-        return read
     return read + n + sum(n * _elem(d) + (n if null else 0)
                           for d, null in prog.outputs)
 
 
-def _k16_row(label, prog, chain_fn, cols, sel) -> dict:
+def _k17_bytes(prog, filters, cols, sel) -> int:
+    """What a K17 program must move: the selection once, and each input
+    (and validity) in the 32-byte sectors that hold a row still live where
+    the program first reads it: selected, and kept by every filter before
+    that read (a row a filter killed needs no more of its columns). The
+    filters' predicates come from one plain run of them as outputs; the
+    program has one FILTER a filter, in their order."""
+    from sail_tpu_torch.ops import chain as chn
+
+    live = [sel]
+    if filters:
+        preds, _ = chn.run_chain_plain(
+            chn.build_program([], filters, sel.device), cols, sel)
+        for d, v in preds:
+            keep = d.bool() if v is None else d.bool() & v
+            live.append(live[-1] & keep)
+    seen, at = {}, 0
+    for ins in prog.instrs:
+        name = chn.OPCODES[ins[0]]
+        if name == "FILTER":
+            at += 1
+        elif name == "COL":
+            seen.setdefault(ins[5], at)
+    if at != len(filters):
+        raise AssertionError(f"{at} FILTERs for {len(filters)} filters")
+    total = sel.shape[0]
+    for slot, (_, d, null) in enumerate(prog.inputs):
+        rows = live[seen[slot]]
+        total += _sectors(rows, _elem(d)) + (_sectors(rows, 1) if null
+                                             else 0)
+    return total
+
+
+def _compiled_row(row: dict, prog, key) -> dict:
+    """A phase-14 row with its program's compile and the driver's report
+    of its kernel; the interpreter's time at the shape, if any, is printed
+    beside it (PERF.md's, not measured in this run)."""
+    from sail_tpu_torch.ops import chain_codegen as cg
+
+    gen, k = cg.kernel(prog, torch.device("cuda"))
+    row.update(compile_ms=k.compile_s * 1e3, regs=k.regs,
+               local_bytes=k.local_bytes, blocks_per_sm=k.per_sm,
+               rows_a_thread=gen.rows,
+               bound_share=row["bound_ms"] / row["ms"])
+    old = INTERPRETER_MS.get(key)
+    print(f"    compiled in {row['compile_ms']:.1f} ms; {k.regs} registers, "
+          f"{k.local_bytes} B of local memory a thread, {k.per_sm} blocks "
+          f"an SM; "
+          f"{100 * row['bound_share']:.0f}% of its bound"
+          + ("" if old is None else f"; [interpreter {old:.3f} ms]"),
+          flush=True)
+    return row
+
+
+def _k16_row(label, prog, chain_fn, cols, sel, key) -> dict:
     from sail_tpu_torch.ops import chain as chn
 
     n = sel.shape[0]
@@ -2420,16 +2505,15 @@ def _k16_row(label, prog, chain_fn, cols, sel) -> dict:
         outs, s = res
         return [(s, None)] + list(outs)
 
-    return _timed(f"{label} ({len(prog.instrs)} instructions, "
-                  f"{prog.nreg} registers)", n,
-                  lambda: flat(chn.run_chain(prog, cols, sel)),
-                  lambda: flat(chn.run_chain_plain(prog, cols, sel)),
-                  _chain_bytes(prog, n),
-                  library=lambda: chain_fn(cols, sel),
-                  compare=_cv_compare(_libm(prog)))
+    return _compiled_row(_timed(
+        f"{label} ({len(prog.instrs)} instructions)", n,
+        lambda: flat(chn.run_chain(prog, cols, sel)),
+        lambda: flat(chn.run_chain_plain(prog, cols, sel)),
+        _k16_bytes(prog, sel), library=lambda: chain_fn(cols, sel),
+        compare=_cv_compare(_libm(prog))), prog, key)
 
 
-def _k17_row(label, ex, p, stage, child) -> dict:
+def _k17_row(label, ex, p, stage, child, key) -> dict:
     from sail_tpu_torch.ops import chain as chn
 
     cols, sel = ex._cols(child), child.device.sel
@@ -2446,14 +2530,14 @@ def _k17_row(label, ex, p, stage, child) -> dict:
         return ex._aggregate(p, out, s, stage.dicts)
 
     prog = stage.prog
-    return _timed(f"{label} ({len(prog.instrs)} instructions, "
-                  f"{prog.nreg} registers, {prog.nbins} bins x "
-                  f"{len(prog.slots)} accumulators)", n,
-                  lambda: flat(chn.run_chain_reduce(prog, cols, sel, kt,
-                                                    at)),
-                  lambda: flat(chn.run_chain_reduce_plain(prog, cols, sel,
-                                                          kt, at)),
-                  _chain_bytes(prog, n), library=closures)
+    chain, node = ex._split_chain(p.input)
+    _, filters, _, _, _, _ = ex._lower_chain(chain, child, node)
+    return _compiled_row(_timed(
+        f"{label} ({len(prog.instrs)} instructions, {prog.nbins} bins x "
+        f"{len(prog.slots)} accumulators)", n,
+        lambda: flat(chn.run_chain_reduce(prog, cols, sel, kt, at)),
+        lambda: flat(chn.run_chain_reduce_plain(prog, cols, sel, kt, at)),
+        _k17_bytes(prog, filters, cols, sel), library=closures), prog, key)
 
 
 def check_chain_query(spark, name: str, sql: str, k16_too: bool) -> dict:
@@ -2470,20 +2554,22 @@ def check_chain_query(spark, name: str, sql: str, k16_too: bool) -> dict:
     rows = {"chain": [], "chain_reduce": []}
     for ex, p, stage, child in got["k17"]:
         rows["chain_reduce"].append(_k17_row(f"{name} K17", ex, p, stage,
-                                             child))
+                                             child,
+                                             ("chain_reduce", name, False)))
         if k16_too:
             chain, node = ex._split_chain(p.input)
             fn, filters, frags, _, _, _ = ex._lower_chain(chain, child, node)
             prog = chn.build_program(filters, frags, child.device.sel.device)
             rows["chain"].append(_k16_row(
                 f"{name}'s chain as K16", prog, fn, ex._cols(child),
-                child.device.sel))
+                child.device.sel, ("chain", name, True)))
     if got["k16"] and not k16_too:
         ex, stage, child = max(got["k16"],
                                key=lambda x: x[2].device.sel.shape[0])
         rows["chain"].append(_k16_row(f"{name} K16", stage.prog,
                                       stage.chain_fn, ex._cols(child),
-                                      child.device.sel))
+                                      child.device.sel,
+                                      ("chain", name, False)))
     return rows
 
 
@@ -2863,6 +2949,9 @@ def main() -> int:
     entries += [_chain_entry(k, chain_rows[k])
                 for k in ("chain", "chain_reduce")]
     print(f"phase wall times (s): {phases}", flush=True)
+    compiled = dict(programs=csrc.jit_kernel.compiles,
+                    seconds=csrc.jit_kernel.compile_s,
+                    spilling=csrc.jit_kernel.spilling)
     on_path = {**report["launches_on_path"], **win_report["launches_on_path"],
                **expr_report["launches_on_path"],
                **cb_report["launches_on_path"]}
@@ -2887,7 +2976,7 @@ def main() -> int:
             "clickbench_checks": cb_checks, "cb_rows": args.cb_rows,
             "cb_check_rows": args.cb_check_rows, "seed": args.seed,
             "phases_s": phases, "kernel_rows": args.kernel_rows,
-            "kernels": kernels, "smi": smi}
+            "kernels": kernels, "smi": smi, "chain_compiles": compiled}
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(full, indent=1))
@@ -2895,7 +2984,10 @@ def main() -> int:
         "main_path", "checks", "sf", "check_sf", "window", "window_checks",
         "window_functions", "expr", "expr_checks", "clickbench",
         "clickbench_checks", "cb_rows", "cb_check_rows", "seed",
-        "phases_s")}))
+        "phases_s", "chain_compiles")}))
+    print(f"chain kernels compiled with NVRTC in this run: "
+          f"{compiled['programs']} programs in {compiled['seconds']:.1f} s, "
+          f"{compiled['spilling']} of them spilling registers", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 // Shared device helpers for the sail_tpu_torch kernels.
 #pragma once
 
+// NVRTC (the chain kernels, csrc/chain_jit.cu) has no host headers and
+// needs neither
+#ifndef __CUDACC_RTC__
 #include <cuda_runtime.h>
 #include <stdint.h>
+#endif
 
 #define SAIL_FULL_MASK 0xffffffffu
 

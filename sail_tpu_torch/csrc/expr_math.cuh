@@ -1,11 +1,24 @@
 // K12-K15's per-element functions, shared by csrc/expr_math.cu (the
-// kernels K12-K15) and csrc/chain.cu (K16 and K17, which run the same
+// kernels K12-K15) and csrc/chain.cuh (K16 and K17, which run the same
 // functions inside a chain's program).
 #pragma once
 
+// NVRTC, which compiles K16 and K17 (csrc/chain_jit.cu), has no host
+// headers: the two limits of <climits> used here
+#ifdef __CUDACC_RTC__
+#ifndef LLONG_MAX
+#define LLONG_MAX 9223372036854775807LL
+#define LLONG_MIN (-LLONG_MAX - 1LL)
+#endif
+#else
 #include <climits>
+#endif
 
+// the host build of the chain tests (tests/test_torch_chain_codegen.py)
+// defines CUDART_PI itself
+#ifndef CUDART_PI
 #include <math_constants.h>
+#endif
 
 namespace {
 

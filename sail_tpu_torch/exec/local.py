@@ -23,7 +23,10 @@ chain's route (with the first expression that kept a chain on the
 closures). A chain's program or closures are compiled once per
 (``plan/stages.py`` ``stage_fingerprint``, the dictionaries' identities,
 the subquery values, the device, the session's time zone) and kept in
-the session's ``chain_programs``, so a steady run compiles nothing. The
+the session's ``chain_programs``, so a steady run compiles nothing; on
+the card, binding a program also generates its kernel and compiles it
+with NVRTC (``ops/chain_codegen.py``; once a process for each source,
+which depends on no subquery value or dictionary). The
 host waits for the device only where it needs a value to go on: a join
 fetches its decision scalars (duplicate keys, hash ambiguity, output
 size, filter counts) in one transfer.
@@ -45,6 +48,7 @@ from ..config import get as config_get
 from ..config import truthy_value
 from ..ops import aggregate as aggk
 from ..ops import chain as chainop
+from ..ops import chain_codegen
 from ..ops import hash as hashk
 from ..ops import join as joink
 from ..ops import runtime_filter as rtfk
@@ -373,17 +377,30 @@ class LocalExecutor:
             return stage("per-op", None, unfused)
         if agg is not None:
             sinks = _agg_sinks(agg, frags, dicts, schema)
+            prog = None
             if sinks is not None:
                 try:
-                    return stage("K17", chainop.build_program(
-                        filters, (), self.device, *sinks))
+                    prog = chainop.build_program(filters, (), self.device,
+                                                 *sinks)
                 except ValueError:
                     pass  # past K17's limits: K16, then the K1 route
+            if prog is not None:
+                return stage("K17", self._compiled(prog))
         try:
             prog = chainop.build_program(filters, frags, self.device)
         except ValueError as e:
             return stage("per-op", None, f"{e}")
-        return stage("refs" if not prog.instrs else "K16", prog)
+        if not prog.instrs:
+            return stage("refs", prog)
+        return stage("K16", self._compiled(prog))
+
+    def _compiled(self, prog: chainop.ChainProgram) -> chainop.ChainProgram:
+        """On the card, the program's kernel generated and compiled (or
+        loaded from the cubin cache) now, where the chain is bound, so a
+        steady run compiles nothing; an NVRTC or load error raises."""
+        if self.device.type == "cuda":
+            chain_codegen.kernel(prog, self.device)
+        return prog
 
     def _run_chain(self, top: pn.PlanNode, consumer: str
                    ) -> Tuple[List, torch.Tensor, Dict, pn.Schema]:

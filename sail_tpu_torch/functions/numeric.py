@@ -194,10 +194,24 @@ def month_len(y, m):
 
 def _cbrt(x: torch.Tensor) -> torch.Tensor:
     """The real cube root: pow of |x|, then one Newton step (pow alone is
-    an ulp off on exact cubes: 27 gives 3.0000000000000004)."""
-    r = torch.sign(x) * x.abs().pow(1.0 / 3.0)
-    step = r - (r * r * r - x) / (3.0 * r * r)
-    return torch.where(torch.isfinite(step) & (r != 0), step, r)
+    an ulp off on exact cubes: 27 gives 3.0000000000000004). The step
+    cubes r, so |x| is first scaled by an exact cube into the normal range
+    where r * r * r neither underflows (subnormal x: the step would move r
+    by tens of ulp) nor overflows (x near the largest double), and the
+    root scaled back by its cube root."""
+    a = x.abs()
+    tiny, huge = a < _CBRT_TINY, a > _CBRT_HUGE
+    y = torch.where(tiny, a * 2.0 ** 54, torch.where(huge, a * 2.0 ** -54, a))
+    r = y.pow(1.0 / 3.0)
+    step = r - (r * r * r - y) / (3.0 * r * r)
+    r = torch.where(torch.isfinite(step) & (r != 0), step, r)
+    r = torch.where(tiny, r * 2.0 ** -18, torch.where(huge, r * 2.0 ** 18, r))
+    return torch.copysign(r, x)
+
+
+# below the smallest normal double, and above 2^1020: _cbrt's scaled range
+_CBRT_TINY = 2.2250738585072014e-308
+_CBRT_HUGE = 2.0 ** 1020
 
 
 def _hyperbolic(fn):

@@ -24,9 +24,10 @@ Two runners a program:
 - ``run_chain_plain`` interprets the program one instruction at a time
   with torch ops over whole columns: the plain version, which the CPU
   takes and which the tests hold to the closures.
-- ``run_chain`` launches K16 (``csrc/chain.cu`` ``sail_chain``) on a CUDA
-  tensor, or raises; ``run_chain_reduce`` launches K17
-  (``sail_chain_reduce``), whose plain version is ``run_chain_plain``'s
+- ``run_chain`` launches K16, the program's own kernel
+  (``ops/chain_codegen.py`` generates it, NVRTC compiles it), on a CUDA
+  tensor, or raises; ``run_chain_reduce`` launches K17, the program with
+  its aggregate's tail, whose plain version is ``run_chain_plain``'s
   registers reduced by the K1 route's aggregate functions
   (``ops/aggregate.py``). Each counts its launches in ``.launches``.
 
@@ -37,14 +38,12 @@ bound, by whether every expression has a fragment.
 
 from __future__ import annotations
 
-import ctypes
 import struct
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .. import csrc
 from ..columnar.batch import Column
 from ..functions import numeric as NUM
 from ..functions.kernels import merge_validity
@@ -54,7 +53,7 @@ from . import aggregate as aggk
 # fragments
 # ---------------------------------------------------------------------------
 
-# physical types a program reads and writes, by code (chain.cu kBool...)
+# physical types a program reads and writes, by code (chain.cuh kBool...)
 TYPE_CODE = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
              torch.int64: 4, torch.float32: 5, torch.float64: 6}
 _CODE_TYPE = {c: t for t, c in TYPE_CODE.items()}
@@ -118,21 +117,25 @@ def _word(value, dtype: torch.dtype) -> int:
     return int(value)
 
 
-def const_of(data: torch.Tensor, validity: Optional[torch.Tensor]
-             ) -> Optional[Frag]:
-    """A literal closure's 0-d value as a constant."""
+def const_of(data: torch.Tensor, validity: Optional[torch.Tensor],
+             arg: Optional[int] = None) -> Optional[Frag]:
+    """A literal closure's 0-d value as a constant. ``arg`` (the identity
+    of a scalar subquery) makes it an argument of the program's kernel
+    instead of a literal in its source, so one kernel serves every value
+    of the subquery."""
     if data.dim() != 0 or data.dtype not in TYPE_CODE or \
             (validity is not None and validity.dim() != 0):
         return None
     valid = validity is None or bool(validity)
     return Frag("const", (), data.dtype, validity is not None,
-                (_word(data.item(), data.dtype), valid))
+                (_word(data.item(), data.dtype), valid) +
+                (() if arg is None else (arg,)))
 
 
 def host_value(f: Frag):
     """A constant fragment's (0-d host tensor, validity or None): the
     closure's literal, without reading it back from the card."""
-    word, valid = f.imm
+    word, valid = f.imm[:2]
     value = struct.unpack("<d", struct.pack("<q", word))[0] \
         if is_float(f.dtype) else word
     return torch.tensor(value, dtype=f.dtype), \
@@ -167,7 +170,7 @@ def strict(name: str, *args: Frag, dtype: torch.dtype,
 # instructions
 # ---------------------------------------------------------------------------
 
-# opcodes, in chain.cu's order (enum Op)
+# opcodes: each has its emitter in chain_codegen.EMITTERS
 OPCODES = (
     "COL", "CONST", "ADD_I", "SUB_I", "MUL_I", "ADD_F", "SUB_F", "MUL_F",
     "DIV_F", "WRAP", "I2F", "I2F32", "F2F32", "F2I", "NE0_I", "NE0_F",
@@ -182,24 +185,17 @@ CMP_CODES = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 DATE_FIELDS = ("year", "month", "day", "quarter", "dayofweek", "weekday",
                "dayofyear")
 TRUNC_FMTS = ("year", "quarter", "month", "week")
-# K17's accumulator kinds (chain.cu enum Acc)
+# K17's accumulator kinds (chain.cuh enum Acc)
 ACC_KINDS = ("count", "sum_i", "sum_f", "min_i", "max_i", "min_f", "max_f")
-# the instruction words: op, dst, a, b, c, i0, i1, i2 (int32 each)
-_INSTR_WORDS = 8
-# the most registers, inputs and outputs a program may have (chain.cu);
-# _BLOCK and _ROWS are chain.cu's kBlock and kRows
-MAX_REGS = 255
-MAX_INPUTS = 64
-MAX_OUTPUTS = 128
+# a generated kernel takes its program's arguments as one parameter of
+# 64-bit words (the row count, the selection and the sink; a pointer and a
+# validity pointer for each input and output, a pointer and a length for
+# each table, a word and a validity for each subquery value), which must
+# stay within the 4 KB a kernel's parameters may take
+MAX_ARGUMENT_WORDS = 512
 # K17 keeps bins x slots accumulators of 8 bytes in shared memory: at most
 # this many (96 KB); a larger aggregate takes K16, then K1
 MAX_ACC_SLOTS = 12288
-# a block's shared memory: the program (32 B an instruction), K17's
-# accumulators and the registers (9 B a register, row and thread; a thread
-# carries _ROWS rows) must fit
-_BLOCK = 128
-_ROWS = 4
-MAX_SMEM = 200 * 1024
 
 
 class AggSink(NamedTuple):
@@ -214,16 +210,18 @@ class AggSink(NamedTuple):
 @dataclass
 class ChainProgram:
     """A compiled chain. ``instrs`` are (op, dst, a, b, c, i0, i1, i2)
-    over registers 0..nreg-1; ``outputs`` (K16) the dtype and
-    nullability each STORE writes, ``out_map`` each chain output as
-    ("store", j) or ("input", column index) (a column passed through);
+    over registers 0..nreg-1; ``consts`` (word, validity, float, whether
+    it is a kernel argument: a scalar subquery's value); ``outputs`` (K16)
+    the dtype and nullability each STORE writes, ``out_map`` each chain
+    output as ("store", j) or ("input", column index) (a column passed
+    through);
     ``inputs`` the (column index, dtype, nullable) each COL reads by slot.
     K17: ``domains`` of the direct keys (None: keyless), ``aggs`` and, per
     aggregate, its (value slot, count slot) among ``slots`` (kind, identity
     word), slot 0 counting the live rows of each bin."""
 
     instrs: List[tuple]
-    consts: List[Tuple[int, bool, bool]]
+    consts: List[Tuple[int, bool, bool, bool]]
     tables: List[torch.Tensor]
     inputs: List[Tuple[int, torch.dtype, bool]]
     outputs: List[Tuple[torch.dtype, bool]]
@@ -236,7 +234,10 @@ class ChainProgram:
     aggs: Optional[List[AggSink]] = None
     agg_slots: Optional[List[Tuple[int, int]]] = None
     slots: Optional[List[Tuple[int, int]]] = None
-    _dev: Optional[dict] = None
+    # its generated source and loaded kernel (chain_codegen.kernel), and
+    # K17's identities on the card (uploaded once)
+    _kernel: Optional[tuple] = None
+    _ident: Optional[torch.Tensor] = None
 
     @property
     def reduces(self) -> bool:
@@ -249,32 +250,6 @@ class ChainProgram:
             n *= d + 1
         return n
 
-    def device_buffers(self) -> dict:
-        """The program's tables on its device, uploaded once."""
-        if self._dev is None:
-            dev = self.device
-            ins = torch.tensor(self.instrs or [[0] * _INSTR_WORDS],
-                               dtype=torch.int32).reshape(-1)
-            words = torch.tensor([c[0] for c in self.consts] or [0],
-                                 dtype=torch.int64)
-            cvalid = torch.tensor([c[1] for c in self.consts] or [True],
-                                  dtype=torch.uint8)
-            tabs = torch.tensor([[t.data_ptr(), t.shape[0],
-                                  TYPE_CODE[t.dtype]] for t in self.tables]
-                                or [[0, 0, 0]], dtype=torch.int64)
-            types = torch.tensor([TYPE_CODE[d] for _, d, _ in self.inputs] +
-                                 [TYPE_CODE[d] for d, _ in self.outputs] +
-                                 [0], dtype=torch.int32)
-            out = dict(instrs=ins, consts=words, const_valid=cvalid,
-                       tables=tabs, types=types)
-            if self.slots is not None:
-                out["slot_kinds"] = torch.tensor(
-                    [k for k, _ in self.slots], dtype=torch.int32)
-                out["slot_ident"] = torch.tensor(
-                    [w for _, w in self.slots], dtype=torch.int64)
-            self._dev = {k: v.to(dev) for k, v in out.items()}
-        return self._dev
-
 
 class _Emitter:
     """Lowers fragments to virtual-register instructions (each fragment
@@ -286,8 +261,8 @@ class _Emitter:
         self.memo: Dict[Frag, int] = {}
         self.const_regs: Dict[int, int] = {}
         self.nv = 0
-        self.consts: List[Tuple[int, bool, bool]] = []
-        self.const_ix: Dict[Tuple[int, bool, bool], int] = {}
+        self.consts: List[Tuple[int, bool, bool, bool]] = []
+        self.const_ix: Dict[tuple, int] = {}
         self.tables: List[torch.Tensor] = []
         self.table_ix: Dict[int, int] = {}
         self.inputs: List[Tuple[int, torch.dtype, bool]] = []
@@ -303,12 +278,14 @@ class _Emitter:
         self.instrs.append([_OPC[name], d, a, b, c, i0, i1, i2])
         return d
 
-    def _const(self, word: int, valid: bool, fl: bool) -> int:
-        """A constant as an operand: -2 - its index in the table."""
-        k = (word, valid, fl)
+    def _const(self, word: int, valid: bool, fl: bool, arg=None) -> int:
+        """A constant as an operand: -2 - its index in the table. A
+        kernel argument (``arg``: its subquery) takes an entry of its own
+        whatever its value, so the program's shape does not depend on it."""
+        k = (word, valid, fl) if arg is None else ("arg", arg, fl)
         if k not in self.const_ix:
             self.const_ix[k] = len(self.consts)
-            self.consts.append(k)
+            self.consts.append((word, valid, fl, arg is not None))
         return -2 - self.const_ix[k]
 
     def operand(self, f: Frag) -> int:
@@ -348,7 +325,8 @@ class _Emitter:
                 self.inputs.append((k, f.dtype, f.nullable))
             return self.ins("COL", i0=self.input_ix[k])
         if o == "const":
-            return self._const(f.imm[0], f.imm[1], is_float(f.dtype))
+            return self._const(f.imm[0], f.imm[1], is_float(f.dtype),
+                               *f.imm[2:])
         args = [self.operand(a) for a in f.args]
         a = args[0] if args else -1
         b = args[1] if len(args) > 1 else -1
@@ -516,21 +494,17 @@ def build_program(filters: Sequence[Frag], outputs: Sequence[Frag],
                        key_nullable=[f.nullable for f, _ in keys],
                        aggs=list(aggs), agg_slots=agg_slots, slots=slots)
     instrs, nreg = _allocate(em.instrs)
-    if nreg > MAX_REGS or len(em.inputs) > MAX_INPUTS or \
-            len(out_specs) > MAX_OUTPUTS:
-        raise ValueError(f"chain program of {nreg} registers, "
-                         f"{len(em.inputs)} inputs, {len(out_specs)} "
-                         f"outputs exceeds the kernel's limits")
+    words = 3 + 2 * (len(em.inputs) + len(out_specs) + len(em.tables) +
+                     sum(c[3] for c in em.consts))
+    if words > MAX_ARGUMENT_WORDS:
+        raise ValueError(f"chain program of {words} argument words exceeds "
+                         f"the kernel's {MAX_ARGUMENT_WORDS}")
     prog = ChainProgram(instrs, em.consts, em.tables, em.inputs, out_specs,
                         out_map, nreg, torch.device(device), **prog_kw)
     acc = prog.nbins * len(prog.slots) if prog.reduces else 0
     if acc > MAX_ACC_SLOTS:
         raise ValueError(f"{prog.nbins} bins x {len(prog.slots)} "
                          f"accumulators exceed {MAX_ACC_SLOTS}")
-    smem = len(instrs) * 4 * _INSTR_WORDS + acc * 8 + \
-        nreg * _ROWS * _BLOCK * 9
-    if smem > MAX_SMEM:
-        raise ValueError(f"chain program needs {smem} B of shared memory")
     return prog
 
 
@@ -645,7 +619,7 @@ def _interpret(prog: ChainProgram, cols: Sequence, sel: torch.Tensor,
 
     def const_cv(i: int):
         if i not in consts:
-            word, ok, fl = prog.consts[i]
+            word, ok, fl, _ = prog.consts[i]
             consts[i] = (torch.tensor(
                 struct.unpack("<d", struct.pack("<q", word))[0] if fl
                 else word, dtype=torch.float64 if fl else torch.int64,
@@ -877,28 +851,13 @@ def _check_inputs(name: str, prog: ChainProgram, cols: Sequence,
                             f"{nullable}) on {sel.device}")
 
 
-def _io_pointers(prog: ChainProgram, cols: Sequence):
-    keep = []
-    data = (ctypes.c_void_p * MAX_INPUTS)()
-    valid = (ctypes.c_void_p * MAX_INPUTS)()
-    for s, (k, _, _) in enumerate(prog.inputs):
-        d, v = cols[k]
-        d = d.contiguous()
-        keep.append(d)
-        data[s] = d.data_ptr()
-        if v is not None:
-            v = v.contiguous()
-            keep.append(v)
-            valid[s] = v.data_ptr()
-    return data, valid, keep
-
-
 def run_chain(prog: ChainProgram, cols: Sequence, sel: torch.Tensor):
-    """K16: ``run_chain_plain`` as one kernel pass on the card
-    (``csrc/chain.cu`` ``sail_chain``): every row's program runs in one
-    thread, and the selection and each stored column are written once. A
-    CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    or raises."""
+    """K16: ``run_chain_plain`` as one pass of the program's own kernel on
+    the card (``ops/chain_codegen.py``; compiled once, where the chain is
+    bound): every row's program runs in one thread, and the selection and
+    each stored column are written once. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises (an NVRTC or load
+    error included)."""
     if sel.device.type == "cpu":
         return run_chain_plain(prog, cols, sel)
     if prog.reduces:
@@ -910,41 +869,13 @@ def run_chain(prog: ChainProgram, cols: Sequence, sel: torch.Tensor):
              else None) for dt_, nullable in prog.outputs]
     sel_out = torch.empty(n, dtype=torch.bool, device=dev)
     if n:
-        _launch("sail_chain", prog, cols, sel.contiguous(), n, outs, sel_out,
-                None)
+        from .chain_codegen import launch  # it imports this module
+        launch(prog, cols, sel, outs, sel_out)
         run_chain.launches += 1
     return _outputs(prog, cols, outs), sel_out
 
 
 run_chain.launches = 0
-
-
-def _launch(entry: str, prog: ChainProgram, cols, sel, n, outs, sel_out,
-            acc) -> None:
-    buf = prog.device_buffers()
-    din, vin, keep = _io_pointers(prog, cols)
-    dout = (ctypes.c_void_p * MAX_OUTPUTS)()
-    vout = (ctypes.c_void_p * MAX_OUTPUTS)()
-    for j, (d, v) in enumerate(outs):
-        dout[j] = d.data_ptr()
-        vout[j] = None if v is None else v.data_ptr()
-    dev = sel.device
-    nslots = 0 if prog.slots is None else len(prog.slots)
-    with torch.cuda.device(dev):
-        csrc.check(csrc.entry("chain.cu", entry)(
-            buf["instrs"].data_ptr(), len(prog.instrs),
-            buf["consts"].data_ptr(), buf["const_valid"].data_ptr(),
-            buf["tables"].data_ptr(), buf["types"].data_ptr(),
-            len(prog.inputs), prog.nreg, din, vin, dout, vout,
-            sel.data_ptr(), n,
-            None if sel_out is None else sel_out.data_ptr(),
-            prog.nbins if prog.reduces else 0, nslots,
-            buf["slot_kinds"].data_ptr() if prog.reduces else None,
-            buf["slot_ident"].data_ptr() if prog.reduces else None,
-            None if acc is None else acc.data_ptr(),
-            -(-n // (_ROWS * _BLOCK)),  # at most; chain.cu keeps one wave
-            csrc.stream_ptr(dev)), entry)
-    del keep
 
 
 # ---------------------------------------------------------------------------
@@ -1036,10 +967,11 @@ def _key_columns(prog: ChainProgram, key_types, dev) -> List[Column]:
 
 def run_chain_reduce(prog: ChainProgram, cols: Sequence, sel: torch.Tensor,
                      key_types: Sequence, agg_types: Sequence) -> Reduced:
-    """K17: ``run_chain_reduce_plain`` as one kernel pass on the card
-    (``csrc/chain.cu`` ``sail_chain_reduce``): the program over every row,
-    then its bin, then per aggregate a warp's, a block's (shared memory)
-    and one global combine a block. ``key_types`` and ``agg_types`` are
+    """K17: ``run_chain_reduce_plain`` as one pass of the program's own
+    kernel on the card (``ops/chain_codegen.py``): the program over every
+    row, then its bin, then per aggregate a thread's (keyless, in
+    registers) or a warp's, a block's and one global combine a block.
+    ``key_types`` and ``agg_types`` are
     the Spark types of the keys and the aggregates' outputs. A CPU tensor
     takes the plain version; a CUDA tensor launches the kernel or raises.
     float64 sums come out in an order that varies between runs, as K1's
@@ -1050,11 +982,13 @@ def run_chain_reduce(prog: ChainProgram, cols: Sequence, sel: torch.Tensor,
         raise ValueError("run_chain_reduce: a K16 program")
     _check_inputs("run_chain_reduce", prog, cols, sel)
     n, dev = sel.shape[0], sel.device
-    buf = prog.device_buffers()
-    acc = buf["slot_ident"].repeat(prog.nbins)
+    if prog._ident is None or prog._ident.device != dev:
+        prog._ident = torch.tensor([w for _, w in prog.slots],
+                                   dtype=torch.int64, device=dev)
+    acc = prog._ident.repeat(prog.nbins)
     if n:
-        _launch("sail_chain_reduce", prog, cols, sel.contiguous(), n, [],
-                None, acc)
+        from .chain_codegen import launch  # it imports this module
+        launch(prog, cols, sel, [], acc)
         run_chain_reduce.launches += 1
     words = acc.view(prog.nbins, len(prog.slots))
     aggs = aggk.chain_agg_columns(

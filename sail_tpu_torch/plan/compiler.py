@@ -214,7 +214,9 @@ class ExprCompiler:
         if isinstance(r, rx.RScalarSubquery):
             if id(r) not in self.subquery_values:
                 raise RuntimeError("scalar subquery not pre-evaluated")
-            return self._compile_literal(self.subquery_values[id(r)], r)
+            # its value an argument of a chain's kernel, not a literal
+            return self._compile_literal(self.subquery_values[id(r)], r,
+                                         arg=id(r))
         if isinstance(r, rx.RCast):
             return self._compile_cast(r)
         if isinstance(r, rx.RCase):
@@ -224,7 +226,8 @@ class ExprCompiler:
         raise _unported(r, f"expression {type(r).__name__}")
 
     # -- literals ---------------------------------------------------------
-    def _compile_literal(self, v: LV, r: rx.Rex) -> Compiled:
+    def _compile_literal(self, v: LV, r: rx.Rex,
+                         arg: Optional[int] = None) -> Compiled:
         d = v.data_type
         if isinstance(d, (dt.ArrayType, dt.MapType, dt.StructType)):
             raise _unported(r, "a complex literal")
@@ -237,7 +240,8 @@ class ExprCompiler:
             return Compiled(lambda cols: (data, invalid), d,
                             self._literal_dict("") if _is_str(d) else None,
                             ch.const_of(torch.zeros((), dtype=tdt),
-                                        torch.zeros((), dtype=torch.bool)))
+                                        torch.zeros((), dtype=torch.bool),
+                                        arg))
         if _is_str(d):
             code = torch.zeros((), dtype=torch.int32, device=self.device)
             return Compiled(lambda cols: (code, None), d,
@@ -248,7 +252,7 @@ class ExprCompiler:
                              device=self.device)
         return Compiled(lambda cols: (value, None), d,
                         frag=ch.const_of(torch.tensor(v.physical_value(),
-                                                      dtype=tdt), None))
+                                                      dtype=tdt), None, arg))
 
     def _literal_dict(self, value) -> pa.Array:
         """A string literal's one-entry dictionary: one object for each

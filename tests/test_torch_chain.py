@@ -177,14 +177,19 @@ def _enum(source: str, name: str):
 
 
 def test_kernel_source_agrees_with_the_encoder():
-    """chain.cu's opcode, type and accumulator numbering is the Python
-    encoder's."""
+    """The generator has an emitter for each of the encoder's opcodes,
+    and chain.cuh's type and accumulator numbering is the encoder's."""
+    from sail_tpu_torch.ops import chain_codegen as cg
+
+    assert set(cg.EMITTERS) == set(ch.OPCODES)
     src = (pathlib.Path(ch.__file__).parents[1] / "csrc" /
-           "chain.cu").read_text()
-    ops = [n for n in _enum(src, "Op") if n != "kNumOps"]
-    assert len(ops) == len(ch.OPCODES)
-    for k, name in zip(ops, ch.OPCODES):
-        assert k.lower().replace("notb", "not") == \
-            "k" + name.replace("_", "").lower(), (k, name)
-    assert len(_enum(src, "Phys")) == len(ch.TYPE_CODE)
-    assert len(_enum(src, "Acc")) == len(ch.ACC_KINDS)
+           "chain.cuh").read_text()
+    names = {"kBool": torch.bool, "kI8": torch.int8, "kI16": torch.int16,
+             "kPI32": torch.int32, "kPI64": torch.int64,
+             "kF32": torch.float32, "kF64p": torch.float64}
+    assert {names[k]: i for i, k in enumerate(_enum(src, "Phys"))} == \
+        ch.TYPE_CODE
+    acc = _enum(src, "Acc")
+    assert [k[1:].lower() for k in acc] == \
+        [a.replace("_", "") for a in ch.ACC_KINDS]
+    assert list(cg._ACC_ENUM) == acc

@@ -1,4 +1,5 @@
-"""K16 and K17 (``sail_tpu_torch/csrc/chain.cu``) on the card against
+"""K16 and K17 (the kernels ``sail_tpu_torch/ops/chain_codegen.py``
+generates for each chain program and NVRTC compiles) on the card against
 their plain versions. Every chain of the chain tests' queries runs in a
 session on the card; each K16 launch is held to ``run_chain_plain`` and
 each K17 launch to ``run_chain_reduce_plain`` on the same inputs on the
@@ -7,19 +8,26 @@ card: integers, decimals, dates, codes and bools exactly, float64 exactly
 except where a chain calls a K12/K14 transcendental function, which the
 card's math library and torch's may round an ulp apart (within 8 ulp, as
 K12 and K14 are held), and K17's float sums within a relative 1e-12 (their
-order varies). The answers must equal the CPU session's. Needs a card:
+order varies). The answers must equal the CPU session's. Programs that
+differ only in a scalar subquery's value share one compiled kernel, a
+steady run compiles nothing, and a kernel's module is unloaded when no
+program holds it. Needs a card:
 ``python -m pytest tests/test_torch_chain_card.py -m gpu``.
 """
+
+import gc
 
 import numpy as np
 import pyarrow as pa
 import pytest
 import torch
 
+from sail_tpu_torch import csrc
 from sail_tpu_torch.exec import local as xl
 from sail_tpu_torch.ops import chain as ch
+from sail_tpu_torch.ops import chain_codegen
 from torch_chain_common import (CHAIN_QUERIES, REDUCE_QUERIES, Capture,
-                                chain_table, same_cv, session)
+                                chain_table, same_cv, session, ulps_close)
 
 ULPS_KINDS = ("math", "calendar")
 # a cast of NaN or an infinity to an integer is platform-defined in torch
@@ -36,38 +44,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ulps_close(g, w):
-    """(data, validity) within 8 ulp where valid (NaN-aware)."""
-    (gd, gv), (wd, wv) = g, w
-    assert (gv is None) == (wv is None)
-    keep = torch.ones_like(wd, dtype=torch.bool) if wv is None else wv
-    if gv is not None:
-        assert torch.equal(gv, wv)
-    gd, wd = gd[keep], wd[keep]
-    if not gd.is_floating_point():
-        assert torch.equal(gd, wd)
-        return
-    assert torch.equal(torch.isnan(gd), torch.isnan(wd))
-    fin = ~torch.isnan(wd)
-    gd, wd = gd[fin], wd[fin]
-    inf = torch.isinf(wd)
-    assert torch.equal(gd[inf], wd[inf])
-    ulp = torch.nextafter(wd.abs(), torch.full_like(wd, float("inf"))) - \
-        wd.abs()
-    assert bool(((gd - wd).abs()[~inf] <= 8 * ulp[~inf]).all())
-
-
 def _answers_equal(got, want):
     """The same rows: float columns NaN-aware within a relative 1e-9,
     every other column exactly (compared by Arrow, not row by row)."""
     assert got.schema == want.schema
-    for gc, wc in zip(got.columns, want.columns):
-        gc, wc = gc.combine_chunks(), wc.combine_chunks()
-        if not pa.types.is_floating(gc.type):
-            assert gc.equals(wc)
+    for gcol, wc in zip(got.columns, want.columns):
+        gcol, wc = gcol.combine_chunks(), wc.combine_chunks()
+        if not pa.types.is_floating(gcol.type):
+            assert gcol.equals(wc)
             continue
-        assert gc.is_null().equals(wc.is_null())
-        g = gc.to_numpy(zero_copy_only=False)
+        assert gcol.is_null().equals(wc.is_null())
+        g = gcol.to_numpy(zero_copy_only=False)
         w = wc.to_numpy(zero_copy_only=False)
         with np.errstate(invalid="ignore"):  # inf - inf
             ok = np.isnan(g) & np.isnan(w) | (g == w) | \
@@ -91,7 +78,7 @@ def test_k16_matches_plain_on_card(cuda, kind):
         assert torch.equal(ksel, psel)
         for k, p in zip(kern, plain):
             if kind in ULPS_KINDS:
-                _ulps_close(k, p)
+                ulps_close(k, p)
             else:
                 same_cv(k, p)
     if kind not in CPU_DIFFERS:
@@ -121,3 +108,65 @@ def test_k17_matches_plain_on_card(cuda, kind):
             same_cv((k.data, k.validity), (q.data, q.validity), rows=live,
                     exact=False, rtol=SUM_RTOL)
     _answers_equal(got, cpu.sql(REDUCE_QUERIES[kind]).toArrow())
+
+
+@pytest.mark.gpu
+def test_subquery_values_share_one_compile(cuda):
+    """Two sessions whose programs differ only in a scalar subquery's value
+    launch one compiled kernel (while the first holds its programs, the
+    second compiles and loads nothing), and a steady run compiles
+    nothing; the answers are the CPU's."""
+    sql = "SELECT i32 + (SELECT max(i16) FROM t) FROM t WHERE i32 > 0"
+    table = chain_table(200_003)
+    other = table.set_column(table.column_names.index("i16"), "i16",
+                             pa.array(np.full(table.num_rows, 7,
+                                              dtype=np.int16)))
+    kernels, sessions = [], []
+    for t in (table, other):
+        spark = session("cuda", t)
+        sessions.append(spark)
+        with Capture() as cap:
+            got = spark.sql(sql).toArrow()
+        kernels.append([st.prog._kernel[1] for st, _ in cap.k16])
+        _answers_equal(got, session("cpu", t).sql(sql).toArrow())
+        if t is table:
+            compiles, loads = csrc.jit_kernel.compiles, csrc.jit_kernel.loads
+    assert kernels[0] and kernels[0] == kernels[1]
+    assert (csrc.jit_kernel.compiles, csrc.jit_kernel.loads) == \
+        (compiles, loads)
+    spark.sql(sql).toArrow()
+    assert (csrc.jit_kernel.compiles, csrc.jit_kernel.loads) == \
+        (compiles, loads)
+
+
+def _add_program(dev):
+    """A K16 program of one output, x + a constant no other test uses."""
+    x = ch.col(0, torch.int64, False)
+    return ch.build_program([], [ch.strict(
+        "add", x, ch.const(9_876_543_210, torch.int64), dtype=torch.int64)],
+        dev)
+
+
+@pytest.mark.gpu
+def test_module_unloaded_when_no_program_holds_it(cuda):
+    """A kernel's module stays loaded while a program holds the kernel and
+    is unloaded after the last one goes (once the launch queued before
+    has run); the same program built again loads the kept cubin without
+    compiling and matches its plain version."""
+    x = torch.arange(-50_000, 50_003, dtype=torch.int64, device=cuda)
+    cols, sel = [(x, None)], x % 3 != 0
+    (want,), want_sel = ch.run_chain_plain(_add_program(cuda), cols, sel)
+    prog = _add_program(cuda)
+    ch.run_chain(prog, cols, sel)
+    _, kernel = chain_codegen.kernel(prog, cuda)
+    key = (kernel.sha, torch.cuda.current_device())
+    assert csrc._JIT[key] is kernel
+    del prog, kernel
+    gc.collect()
+    assert key not in csrc._JIT
+    compiles, loads = csrc.jit_kernel.compiles, csrc.jit_kernel.loads
+    (got,), got_sel = ch.run_chain(_add_program(cuda), cols, sel)
+    assert (csrc.jit_kernel.compiles, csrc.jit_kernel.loads) == \
+        (compiles, loads + 1)
+    assert torch.equal(got_sel, want_sel)
+    same_cv(got, want)

@@ -446,6 +446,37 @@ def test_wrappers_refuse_unknown_operations():
         num.math_binary(x, None, x, None, "&")
 
 
+# cbrt's edge cases: zeros, subnormals (the smallest, and an exact cube
+# of 2^-350), exact cubes, values near the overflow limit, infinities, NaN
+CBRT_CASES = [0.0, -0.0, 5e-324, -5e-324, 1e-310, 2.0 ** -1050, -3e-320,
+              27.0, -8.0, 1e-100 ** 3, 1e308, 1.7976931348623157e308,
+              -1e308, math.inf, -math.inf, math.nan]
+
+
+def _within_an_ulp(got: np.ndarray, want: np.ndarray) -> bool:
+    """NaN where NaN, the same sign, infinities equal, else within one
+    ulp of want."""
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        return False
+    got, want = got[~nan], want[~nan]
+    if not np.array_equal(np.signbit(got), np.signbit(want)):
+        return False
+    inf = np.isinf(want)
+    return bool(np.array_equal(got[inf], want[inf]) and
+                (np.abs(got[~inf] - want[~inf]) <=
+                 np.spacing(np.abs(want[~inf]))).all())
+
+
+@pytest.mark.parametrize("x", CBRT_CASES, ids=repr)
+def test_cbrt_within_an_ulp_of_numpy(x):
+    """The plain cube root within one ulp of numpy.cbrt: a subnormal x
+    once cubed its root into underflow, and the Newton step moved it by
+    tens of ulp."""
+    got = num._cbrt(torch.tensor([x], dtype=torch.float64)).numpy()
+    assert _within_an_ulp(got, np.cbrt(np.array([x]))), (got, np.cbrt(x))
+
+
 def test_floor_ceil_of_doubles_saturate_as_spark():
     x = torch.tensor([math.nan, math.inf, -math.inf, 1e300, -1e300, -2.5,
                       2.5, 9.3e18, -9.3e18], dtype=torch.float64)
@@ -528,6 +559,20 @@ def test_k12_matches_plain_on_card(cuda, op):
         assert num.math_unary.launches == before + 1
         want = num.math_unary_plain(x, c["v"], op, scale)
         assert _cv_equal(got, want), (op, x.dtype, scale)
+
+
+@pytest.mark.gpu
+def test_k12_cbrt_matches_numpy_on_card(cuda):
+    """K12's cbrt and its plain version on the card, both within one ulp
+    of numpy.cbrt on the edge columns' doubles and CBRT_CASES."""
+    d = torch.cat([_edge_columns(cuda)["d"],
+                   torch.tensor(CBRT_CASES, dtype=torch.float64,
+                                device=cuda)])
+    want = np.cbrt(d.cpu().numpy())
+    kernel, _ = num.math_unary(d, None, "cbrt")
+    plain, _ = num.math_unary_plain(d, None, "cbrt")
+    assert _within_an_ulp(kernel.cpu().numpy(), want)
+    assert _within_an_ulp(plain.cpu().numpy(), want)
 
 
 @pytest.mark.gpu

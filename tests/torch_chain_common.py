@@ -213,6 +213,27 @@ def same_cv(got, want, rows=None, exact=True, rtol=0.0) -> None:
         assert torch.equal(g, w)
 
 
+def ulps_close(g, w):
+    """(data, validity) within 8 ulp where valid (NaN-aware)."""
+    (gd, gv), (wd, wv) = g, w
+    assert (gv is None) == (wv is None)
+    keep = torch.ones_like(wd, dtype=torch.bool) if wv is None else wv
+    if gv is not None:
+        assert torch.equal(gv, wv)
+    gd, wd = gd[keep], wd[keep]
+    if not gd.is_floating_point():
+        assert torch.equal(gd, wd)
+        return
+    assert torch.equal(torch.isnan(gd), torch.isnan(wd))
+    fin = ~torch.isnan(wd)
+    gd, wd = gd[fin], wd[fin]
+    inf = torch.isinf(wd)
+    assert torch.equal(gd[inf], wd[inf])
+    ulp = torch.nextafter(wd.abs(), torch.full_like(wd, float("inf"))) - \
+        wd.abs()
+    assert bool(((gd - wd).abs()[~inf] <= 8 * ulp[~inf]).all())
+
+
 # aggregates K17 takes (keyless or direct keys: dictionary codes and
 # booleans), over chains of each kind
 REDUCE_QUERIES = {
