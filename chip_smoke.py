@@ -16,7 +16,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
 1. Device: the card's name, count and power limit.
 2. Build: compile the CUDA kernels (sail_tpu_torch/csrc, one nvcc per
    source, all at once) and print the compiler's register report. The
-   chain kernels (K16, K17) are generated for each chain program
+   chain kernels (K16, K17, K18) are generated for each chain program
    (ops/chain_codegen.py) and compiled with NVRTC where a query binds
    the chain (csrc/chain_jit.cu, the cubins under build/): the run counts
    the programs compiled and their seconds.
@@ -136,10 +136,14 @@ Then, after phase 10, on the same tables:
    decimals, dates and bools exactly; float64 within ``EXPR_ULPS`` ulp),
    then timed beside it, its bound and, where one PyTorch call computes
    the same function on the same input, that call (``torch.sqrt``,
-   ``torch.exp``, ``torch.abs``, ``torch.round(x, decimals=3)``,
-   ``torch.pow``, ``torch.atan2``, ``torch.hypot``,
-   ``torch.bitwise_and``). Each kernel's first (headline) op must reach
-   ``EXPR_BOUND_SHARE`` of its bound.
+   ``torch.exp``, ``torch.log``, ``log10``, ``log2``, ``log1p``,
+   ``expm1``, the trigonometric and hyperbolic calls, ``torch.round``
+   for rint, ``sign``, ``isnan``, ``floor``, ``ceil``, ``neg``,
+   ``torch.abs``, ``bitwise_not``, ``torch.round(x, decimals=3)``,
+   ``torch.pow``, ``torch.atan2``, ``torch.hypot``, ``torch.bitwise_and``,
+   ``bitwise_or``, ``bitwise_xor`` and the shifts, a left shift's counts
+   masked to 0-63 beforehand, as Spark masks them). Each kernel's first
+   (headline) op must reach ``EXPR_BOUND_SHARE`` of its bound.
 12. Expression correctness: the queries of
    ``benchmarks/expr_queries.py`` (E1-E6) over the tables at
    ``--check-sf`` on the card against the port's CPU session, as phase 9
@@ -167,10 +171,30 @@ Then, after phase 10, on the same tables:
    (``INTERPRETER_MS``, from PERF.md, in brackets). The run prints the
    programs compiled, their seconds and how many of them spill.
 
+15. Sort words: K18 (chain_sort, ops/chain.py run_chain_sort), the
+   chain's kernel that also writes each sort key's K3 word, validity and
+   extremes, at the path's shapes: E7's sort over orders and E3's
+   grouping over lineitem at ``--sf``, Q18's grouping of lineitem's
+   l_orderkey (read through K3 on the path: here the K18 program of its
+   key alone) and, inside phase 7, ClickBench Q25's sort and Q40's
+   grouping of five keys at ``--cb-rows``. Each against its plain version
+   (run_chain_sort_plain: the words, validities and extremes exactly;
+   within EXPR_ULPS of a float64 key's word where the chain calls a libm
+   function), the packed permutation's live prefix against the passes'
+   on the same words (where the keys fit in 63 bits), then timed beside
+   its bound (bytes once: the chain's inputs, the outputs it writes, 8 B
+   a key word and 1 B a key validity) and the route it replaced
+   (``library_ms``: K16, the keys' closures and K3, then the passes, and
+   for a grouping each key gathered and compared with its neighbour),
+   with the sort of the words as the passes against the packed word, and
+   the program's compile ms, registers and local bytes.
+
 Every query of phases 5, 7, 10 and 13 prints its chains' routes (K16,
-K17, per-op, with the first expression that kept a chain on its
-closures); a TPC-H, E or ClickBench Q30 chain that computes an expression
-must run K16 or K17.
+K17, K18, per-op, with the first expression that kept a chain on its
+closures) and its sorts' (K18 or K3, packed or passes); a TPC-H, E or
+ClickBench Q30 chain that computes an expression must run K16, K17 or
+K18. Phases 4, 9 and 12 print each query's host syncs beside its count
+before K18 (``PARENT_SYNCS``).
 
 It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
 over the TPC-H, window, expression and ClickBench queries of their
@@ -211,7 +235,7 @@ _JOIN = ("join_keys", "probe_ranges")
 PATH_KERNELS = {f"q{q}": _JOIN + ("chain",) for q in range(1, 23)
                 if q not in (1, 6, 13)}
 PATH_KERNELS.update({
-    "q1": ("chain_reduce", "chain", "order_keys"),
+    "q1": ("chain_reduce", "window_pack"),
     "q6": ("chain_reduce",),
     "q5": _JOIN + ("chain", "bloom_build", "bloom_apply"),
     "q13": _JOIN + ("join_expand",),
@@ -226,6 +250,22 @@ for _q in (2, 3, 7, 8, 9, 10, 11, 13, 15, 16, 17, 18, 20):
 # other query's computed chains run K16 (Q13 computes none)
 for _q in (4, 5, 11, 12, 14, 15, 17, 19, 22):
     PATH_KERNELS[f"q{_q}"] += ("chain_reduce",)
+# the queries whose sort or sorted grouping takes its chain and keys in
+# (K18; ops/chain.py run_chain_sort): Q1's, Q2's, Q8's and Q11's ORDER BY
+# over a computing chain, the groupings of Q3, Q7-Q11, Q15 and Q20 over
+# one (Q13's, Q16's, Q17's and Q18's group their columns, through K3)
+for _q in (1, 2, 3, 7, 8, 9, 10, 11, 15, 20):
+    PATH_KERNELS[f"q{_q}"] += ("chain_sort",)
+# every query that sorts or groups by sort packs some of its keys into one
+# word at SF10 (ops/sort.py); Q2's ORDER BY, Q10's and Q18's groupings of
+# names, keys and prices take more than 63 bits and sort by the passes
+for _q in range(2, 23):
+    if _q not in (6, 14, 19):
+        PATH_KERNELS[f"q{_q}"] += ("window_pack",)
+# the kernels phase 11 holds to their plain versions that no query of the
+# path launches: their element functions run inside the chains' programs
+# (K16-K18), E7's sort keys in its K18 program
+OFF_PATH = ("math_unary", "round_number", "math_binary", "calendar")
 # device functions of the kernels whose time and launches each profiled
 # query reports: K1 over all its launches, then split by entry point (a
 # runs call launches its grid, then one block over the grid's records)
@@ -253,6 +293,7 @@ PROFILED_KERNELS = {
     "K15 calendar": re.compile(r"\bcalendar_kernel[<(]"),
     "K16 chain": re.compile(r"\bsail_chain_k16\b"),
     "K17 chain_reduce": re.compile(r"\bsail_chain_k17\b"),
+    "K18 chain_sort": re.compile(r"\bsail_chain_k18\b"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -1160,6 +1201,25 @@ def _register(spark, tables: dict) -> None:
         spark.createDataFrame(table).createOrReplaceTempView(name)
 
 
+# each query's host syncs in phases 4, 9 and 12 (its first run at
+# --check-sf 1) before the sorts' words moved into the chains' kernel (K18)
+# and a sort of one packed word (PERF.md §5: the default run before it;
+# NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_SYNCS = {
+    "q1": 30, "q2": 66, "q3": 22, "q4": 14, "q5": 40, "q6": 13, "q7": 38,
+    "q8": 44, "q9": 33, "q10": 36, "q11": 39, "q12": 27, "q13": 7,
+    "q14": 17, "q15": 28, "q16": 31, "q17": 15, "q18": 26, "q19": 29,
+    "q20": 30, "q21": 31, "q22": 33, "w1": 7, "w2": 9, "w3": 17, "w4": 10,
+    "w5": 16, "w6": 22, "w7": 14, "w8": 10, "u1": 13, "u2": 15, "e1": 33,
+    "e2": 25, "e3": 19, "e4": 13, "e5": 22, "e6": 27, "e7": 8}
+
+
+def _syncs_line(name: str, syncs: int) -> str:
+    before = PARENT_SYNCS.get(name)
+    return f"{syncs} host syncs" + ("" if before is None else
+                                    f", {before} before K18")
+
+
 def _run_counting_syncs(spark, sql: str):
     """Run a query once; returns (Arrow result, the number of operations
     that made the host wait for the device)."""
@@ -1194,7 +1254,8 @@ def check_queries(spark, tables: dict, sf: float) -> dict:
         report[f"q{q}"] = dict(rows=result.num_rows, host_syncs=syncs,
                                first_s=run_s)
         print(f"Q{q} SF{sf}: {result.num_rows} rows match the oracle "
-              f"({syncs} host syncs, first run {run_s:.2f} s)", flush=True)
+              f"({_syncs_line(f'q{q}', syncs)}, first run {run_s:.2f} s)",
+              flush=True)
     return report
 
 
@@ -1228,7 +1289,8 @@ def _counters():
             "window_unpermute": win.window_unpermute,
             "math_unary": num.math_unary, "round_number": num.round_number,
             "math_binary": num.math_binary, "calendar": num.calendar,
-            "chain": chn.run_chain, "chain_reduce": chn.run_chain_reduce}
+            "chain": chn.run_chain, "chain_reduce": chn.run_chain_reduce,
+            "chain_sort": chn.run_chain_sort}
 
 
 @contextlib.contextmanager
@@ -1301,12 +1363,14 @@ def _run_main_path(tables, sf, runs, profile, upload) -> dict:
                 launches = {n: fn.launches for n, fn in counters.items()}
                 filters = session.last_runtime_filters
                 routes = session.last_chain_routes
+                sorts = session.last_sort_routes
         report["launches_on_path"][f"q{q}"] = launches
         entry = dict(sf=sf, first_s=first,
                      upload_s=upload["s"] - upload_before, query_s=times,
                      rows=result.num_rows, runtime_filters=filters,
                      largest_join_rows=max(session.last_join_rows or [0]),
-                     chain_routes=_print_routes(f"Q{q}", routes, True))
+                     chain_routes=_print_routes(f"Q{q}", routes, True),
+                     sort_routes=_print_sorts(f"Q{q}", sorts))
         if profile:
             entry["profile"] = profile_query(session, QUERIES[q])
         if q == 1:
@@ -1354,16 +1418,19 @@ _K10 = ("window_gather", "window_scan", "window_frame", "window_inverse",
 # the kernels each window/union query must launch (W4's lag and lead read
 # their values in sorted order and unpermute each output; the unions group
 # their merged dictionary codes directly; W5's five rank outputs go to row
-# order through the inverse permutation)
+# order through the inverse permutation; W1's and W6's ORDER BY and W2's
+# and W6's groupings take their chains in, K18; every ORDER BY of these
+# queries packs its keys, W1's too)
 WINDOW_PATH = {
-    "w1": _K8_GENERAL + _K9, "w2": _K8 + _K10,
+    "w1": _K8_GENERAL + _K9 + ("chain_sort", "window_pack"),
+    "w2": _K8 + _K10 + ("chain_sort",),
     "w3": _K8 + _K10 + ("window_extreme",),
     "w4": _K8 + ("window_gather", "window_inverse", "window_unpermute"),
     "w5": _K8 + _K9 + ("window_inverse",),
-    "w6": _K8 + _K9 + _JOIN,
+    "w6": _K8 + _K9 + _JOIN + ("chain_sort",),
     "w7": _K8 + _K10 + _JOIN, "w8": _K8 + _K9 + _K10,
-    "u1": ("chain_reduce",),
-    "u2": ("chain_reduce",),
+    "u1": ("chain_reduce", "window_pack"),
+    "u2": ("chain_reduce", "window_pack"),
 }
 PATH_KERNELS.update(WINDOW_PATH)
 # float64 answers of a window query on the card against the CPU session:
@@ -1841,8 +1908,8 @@ def check_with_cpu(tables: dict, sf: float, queries: dict) -> dict:
         report[name] = dict(rows=got.num_rows, card_first_s=card_s,
                             cpu_s=cpu_s, syncs=syncs)
         print(f"{name.upper()} SF{sf}: {got.num_rows} rows agree with the "
-              f"CPU session (card {card_s:.2f} s, {syncs} host syncs; CPU "
-              f"{cpu_s:.2f} s)", flush=True)
+              f"CPU session (card {card_s:.2f} s, "
+              f"{_syncs_line(name, syncs)}; CPU {cpu_s:.2f} s)", flush=True)
     card.stop()
     cpu.stop()
     return report
@@ -1902,11 +1969,13 @@ def run_query_path(tables: dict, sf: float, runs: int, profile: bool,
             if i == 0:
                 launches = {k: fn.launches for k, fn in counters.items()}
                 routes = spark.last_chain_routes
+                sorts = spark.last_sort_routes
         report["launches_on_path"][name] = launches
         entry = dict(first_s=first, query_s=times, rows=result.num_rows,
                      peak_bytes=torch.cuda.max_memory_allocated(),
                      chain_routes=_print_routes(name.upper(), routes,
-                                                name.startswith("e")))
+                                                name.startswith("e")),
+                     sort_routes=_print_sorts(name.upper(), sorts))
         if profile:
             entry["profile"] = profile_query(spark, sql)
         entry.update(check(name, result, spark) or {})
@@ -2098,14 +2167,31 @@ def check_expr_kernels(tables: dict, dev) -> list:
     for op in ("ln", "log10", "log1p"):
         rows.append(unary("l_extendedprice decimal, x <= 0 planted, NULLs",
                           price, valid, op, 2))
-    for op in ("sin", "tanh", "cbrt", "rint", "sign", "isnan", "floor",
-               "ceil", "expm1", "atan"):
-        rows.append(unary("float64", dbl, valid, op))
-    for op in ("floor", "ceil", "negative", "abs"):
+    # each op that one PyTorch call computes, beside that call on the
+    # same float64 input (the call ignores the validity the kernel reads)
+    for op, call in (("ln", torch.log), ("log10", torch.log10),
+                     ("log2", torch.log2), ("log1p", torch.log1p),
+                     ("expm1", torch.expm1), ("sin", torch.sin),
+                     ("cos", torch.cos), ("tan", torch.tan),
+                     ("asin", torch.asin), ("acos", torch.acos),
+                     ("atan", torch.atan), ("sinh", torch.sinh),
+                     ("cosh", torch.cosh), ("tanh", torch.tanh),
+                     ("rint", torch.round), ("sign", torch.sign),
+                     ("isnan", torch.isnan), ("floor", torch.floor),
+                     ("ceil", torch.ceil), ("cbrt", None)):
+        rows.append(unary("float64", dbl, valid, op, library=None
+                          if call is None else lambda f=call: f(dbl)))
+    for op in ("floor", "ceil"):
         rows.append(unary("l_quantity decimal(15,2)", c["qty"], None, op, 2))
+    qty = c["qty"]
+    rows.append(unary("l_quantity decimal(15,2)", qty, None, "negative", 2,
+                      library=lambda: torch.neg(qty)))
+    rows.append(unary("l_quantity decimal(15,2)", qty, None, "abs", 2,
+                      library=lambda: torch.abs(qty)))
     rows.append(unary("l_orderkey int64, INT64_MIN planted", okey, None,
                       "abs", library=lambda: torch.abs(okey)))
-    rows.append(unary("l_orderkey int64", okey, valid, "~"))
+    rows.append(unary("l_orderkey int64", okey, valid, "~",
+                      library=lambda: torch.bitwise_not(okey)))
     entries.append(_expr_entry("math_unary",
                                "sail_tpu/plan/compiler.py:937", rows))
 
@@ -2161,14 +2247,22 @@ def check_expr_kernels(tables: dict, dev) -> list:
                        None, "nanvl", 0, 2))
     rows.append(binary("l_orderkey int64, 7", okey, None, seven, None, "&",
                        library=lambda: torch.bitwise_and(okey, 7)))
-    rows.append(binary("l_orderkey int64, counts", okey, valid, c["counts"],
-                       None, "|"))
-    rows.append(binary("l_orderkey int64, counts", okey, None, c["counts"],
-                       valid, "^"))
-    rows.append(binary("l_orderkey int64 by 0-129", okey, None, c["counts"],
-                       None, "shiftleft"))
+    counts = c["counts"]
+    rows.append(binary("l_orderkey int64, counts", okey, valid, counts,
+                       None, "|", library=lambda: torch.bitwise_or(
+                           okey, counts)))
+    rows.append(binary("l_orderkey int64, counts", okey, None, counts,
+                       valid, "^", library=lambda: torch.bitwise_xor(
+                           okey, counts)))
+    # Spark masks a shift count to 0-63: the call shifts by the counts
+    # masked beforehand (outside its time)
+    masked = counts.to(torch.int64) & 63
+    rows.append(binary("l_orderkey int64 by 0-129", okey, None, counts,
+                       None, "shiftleft", library=lambda:
+                       torch.bitwise_left_shift(okey, masked)))
     rows.append(binary("l_orderkey int64 by 4", okey, None, four, None,
-                       "shiftright"))
+                       "shiftright", library=lambda:
+                       torch.bitwise_right_shift(okey, 4)))
     entries.append(_expr_entry("math_binary",
                                "sail_tpu/plan/compiler.py:954", rows))
 
@@ -2604,6 +2698,247 @@ def _chain_entry(name: str, rows: list) -> dict:
                 shapes=rows)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: K18 (the sort words) and the packed sort at the path's shapes
+# ---------------------------------------------------------------------------
+
+SORT_REPLACES = "sail_tpu/exec/local.py:1404"
+# the queries phase 15 runs at --sf: E7's sort over orders and E3's
+# grouping over lineitem (each K18 over its chain), Q18's grouping of
+# lineitem by l_orderkey (over no chain, through K3 on the path: here as
+# the K18 program of its key alone); ClickBench's Q25 sort and Q40's
+# grouping of five keys run in phase 7 at --cb-rows
+SORT_QUERIES = ("e7", "e3", "q18")
+CB_SORT_SHAPES = (25, 40)
+
+
+@contextlib.contextmanager
+def captured_sorts():
+    """Records what the executors sort while the block runs: {"k18":
+    [(executor, chain, bottom batch, bottom node, the sort or aggregate,
+    its K18 stage)], "k3": [(executor, aggregate, its columns, selection)]
+    for each sorted grouping of columns (K3)}."""
+    from sail_tpu_torch.exec import local as xl
+
+    got = {"k18": [], "k3": []}
+    stage_fn, agg_fn = xl.LocalExecutor._stage, xl.LocalExecutor._aggregate
+
+    def staged(ex, chain, bottom, node, agg=None, sort=None):
+        st = stage_fn(ex, chain, bottom, node, agg, sort)
+        if st.route == "K18":
+            got["k18"].append((ex, chain, bottom, node,
+                               agg if agg is not None else sort, st))
+        return st
+
+    def aggregated(ex, p, cols, sel, dicts, words=None, ext=None):
+        if words is None and p.group_indices:
+            got["k3"].append((ex, p, cols, sel))
+        return agg_fn(ex, p, cols, sel, dicts, words, ext)
+
+    xl.LocalExecutor._stage = staged
+    xl.LocalExecutor._aggregate = aggregated
+    try:
+        yield got
+    finally:
+        xl.LocalExecutor._stage = stage_fn
+        xl.LocalExecutor._aggregate = agg_fn
+
+
+def _k18_bytes(prog, sel) -> int:
+    """What a K18 program must move: K16's bytes, and each key's word (8
+    B) and validity (1 B) written once a row."""
+    n = sel.shape[0]
+    return _k16_bytes(prog, sel) + sum(n * (8 + int(nullable))
+                                       for _, nullable, _, _ in
+                                       prog.sort_keys)
+
+
+def _k18_compare(libm: bool):
+    """K18's outputs against its plain version's: the selection, the
+    validities and the integers exactly; the chain's columns as phase 14
+    holds K16's; each key's word and the extremes exactly, or where the
+    program calls a libm function within EXPR_ULPS of a float64 key's word
+    (a word of a finite double moves by one a ulp)."""
+    cv = _cv_compare(libm)
+
+    def compare(got, want):
+        kind, g, gv = got
+        _, w, wv = want
+        if kind == "col":
+            return cv((g, gv), (w, wv))
+        if (gv is None) != (wv is None) or \
+                (gv is not None and not torch.equal(gv, wv)):
+            raise AssertionError(f"{kind}: validities differ")
+        if torch.equal(g, w):
+            return 0.0
+        diff = float((g - w).abs().max()) if libm else math.inf
+        if diff > EXPR_ULPS:
+            raise AssertionError(f"{kind}: K18 differs from its plain "
+                                 f"version by {diff}")
+        return diff
+    return compare
+
+
+def _k18_items(res) -> list:
+    return [("sel", res.sel, None)] + \
+        [("col", d, v) for c in res.cols if c is not None for d, v in [c]] + \
+        [("word", w, v) for w, v in res.words] + [("ext", res.ext, None)]
+
+
+def _sort_row(label, ex, chain, bottom, node, top, prog, nulls_first,
+              grouping: bool) -> dict:
+    """Phase 15 at one shape: K18 against its plain version, then timed
+    beside its bound and beside the route it replaced (``library_ms``:
+    K16 where the chain computes, the keys' closures and K3, then the
+    passes, and for a grouping each key gathered into sorted order and
+    compared with its neighbour); the sort of K18's words as the passes
+    against the packed word (the extremes read, the pack, one sort), whose
+    permutations' live prefixes must be equal."""
+    from sail_tpu_torch.ops import aggregate as agg
+    from sail_tpu_torch.ops import chain as chn
+    from sail_tpu_torch.ops import sort as srt
+    from sail_tpu_torch.columnar.batch import Column
+
+    cols, sel = ex._cols(bottom), bottom.device.sel
+    n = sel.shape[0]
+    chain_fn, filters, frags, dicts, schema, _ = ex._lower_chain(
+        chain, bottom, node)
+    k16 = chn.build_program(filters, frags, sel.device)
+    if k16.instrs:
+        ex._compiled(k16)
+
+    def replaced():
+        if k16.instrs:
+            top_cols, top_sel = chn.run_chain(k16, cols, sel)
+        else:
+            top_cols, top_sel = [cols[k] for _, k in k16.out_map], sel
+        if grouping:
+            keys = [top_cols[g] for g in top.group_indices]
+            words = [(srt.order_keys(d), v, True) for d, v in keys]
+        else:
+            words = ex._sort_words(top, top_cols, top_sel, dicts, schema)
+        perm = srt.lexsort_keys(words, top_sel)
+        if grouping:
+            agg._keys_equal_adjacent([Column(d[perm], None if v is None
+                                             else v[perm], None)
+                                      for d, v in keys])
+        return perm
+
+    out = chn.run_chain_sort(prog, cols, sel)
+    words = [(w, v, nf) for (w, v), nf in zip(out.words, nulls_first)]
+    passes_words = [(w if v is None or not grouping else
+                     torch.where(v, w, 0), v, nf) for w, v, nf in words]
+    got = srt.sort_words(words, out.sel, out.ext, grouping)
+    passes = srt.lexsort_keys(passes_words, out.sel)
+    n_live = int(out.sel.sum())
+    if got.layout is not None and not torch.equal(got.perm[:n_live],
+                                                  passes[:n_live]):
+        raise AssertionError(f"{label}: the packed permutation's live "
+                             f"prefix differs from the passes'")
+    layout = got.layout
+    extra = {"passes_ms": lambda: srt.lexsort_keys(passes_words, out.sel),
+             "packed_ms": lambda: srt.sort_words(words, out.sel, out.ext,
+                                                 grouping)}
+    if layout is not None:
+        extra["pack_ms"] = lambda: srt.window_pack(words, out.sel, layout)
+        extra["pack_plain_ms"] = lambda: srt.window_pack_plain(
+            words, out.sel, layout)
+    row = _timed(
+        f"{label} ({len(prog.instrs)} instructions, "
+        f"{len(prog.sort_keys)} keys, {n_live} live rows, "
+        f"{'packed in ' + str(layout.dead_shift + 1) + ' bits' if layout else 'passes: over 63 bits'})",
+        n, lambda: _k18_items(chn.run_chain_sort(prog, cols, sel)),
+        lambda: _k18_items(chn.run_chain_sort_plain(prog, cols, sel)),
+        _k18_bytes(prog, sel), library=replaced,
+        compare=_k18_compare(_libm(prog)), extra=extra)
+    row.update(form=got.form, live_rows=n_live, keys=len(prog.sort_keys),
+               bits=None if layout is None else layout.dead_shift + 1)
+    if layout is not None:
+        # the pack reads sel and writes one word a row, and reads each
+        # key's word (8 B) and validity (1 B) where the row is live (a dead
+        # row is its dead bit alone): in the 32-byte sectors holding one
+        row["pack_bound_ms"] = _bound_ms(n * 9 + sum(
+            _sectors(out.sel, 8) + (0 if v is None else _sectors(out.sel, 1))
+            for _, v, _ in words))
+    print(f"    the sort: passes {row['passes_ms']:.3f} ms, packed "
+          f"{row['packed_ms']:.3f} ms ({got.form})"
+          + ("" if layout is None else
+             f"; the pack {row['pack_ms']:.3f} ms, bound "
+             f"{row['pack_bound_ms']:.3f} ms, plain "
+             f"{row['pack_plain_ms']:.3f} ms"), flush=True)
+    return _compiled_row(row, prog, ("chain_sort", label, False))
+
+
+def check_sort_query(spark, name: str, sql: str) -> list:
+    """Phase 15 for one query: its largest K18 stage (or, where its
+    largest sorted grouping reads columns through K3, that grouping's keys
+    as a K18 program of their own), at the query's shape."""
+    from sail_tpu_torch.exec import local as xl
+    from sail_tpu_torch.ops import chain as chn
+
+    with captured_sorts() as got:
+        spark.sql(sql).toArrow()
+    torch.cuda.synchronize()
+    if got["k18"]:
+        ex, chain, bottom, node, top, st = max(
+            got["k18"], key=lambda x: x[2].device.sel.shape[0])
+        grouping = not hasattr(top, "keys")
+        return [_sort_row(f"{name} K18 {type(top).__name__}", ex, chain,
+                          bottom, node, top, st.prog, st.nulls_first,
+                          grouping)]
+    ex, p, cols, sel = max(got["k3"], key=lambda x: x[3].shape[0])
+    # the grouping's columns as a batch, and the K18 program a chain over
+    # it would bind: its keys' words and the columns the aggregate reads
+    batch = xl.HostBatch(xl.DeviceBatch(
+        {xl._col_name(i): xl.Column(d, v, f.dtype)
+         for i, ((d, v), f) in enumerate(zip(cols, p.input.schema))}, sel),
+        {})
+    frags = [chn.col(i, d.dtype, v is not None)
+             for i, (d, v) in enumerate(cols)]
+    keys = [frags[g] for g in p.group_indices]
+    needed = set(p.group_indices) | {a.arg for a in p.aggs
+                                     if a.arg is not None}
+    prog = chn.build_program(
+        [], [f if i in needed else None for i, f in enumerate(frags)],
+        sel.device, sort_keys=[chn.SortKey(f, canonical=True) for f in keys])
+    ex._compiled(prog)
+    return [_sort_row(f"{name} grouping of columns as K18", ex, [], batch,
+                      p.input, p, prog, (True,) * len(keys), True)]
+
+
+def check_sort_kernels(tables: dict) -> list:
+    """Phase 15: K18 and the packed sort over the SF tables
+    (SORT_QUERIES)."""
+    from sail_tpu_torch import SparkSession
+    from sail_tpu_torch.benchmarks.expr_queries import QUERIES as EXPR
+    from sail_tpu_torch.benchmarks.tpch_queries import QUERIES as TPCH
+
+    spark = SparkSession({"spark.sail.device": "cuda"})
+    _register(spark, tables)
+    print("phase 15: K18 and the packed sort against their plain versions",
+          flush=True)
+    rows = []
+    for name in SORT_QUERIES:
+        sql = EXPR[name] if name.startswith("e") else TPCH[int(name[1:])]
+        spark.sql(sql).toArrow()  # the uploads and the programs' build
+        rows += check_sort_query(spark, name, sql)
+    spark.stop()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _print_sorts(label: str, sorts: list) -> list:
+    """Print a query's sorts and sorted groupings: each one's consumer,
+    the route of its words (K18, K3), its form (packed, passes) and its
+    keys."""
+    if sorts:
+        print(f"  {label} sorts: " + ", ".join(
+            f"{r['consumer']} {r['route']} {r['form']} ({r['keys']} keys)"
+            for r in sorts), flush=True)
+    return [[r["consumer"], r["route"], r["form"], r["keys"]]
+            for r in sorts]
+
+
 def _print_routes(label: str, routes: list, strict: bool) -> list:
     """Print a query's chain routes; with ``strict``, fail where a chain
     that computes an expression kept its closures."""
@@ -2628,27 +2963,42 @@ _DIRECT = ("direct_group_ids", "seg_reduce")
 _SORTED = ("order_keys", "seg_reduce_runs")
 _ORDER = ("order_keys",)
 _K16 = ("chain",)
+_K18 = ("chain_sort",)
+_SORTED18 = _K18 + ("seg_reduce_runs",)
 # the kernels each ClickBench query's plan launches, from the plan: a
 # keyless aggregate, or a grouping over small dictionary domains
 # (SearchPhrase, MobilePhoneModel), of COUNT, SUM, MIN and MAX of numbers
-# absorbs its chain into K17; a chain that computes anything else runs
-# K16; a direct grouping with string MIN/MAX or DISTINCT (Q22, Q23, Q29)
-# launches K2 and the binned K1 after K16; any other grouping sorts (K3)
-# and reduces through K1's runs entry point; a lone COUNT(DISTINCT x)
-# groups by x first (K17), then counts (K1 binned, Q6); an ORDER BY
-# launches K3 over the rows it sorts (none in Q22, whose groups are empty
-# at any size: no generated URL holds "google"). Q20 filters and projects
-# only.
+# absorbs its chain into K17; a sorted grouping or an ORDER BY over a
+# chain that computes (a filter counts) takes its chain and keys into
+# K18, and any other chain that computes runs K16; a direct grouping with
+# string MIN/MAX or DISTINCT (Q22, Q23, Q29) launches K2 and the binned K1
+# after K16; a grouping of plain columns sorts them through K3; every
+# sorted grouping reduces through K1's runs entry point; a lone
+# COUNT(DISTINCT x) groups by x first (K17), then counts (K1 binned, Q6);
+# an ORDER BY of plain columns launches K3 over the rows it sorts (none in
+# Q22, whose groups are empty at any size: no generated URL holds
+# "google"; none in Q41-Q43, whose groupings keep no row at
+# 99,997,497). Q20 filters and projects only.
 CB_PLANS = {1: _K17, 2: _K17, 3: _K17 + _K16, 4: _K17 + _K16,
             5: _SORTED + _K17, 6: _K17 + ("seg_reduce",), 7: _K17,
-            9: _SORTED, 11: _SORTED + _K17 + _K16, 13: _K17 + _ORDER,
-            14: _SORTED + _K17 + _K16, 16: _SORTED, 17: _SORTED,
+            9: _SORTED, 10: _SORTED + _K18, 12: _SORTED18 + _SORTED,
+            11: _SORTED18 + _K17 + _ORDER, 13: _K17 + _ORDER,
+            14: _SORTED18 + _K17 + _ORDER, 16: _SORTED, 17: _SORTED,
             18: _SORTED, 20: _K16, 21: _K17, 22: _K16 + _DIRECT,
-            23: _K16 + _DIRECT + _ORDER, 24: _K16 + _ORDER,
-            25: _K16 + _ORDER, 26: _K16 + _ORDER, 27: _K16 + _ORDER,
-            29: _K16 + _DIRECT + _ORDER, 30: _K17, 34: _SORTED}
+            23: _K16 + _DIRECT + _ORDER, 24: _K18, 25: _K18, 26: _K18,
+            27: _K18, 28: _SORTED18, 29: _K16 + _DIRECT + _K18, 30: _K17,
+            31: _SORTED18, 32: _SORTED18, 33: _SORTED + _K18, 34: _SORTED,
+            41: _SORTED18, 42: _SORTED18, 43: _SORTED18}
+# the queries that pack some sort's keys into one word at --cb-rows
+# (ops/sort.py): every one that sorts. The groupings whose keys take more
+# than 63 bits sort by the passes: Q9's (RegionID, UserID: its DISTINCT),
+# Q19's (UserID, the minute, SearchPhrase), Q32's and Q33's (WatchID,
+# ClientIP) and Q36's (ClientIP and three offsets of it); UserID and
+# WatchID are random 64-bit identifiers
+CB_PACKED = (5, *range(8, 20), *range(24, 30), *range(31, 44))
 for _q in range(1, 44):
-    PATH_KERNELS[f"cb{_q}"] = CB_PLANS.get(_q, _SORTED + _K16)
+    PATH_KERNELS[f"cb{_q}"] = CB_PLANS.get(_q, _SORTED18 + _ORDER) + \
+        (("window_pack",) if _q in CB_PACKED else ())
 
 
 def _cb_queries(mechanisms: bool) -> dict:
@@ -2787,6 +3137,7 @@ def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
                 if i == 0:
                     launches = {k: fn.launches for k, fn in counters.items()}
                     routes = spark.last_chain_routes
+                    sorts = spark.last_sort_routes
             if spark.dict_tables.builds != built:
                 raise AssertionError(f"ClickBench Q{q}: a steady run built "
                                      f"{spark.dict_tables.builds - built} "
@@ -2796,7 +3147,8 @@ def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
                          peak_bytes=torch.cuda.max_memory_allocated(),
                          dict_tables=built,
                          chain_routes=_print_routes(f"ClickBench Q{q}",
-                                                    routes, q == 30))
+                                                    routes, q == 30),
+                         sort_routes=_print_sorts(f"ClickBench Q{q}", sorts))
             report["launches_on_path"][name] = launches
             if profile:
                 entry["profile"] = profile_query(spark, sql)
@@ -2814,6 +3166,9 @@ def run_clickbench(n: int, seed: int, runs: int, profile: bool) -> dict:
             if q == 30:  # phase 14 at Q30's 90 sums
                 report["chain_rows"] = check_chain_query(
                     spark, "cb30", sql, k16_too=False)["chain_reduce"]
+            if q in CB_SORT_SHAPES:  # phase 15 at Q25's sort, Q40's grouping
+                report.setdefault("sort_rows", []).extend(
+                    check_sort_query(spark, f"cb{q}", sql))
             for kernel in PATH_KERNELS[name]:
                 if launches[kernel] == 0:
                     raise AssertionError(f"{kernel} never launched on "
@@ -2932,6 +3287,10 @@ def main() -> int:
     t = time.perf_counter()
     chain_rows = check_chain_kernels(tables)
     phases["chain_kernels"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    sort_rows = check_sort_kernels(tables)
+    phases["sort_kernels"] = time.perf_counter() - t
     small.stop()
     del tables, small_tables, small
     gc.collect()
@@ -2948,6 +3307,12 @@ def main() -> int:
     chain_rows["chain_reduce"] += cb_report.pop("chain_rows")
     entries += [_chain_entry(k, chain_rows[k])
                 for k in ("chain", "chain_reduce")]
+    sort_rows += cb_report.pop("sort_rows")
+    entries.append(dict(
+        name="chain_sort", source=CHAIN_SOURCE, replaces=SORT_REPLACES,
+        max_abs_err=max(r["max_abs_err"] for r in sort_rows),
+        **{k: sort_rows[0][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "library_ms")}, shapes=sort_rows))
     print(f"phase wall times (s): {phases}", flush=True)
     compiled = dict(programs=csrc.jit_kernel.compiles,
                     seconds=csrc.jit_kernel.compile_s,
@@ -2966,7 +3331,7 @@ def main() -> int:
                     **({"shapes": e["shapes"]} if "shapes" in e else {}))
                for e in entries]
     for k in kernels:
-        if k["launches"] == 0:
+        if k["launches"] == 0 and k["name"] not in OFF_PATH:
             raise AssertionError(f"{k['name']} launched on no query's path")
     full = {"main_path": report, "checks": checks, "sf": args.sf,
             "check_sf": args.check_sf, "window": win_report,

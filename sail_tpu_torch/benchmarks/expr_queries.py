@@ -11,11 +11,12 @@ oracle in Spark's semantics and the reference.
 
 ``KERNELS`` names the kernels each query's expressions launch. A
 Filter/Project chain runs as one program (K16 ``chain``; with a keyless
-or direct aggregate above it, K17 ``chain_reduce``), which computes the
-math inside it, so E1-E6 launch K12-K15 no more; E7 keeps each of them on
-the path where an expression is compiled outside a chain: its sort keys
-launch K12 ``math_unary``, K13 ``round_number``, K14 ``math_binary`` and
-K15 ``calendar`` (``functions/numeric.py``).
+or direct aggregate above it, K17 ``chain_reduce``; with the sort or
+sorted grouping above it, K18 ``chain_sort``, which also writes the sort
+keys' words, packed into one word a row where they fit in 63 bits,
+``window_pack``), which computes the math inside it, so no query launches
+K12-K15 (``functions/numeric.py``): E7's sort keys, its rounded roots,
+angles and next month's dates, run in its K18 program too.
 """
 
 QUERIES = {
@@ -96,12 +97,13 @@ LIMIT 20
 }
 
 KERNELS = {
-    "e1": ("chain_reduce", "chain"),
+    "e1": ("chain_reduce", "chain_sort", "window_pack"),
     "e2": ("chain_reduce",),
-    "e3": ("chain",),
-    "e4": ("chain",),
-    "e5": ("chain_reduce", "chain"),
-    "e6": ("chain_reduce", "chain"),
-    "e7": ("chain", "math_unary", "round_number", "math_binary",
-           "calendar"),
+    "e3": ("chain_sort", "window_pack", "seg_reduce_runs"),
+    "e4": ("chain_sort", "window_pack", "seg_reduce_runs"),
+    "e5": ("chain_reduce", "chain_sort", "window_pack"),
+    "e6": ("chain_reduce", "chain_sort", "window_pack"),
+    # its four keys in the chain's kernel (K18, no K12-K15 launch); two
+    # float64 keys take more than 63 bits, so it sorts by the passes
+    "e7": ("chain_sort",),
 }

@@ -8,7 +8,7 @@ source builds anew and an unchanged one is built once. The first call
 that needs a kernel builds all of them, one ``nvcc`` process per source,
 all started together. Nothing is built when this module is imported.
 
-The chain kernels (K16, K17) are generated, one for each chain program
+The chain kernels (K16, K17, K18) are generated, one for each chain program
 (``ops/chain_codegen.py``), and compiled when a chain is bound:
 ``jit_kernel`` hands a generated source to NVRTC through
 ``chain_jit.cu`` and keeps each cubin under ``<digest>/chain/``.
@@ -41,13 +41,13 @@ SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
            "window_extreme.cu", "window_perm.cu", "expr_math.cu",
            "chain_jit.cu")
 _HEADERS = ("common.cuh", "join_keys.cuh", "window.cuh", "expr_math.cuh",
-            "chain.cuh")
+            "order_keys.cuh", "chain.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the libraries a source links, after it on nvcc's command line (the
 # toolkit's library directory is added, and set as the run path)
 _SOURCE_LIBS = {"chain_jit.cu": ("-lnvrtc", "-lcuda")}
-# NVRTC's options for the chain kernels: K16/K17 mirror torch's float64
+# NVRTC's options for the chain kernels: K16-K18 mirror torch's float64
 # operations one rounding each, so the compiler may not contract a*b+c
 # into an FMA; a generated kernel declares every operand's word and
 # validity, some unread (warnings 177, 550); the header directories are
@@ -77,8 +77,8 @@ _ENTRY = {
                                       P, P],
                  "sail_bloom_apply": [P, P, LL, I, ULL, P, LL, ULL, P, P,
                                       P, P]},
-    "window_bounds.cu": {"sail_window_pack": [P, P, P, P, P, P, I, I, P, LL,
-                                              P, I, P],
+    "window_bounds.cu": {"sail_window_pack": [P, P, P, P, P, P, I, I, I, P,
+                                              LL, P, I, P],
                          "sail_window_bounds": [P, LL, P, P, P, I, P, P, P,
                                                 P, P, P, P, P]},
     "window_ranks.cu": {"sail_window_ranks": [P, LL, P, P, P, P, P, LL, P, I,

@@ -1,5 +1,5 @@
-// K16 and K17: the device functions and the skeleton of the kernels that
-// sail_tpu_torch/ops/chain_codegen.py generates, one for each chain
+// K16, K17 and K18: the device functions and the skeleton of the kernels
+// that sail_tpu_torch/ops/chain_codegen.py generates, one for each chain
 // program, and csrc/chain_jit.cu compiles with NVRTC when a chain is
 // bound.
 //
@@ -30,6 +30,18 @@
 // an order that varies between runs, as K1's binned sums), MIN and MAX
 // have K1's identities and NaN order (csrc/seg_reduce.cu).
 //
+// K18 replaces sail_tpu/exec/local.py `_fused_sort` (:1403-1450) up to its
+// lexsort: K16's row body, then each sort key's K3 word
+// (order_keys.cuh's bits, as K3 writes them; a dictionary code already
+// mapped through its rank table by the program's LUT) and validity
+// stored, and the key's least and greatest word over the live rows (a
+// grouping's key: its live non-null rows) kept in registers across the
+// thread's rows; the block combines them once (reduce_warp_word, then
+// block_slot: one 64-bit atomicMin and atomicMax a key and block). The
+// host reads the extremes once and packs the words (ops/sort.py).
+// Bound: bytes: K16's, plus 8 B a key word and 1 B a key validity
+// written.
+//
 // Bound: bytes for a short program (each input read once, K16's outputs
 // written once); a long one (ClickBench Q30: 90 int64 sums of one column)
 // by its own arithmetic.
@@ -50,6 +62,7 @@
 #include "common.cuh"
 #endif
 #include "expr_math.cuh"
+#include "order_keys.cuh"
 
 namespace {
 

@@ -1,45 +1,21 @@
 // K3: order-preserving 64-bit sort keys.
 //
-// Replaces sail_tpu/ops/sort.py `_order_bits` / `order_bits`. The
-// reference maps each value to uint64 bits whose unsigned order is the
-// value order (sign bias for integers; the IEEE trick for floats, after
-// folding -0.0 into 0.0 and every NaN into one NaN that sorts last);
-// descending is the bitwise NOT. This kernel writes those bits XOR
-// (1 << 63) as int64, so that signed order equals the reference's
-// unsigned order: integers come out as themselves, and descending is
-// still the bitwise NOT.
+// Replaces sail_tpu/ops/sort.py `_order_bits` / `order_bits`. The per-value
+// bits and the word made of them are order_keys.cuh's, which K18
+// (csrc/chain.cuh) computes too: the reference's uint64 order bits XOR
+// (1 << 63) as int64, so that signed order equals the reference's unsigned
+// order (integers come out as themselves), and descending is the bitwise
+// NOT.
 //
 // Bound: bytes: read the value once, write 8 bytes. A grid-stride loop with
 // one element per thread per iteration keeps the loads coalesced.
 
 #include "common.cuh"
+#include "order_keys.cuh"
 
 namespace {
 
 enum DType { kBool = 0, kI8, kI16, kI32, kI64, kF32, kF64 };
-
-constexpr unsigned long long kSign = 1ull << 63;
-
-template <int DT, typename T>
-__device__ __forceinline__ unsigned long long order_bits(T v) {
-  if (DT == kBool) return (unsigned long long)(v != 0);
-  if (DT == kF32) {
-    float x = (float)v;
-    if (x == 0.0f) x = 0.0f;  // -0.0 sorts as 0.0
-    unsigned long long b =
-        isnan(x) ? 0x7fc00000ull : (unsigned long long)__float_as_uint(x);
-    return (b >> 31) ? (~b & 0xffffffffull) : (b | 0x80000000ull);
-  }
-  if (DT == kF64) {
-    double x = (double)v;
-    if (x == 0.0) x = 0.0;
-    unsigned long long b = isnan(x)
-                               ? 0x7ff8000000000000ull
-                               : (unsigned long long)__double_as_longlong(x);
-    return (b >> 63) ? ~b : (b | kSign);
-  }
-  return (unsigned long long)(long long)v ^ kSign;
-}
 
 template <int DT, typename T>
 __global__ void order_keys_kernel(const T* __restrict__ data, long long n,
@@ -47,10 +23,8 @@ __global__ void order_keys_kernel(const T* __restrict__ data, long long n,
                                   long long* __restrict__ out) {
   long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    unsigned long long key = order_bits<DT>(data[i]) ^ kSign;
-    out[i] = (long long)(descending ? ~key : key);
-  }
+       i += stride)
+    out[i] = order_word(order_bits(data[i]), descending);
 }
 
 template <int DT, typename T>

@@ -9,14 +9,18 @@
 // count of peer starts (:117). Both entry points read and write in sorted
 // order or in row order only: nothing goes through the permutation.
 //
-// sail_window_pack: the sort key of a window whose keys fit in 63 bits,
-//   one non-negative int64 word a row: the dead bit (sel false) on top;
-//   below it, per key, most significant first, the key's null rank (valid
-//   where nulls sort first, !valid where they sort last; keys with a
-//   validity) above its K3 bits minus their least value over all rows
-//   (`lo`, read by the wrapper; a null row's bits as they are). One stable
-//   sort of the word orders the rows as the stable passes over (dead,
-//   null rank, bits, ...) do, and its sorted values are K8's input.
+// sail_window_pack: the sort key of keys that fit in 63 bits (a window's,
+//   a sort's or a sorted grouping's, ops/sort.py), one non-negative int64
+//   word a row: the dead bit (sel false) on top; below it, per key, most
+//   significant first, the key's null rank (valid where nulls sort first,
+//   !valid where they sort last; keys with a validity) above its K3 bits
+//   minus their least value (`lo`, read by the wrapper: a window's over all
+//   rows, a sort's over its live rows; a null row's bits as they are, or 0
+//   where the key's flags ask for a canonical NULL, as a grouping's do).
+//   With `dead_only` a dead row is the dead bit alone (its keys may lie
+//   outside the live extremes). One stable sort of the word orders the
+//   rows as the stable passes over (dead, null rank, bits, ...) do, and
+//   its sorted values are K8's input.
 // Bound: bytes, n * (8 B a key + 1 B a validity + 1 B sel + 8 B word),
 //   each read and written once, in row order.
 //
@@ -79,8 +83,9 @@ struct PackKeys {
   long long lo[kMaxKeys];       // the key's least K3 bits over all rows
   int shift[kMaxKeys];          // where its bits - lo start
   int vshift[kMaxKeys];         // where its null rank goes
-  int nulls_first[kMaxKeys];
-  int m, dead_shift;
+  int flags[kMaxKeys];           // bit 0: nulls first; bit 1: a null's
+                                 // bits are packed as 0
+  int m, dead_shift, dead_only;
 };
 
 __global__ void pack_kernel(PackKeys k, const bool* __restrict__ sel,
@@ -88,13 +93,18 @@ __global__ void pack_kernel(PackKeys k, const bool* __restrict__ sel,
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += stride) {
-    unsigned long long w = sel[r] ? 0ull : 1ull << k.dead_shift;
-    for (int j = 0; j < k.m; ++j) {
-      w |= ((unsigned long long)k.key[j][r] - (unsigned long long)k.lo[j])
-           << k.shift[j];
-      if (k.valid[j] != nullptr) {
-        const bool v = k.valid[j][r];
-        w |= (unsigned long long)(k.nulls_first[j] ? v : !v) << k.vshift[j];
+    const bool live = sel[r];
+    unsigned long long w = live ? 0ull : 1ull << k.dead_shift;
+    if (live || !k.dead_only) {
+      for (int j = 0; j < k.m; ++j) {
+        const bool v = k.valid[j] == nullptr || k.valid[j][r];
+        if (v || !(k.flags[j] & 2))
+          w |= ((unsigned long long)k.key[j][r] -
+                (unsigned long long)k.lo[j])
+               << k.shift[j];
+        if (k.valid[j] != nullptr)
+          w |= (unsigned long long)((k.flags[j] & 1) ? v : !v)
+               << k.vshift[j];
       }
     }
     out[r] = w;
@@ -412,15 +422,15 @@ bounds_backward_kernel(const long long* __restrict__ n_live_p, long long n,
 }  // namespace
 
 // keys, valids: host arrays of m device pointers (valids' entries null for
-// keys without a validity); lo, shift, vshift, nulls_first: m each, on the
-// host. out: n int64 words.
+// keys without a validity); lo, shift, vshift, flags: m each, on the host.
+// out: n int64 words.
 extern "C" int sail_window_pack(const void* const* keys,
                                 const void* const* valids,
                                 const long long* lo, const int* shift,
-                                const int* vshift, const int* nulls_first,
-                                int m, int dead_shift, const void* sel,
-                                long long n, void* out, int grid,
-                                void* stream) {
+                                const int* vshift, const int* flags, int m,
+                                int dead_shift, int dead_only,
+                                const void* sel, long long n, void* out,
+                                int grid, void* stream) {
   if (n <= 0) return 0;
   if (m < 0 || m > kMaxKeys || dead_shift < 0 || dead_shift > 62)
     return (int)cudaErrorInvalidValue;
@@ -432,10 +442,11 @@ extern "C" int sail_window_pack(const void* const* keys,
     k.lo[j] = used ? lo[j] : 0;
     k.shift[j] = used ? shift[j] : 0;
     k.vshift[j] = used ? vshift[j] : 0;
-    k.nulls_first[j] = used ? nulls_first[j] : 0;
+    k.flags[j] = used ? flags[j] : 0;
   }
   k.m = m;
   k.dead_shift = dead_shift;
+  k.dead_only = dead_only;
   pack_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       k, static_cast<const bool*>(sel), n,
       static_cast<unsigned long long*>(out));

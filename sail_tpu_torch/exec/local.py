@@ -106,10 +106,11 @@ class _Rtf(NamedTuple):
 
 
 class _Stage(NamedTuple):
-    """A bound chain: its route ("K16", "K17", "per-op", or "refs" where it
-    only passes columns through), its program (K16, K17) or closures
-    (``chain_fn``), its top's dictionaries and schema, and for a per-op
-    chain the first expression without a fragment."""
+    """A bound chain: its route ("K16", "K17", "K18", "per-op", or "refs"
+    where it only passes columns through), its program (K16, K17, K18) or
+    closures (``chain_fn``), its top's dictionaries and schema, and for a
+    per-op chain the first expression without a fragment; K18's: each sort
+    key's nulls_first."""
 
     route: str
     prog: Optional[chainop.ChainProgram]
@@ -120,6 +121,7 @@ class _Stage(NamedTuple):
     nodes: int
     # the dictionaries the key holds by identity
     held: tuple
+    nulls_first: tuple = ()
 
 
 # the most chain programs a session keeps
@@ -153,6 +155,11 @@ class LocalExecutor:
         self.chain_programs = {} if chain_programs is None \
             else chain_programs
         self.chain_routes: List[dict] = []
+        # each sort and sorted grouping: its consumer, the route of its
+        # words (K18, or K3 over materialized keys) and its form (packed:
+        # one sort of one word; passes: a sort a key, validity and the
+        # dead rows)
+        self.sort_routes: List[dict] = []
         self.runtime_filters: List[dict] = []
         # the rows (live and dead) each join of the plan put out, in the
         # order they ran: what a join order makes the card hold
@@ -196,6 +203,7 @@ class LocalExecutor:
         self.runtime_filters.extend(inner.runtime_filters)
         self.join_rows.extend(inner.join_rows)
         self.chain_routes.extend(inner.chain_routes)
+        self.sort_routes.extend(inner.sort_routes)
         if table.num_rows == 0:
             return LV(sub.dtype, None)
         if table.num_rows > 1:
@@ -306,23 +314,28 @@ class LocalExecutor:
 
     def _stage(self, chain: List[pn.PlanNode], bottom: HostBatch,
                bottom_node: pn.PlanNode,
-               agg: Optional[pn.AggregateExec] = None) -> _Stage:
+               agg: Optional[pn.AggregateExec] = None,
+               sort: Optional[pn.SortExec] = None) -> _Stage:
         """The chain bound to a route, from ``chain_programs`` where it was
-        bound before."""
-        key = self._stage_key(chain, bottom, bottom_node, agg)
+        bound before; ``agg`` or ``sort``: the operator it feeds, whose
+        grouping or keys the program may take in (K17, K18)."""
+        key = self._stage_key(chain, bottom, bottom_node, agg, sort)
         hit = None if key is None else self.chain_programs.get(key)
         if hit is None:
-            hit = self._bind_stage(chain, bottom, bottom_node, agg)
+            hit = self._bind_stage(chain, bottom, bottom_node, agg, sort)
             if key is not None:
                 while len(self.chain_programs) >= _MAX_PROGRAMS:
                     self.chain_programs.pop(next(iter(self.chain_programs)))
                 self.chain_programs[key] = hit
         return hit
 
-    def _stage_key(self, chain, bottom: HostBatch, bottom_node, agg):
-        nodes = ([agg] if agg is not None else []) + \
+    def _stage_key(self, chain, bottom: HostBatch, bottom_node, agg,
+                   sort=None):
+        top = agg if agg is not None else sort
+        nodes = ([top] if top is not None else []) + \
             [self._bind_subqueries(n) for n in chain]
-        key = ("K17" if agg is not None else "K16",
+        key = ("agg" if agg is not None else
+               "sort" if sort is not None else "chain",
                stages.stage_fingerprint(nodes, bottom_node.schema),
                tuple((d.dtype, v is not None)
                      for d, v in self._cols(bottom)),
@@ -364,14 +377,14 @@ class LocalExecutor:
             (n, bind(e)) for n, e in node.exprs))
 
     def _bind_stage(self, chain, bottom: HostBatch, bottom_node,
-                    agg) -> _Stage:
+                    agg, sort=None) -> _Stage:
         chain_fn, filters, frags, dicts, schema, unfused = \
             self._lower_chain(chain, bottom, bottom_node)
         held = tuple(bottom.dicts.values())
 
-        def stage(route, prog, why=None):
+        def stage(route, prog, why=None, nulls_first=()):
             return _Stage(route, prog, chain_fn, dicts, schema, why,
-                          len(chain), held)
+                          len(chain), held, tuple(nulls_first))
 
         if unfused is not None:
             return stage("per-op", None, unfused)
@@ -386,6 +399,21 @@ class LocalExecutor:
                     pass  # past K17's limits: K16, then the K1 route
             if prog is not None:
                 return stage("K17", self._compiled(prog))
+        sorted_ = None
+        if agg is not None:
+            sorted_ = _group_sort_sinks(agg, filters, frags, dicts)
+        elif sort is not None:
+            sorted_ = self._sort_sinks(sort, filters, frags, dicts, schema)
+        if sorted_ is not None:
+            outputs, keys, nulls_first = sorted_
+            try:
+                prog = chainop.build_program(filters, outputs, self.device,
+                                             sort_keys=keys)
+            except ValueError:
+                prog = None  # past the kernel's limits: K16, then K3
+            if prog is not None:
+                return stage("K18", self._compiled(prog),
+                             nulls_first=nulls_first)
         try:
             prog = chainop.build_program(filters, frags, self.device)
         except ValueError as e:
@@ -393,6 +421,37 @@ class LocalExecutor:
         if not prog.instrs:
             return stage("refs", prog)
         return stage("K16", self._compiled(prog))
+
+    def _sort_sinks(self, p: pn.SortExec, filters, frags, dicts, schema):
+        """K18's (outputs, sort keys, nulls_first) for the sort ``p`` over a
+        chain whose top has ``frags``: every column stored or passed
+        through (the sort gathers them all), each key's fragment (a
+        dictionary code through the session's rank table, so its word
+        orders by value). None where the sort takes K3 instead: a key
+        without a fragment or with a scalar subquery (its value would be
+        baked in), or plain key columns over no chain."""
+        if any(isinstance(x, rx.RScalarSubquery)
+               for k in p.keys for x in rx.walk(k.expr)):
+            return None
+        comp = self._compiler(dicts, schema, frags)
+        keys, nulls_first, plain = [], [], not filters and all(
+            f is not None and f.op == "col" for f in frags)
+        for k in p.keys:
+            c = comp.compile(k.expr)
+            f = c.frag
+            if f is None or f.dtype not in chainop.TYPE_CODE:
+                return None
+            plain = plain and f.op == "col"
+            if c.dictionary is not None and len(c.dictionary) > 0:
+                f = chainop.op("lut", f, dtype=torch.int32,
+                               nullable=f.nullable, imm=(chainop.Table(
+                                   self._dict_order(c.dictionary)[0]),))
+            keys.append(chainop.SortKey(f, descending=not k.ascending))
+            nulls_first.append(k.ascending if k.nulls_first is None
+                               else k.nulls_first)
+        if plain or not keys:
+            return None
+        return frags, keys, nulls_first
 
     def _compiled(self, prog: chainop.ChainProgram) -> chainop.ChainProgram:
         """On the card, the program's kernel generated and compiled (or
@@ -411,6 +470,16 @@ class LocalExecutor:
         stage = self._stage(chain, child, node)
         cols, sel = self._apply_stage(stage, child, consumer)
         return cols, sel, stage.dicts, stage.schema
+
+    def _apply_sort_stage(self, stage: _Stage, child: HostBatch,
+                          consumer: str) -> chainop.ChainSorted:
+        """Run a K18 stage over ``child``: the chain's columns, its
+        selection, and its sort keys' words and extremes; logs its
+        route."""
+        self.chain_routes.append(dict(route="K18", nodes=stage.nodes,
+                                      consumer=consumer, first_unfused=None))
+        return chainop.run_chain_sort(stage.prog, self._cols(child),
+                                      child.device.sel)
 
     def _apply_stage(self, stage: _Stage, child: HostBatch, consumer: str):
         """Run a bound chain (K16, its closures, or nothing where it only
@@ -504,22 +573,29 @@ class LocalExecutor:
         return HostBatch(out, child.dicts)
 
     def _exec_SortExec(self, p: pn.SortExec) -> HostBatch:
-        cols, sel, dicts, schema = self._run_chain(p.input, "SortExec")
-        comp = self._compiler(dicts, schema)
+        """The chain below and the sort keys' words as one K18 pass where
+        the keys have fragments (else the chain, then the keys' closures
+        and K3), then one sort of the packed word where the keys fit in
+        it (else the passes), and the gathers."""
+        chain, node = self._split_chain(p.input)
+        child = self.run(node)
+        stage = self._stage(chain, child, node, sort=p)
+        dicts, schema = stage.dicts, stage.schema
+        if stage.route == "K18":
+            out = self._apply_sort_stage(stage, child, "SortExec")
+            cols, sel, ext = out.cols, out.sel, out.ext
+            words = [(w, v, nf) for (w, v), nf in zip(out.words,
+                                                      stage.nulls_first)]
+        else:
+            cols, sel = self._apply_stage(stage, child, "SortExec")
+            words, ext = self._sort_words(p, cols, sel, dicts, schema), None
         n = sel.shape[0]
-        keys = []
-        for k in p.keys:
-            c = comp.compile(k.expr)
-            data, validity = c.fn(cols)
-            data = _full(data, n)
-            validity = None if validity is None else _full(validity, n)
-            kdt = rx.rex_type(k.expr)
-            if c.dictionary is not None and len(c.dictionary) > 0:
-                # order dictionary codes by VALUE through a rank table
-                data = self._dict_order(c.dictionary)[0][data.long()]
-                kdt = dt.IntegerType()
-            keys.append((data, validity, kdt, k.ascending, k.nulls_first))
-        perm = sortk.lexsort_perm(keys, sel)
+        srt = sortk.sort_words(words, sel, ext) if words else \
+            sortk.SortedWords(sortk.lexsort_keys([], sel), None, None)
+        self.sort_routes.append(dict(consumer="SortExec", route=stage.route
+                                     if stage.route == "K18" else "K3",
+                                     form=srt.form, keys=len(words)))
+        perm = srt.perm
         out_sel = sel[perm]
         if p.limit is not None:
             out_sel = out_sel & (torch.arange(n, device=self.device) < p.limit)
@@ -527,6 +603,26 @@ class LocalExecutor:
                                     f.dtype)
                for i, ((d, v), f) in enumerate(zip(cols, schema))}
         return HostBatch(DeviceBatch(out, out_sel), dicts)
+
+    def _sort_words(self, p: pn.SortExec, cols, sel, dicts, schema):
+        """The sort keys' K3 words (int64, validity, nulls_first) by their
+        closures over the chain's materialized columns: a dictionary code
+        through the session's rank table first."""
+        comp = self._compiler(dicts, schema)
+        n = sel.shape[0]
+        words = []
+        for k in p.keys:
+            c = comp.compile(k.expr)
+            data, validity = c.fn(cols)
+            data = _full(data, n)
+            validity = None if validity is None else _full(validity, n)
+            if c.dictionary is not None and len(c.dictionary) > 0:
+                # order dictionary codes by VALUE through a rank table
+                data = self._dict_order(c.dictionary)[0][data.long()]
+            words.append((sortk.order_keys(data, k.ascending), validity,
+                          k.ascending if k.nulls_first is None
+                          else k.nulls_first))
+        return words
 
     # -- aggregation ----------------------------------------------------------
     def _exec_AggregateExec(self, p: pn.AggregateExec) -> HostBatch:
@@ -539,40 +635,37 @@ class LocalExecutor:
         dicts = stage.dicts
         if stage.route == "K17":
             return self._reduce_chain(p, stage, child)
+        if stage.route == "K18":
+            out = self._apply_sort_stage(stage, child, "AggregateExec")
+            return self._aggregate(p, out.cols, out.sel, dicts, out.words,
+                                   out.ext)
         cols, sel = self._apply_stage(stage, child, "AggregateExec")
         return self._aggregate(p, cols, sel, dicts)
 
     def _aggregate(self, p: pn.AggregateExec, cols: List,
-                   sel: torch.Tensor, dicts: Dict[str, pa.Array]
-                   ) -> HostBatch:
+                   sel: torch.Tensor, dicts: Dict[str, pa.Array],
+                   words=None, ext=None) -> HostBatch:
         """The aggregate over its input's columns: K2 or a sort groups the
-        rows, K1 reduces each aggregate."""
+        rows, K1 reduces each aggregate. ``words``, ``ext``: the group keys'
+        K3 words and their extremes, where K18 wrote them."""
         in_schema = p.input.schema
         n = sel.shape[0]
-
-        # direct binning when every group key has a known small domain
-        # (dictionary codes / booleans) — no sort needed
-        domains = []
-        for gi in p.group_indices:
-            name = _col_name(gi)
-            if name in dicts:
-                domains.append(len(dicts[name]))
-            elif isinstance(in_schema[gi].dtype, dt.BooleanType):
-                domains.append(2)
-            else:
-                domains.append(None)
-        direct_total = 1
-        for d in domains:
-            direct_total = None if d is None or direct_total is None \
-                else direct_total * (d + 1)
         key_cols = [Column(cols[i][0], cols[i][1], in_schema[i].dtype)
                     for i in p.group_indices]
-        if p.group_indices and direct_total is not None and \
-                direct_total <= 4096:
+        # direct binning when every group key has a known small domain
+        # (dictionary codes / booleans) — no sort needed
+        domains = _direct_domains(p, dicts)
+        if domains is not None:
             ctx, keys = aggk.group_rows_direct(key_cols, domains, sel)
         else:
             ctx, keys = aggk.group_rows(key_cols, sel,
-                                        n if p.group_indices else 1)
+                                        n if p.group_indices else 1, words,
+                                        ext)
+            if p.group_indices:
+                self.sort_routes.append(dict(
+                    consumer="AggregateExec",
+                    route="K3" if words is None else "K18",
+                    form=ctx.sort_form, keys=len(key_cols)))
         out_cols: Dict[str, Column] = {}
         out_dicts: Dict[str, pa.Array] = {}
         for j, (gi, g) in enumerate(zip(p.group_indices,
@@ -1262,6 +1355,48 @@ class LocalExecutor:
                 dicts[_col_name(n_left + i)] = right.dicts[_col_name(i)]
         return HostBatch(DeviceBatch(cols, torch.ones(
             total, dtype=torch.bool, device=self.device)), dicts)
+
+
+def _direct_domains(agg: pn.AggregateExec, dicts) -> Optional[List[int]]:
+    """Each group key's domain where the aggregate bins its rows directly
+    (every key a dictionary code or a boolean, at most 4096 bins with a
+    NULL slot each), else None: the grouping sorts (or it is keyless)."""
+    if not agg.group_indices:
+        return None
+    schema = agg.input.schema
+    domains = []
+    total = 1
+    for gi in agg.group_indices:
+        name = _col_name(gi)
+        if name in dicts:
+            domains.append(len(dicts[name]))
+        elif isinstance(schema[gi].dtype, dt.BooleanType):
+            domains.append(2)
+        else:
+            return None
+        total *= domains[-1] + 1
+    return domains if total <= 4096 else None
+
+
+def _group_sort_sinks(agg: pn.AggregateExec, filters, frags, dicts):
+    """K18's (outputs, sort keys, nulls_first) for a sorted grouping over a
+    chain whose top has ``frags``: the group keys' columns and the
+    aggregates' arguments stored or passed through (no other column: the
+    grouping reads none), each group key's word in ascending order, NULLs
+    first and canonical. None where the grouping does not sort (keyless,
+    direct) or no chain computes below it (K3 over its columns)."""
+    if not agg.group_indices or _direct_domains(agg, dicts) is not None:
+        return None
+    if not filters and all(f is not None and f.op == "col" for f in frags):
+        return None
+    keys = [frags[gi] for gi in agg.group_indices]
+    if any(f is None or f.dtype not in chainop.TYPE_CODE for f in keys):
+        return None
+    needed = set(agg.group_indices) | {a.arg for a in agg.aggs
+                                       if a.arg is not None}
+    outputs = [f if i in needed else None for i, f in enumerate(frags)]
+    return outputs, [chainop.SortKey(f, canonical=True) for f in keys], \
+        [True] * len(keys)
 
 
 def _agg_sinks(agg: pn.AggregateExec, frags, dicts, schema):

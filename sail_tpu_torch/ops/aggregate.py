@@ -26,7 +26,7 @@ import torch
 from .. import csrc
 from ..columnar.batch import Column, physical_torch_dtype
 from ..spec import data_type as dt
-from .sort import order_keys
+from .sort import order_keys, sort_words
 
 # ---------------------------------------------------------------------------
 # K1: segmented reduction
@@ -378,6 +378,7 @@ class GroupContext:
         self.perm = perm              # int64[n] (sort mode)
         self.sorted_ids = sorted_ids  # int32[n] (sort mode)
         self.n_live = n_live          # 0-d int64 (sort mode)
+        self.sort_form = None         # "packed" or "passes" (sort mode)
         # [(validity, int64[max_groups] counts)], matched by identity
         self._counts = [] if counts is None else [(None, counts)]
 
@@ -390,20 +391,6 @@ class GroupContext:
                     counts: torch.Tensor) -> torch.Tensor:
         self._counts.append((valid, counts))
         return counts
-
-
-def _group_sort_perm(key_cols: Sequence[Column], sel) -> torch.Tensor:
-    """Sort permutation grouping equal keys together, dead rows last."""
-    n = sel.shape[0]
-    perm = torch.arange(n, dtype=torch.int64, device=sel.device)
-    for c in reversed(list(key_cols)):
-        bits = order_keys(c.data)
-        perm = perm[torch.sort(bits[perm], stable=True).indices]
-        if c.validity is not None:
-            perm = perm[torch.sort(c.validity[perm].to(torch.uint8),
-                                   stable=True).indices]
-    dead = (~sel).to(torch.uint8)
-    return perm[torch.sort(dead[perm], stable=True).indices]
 
 
 def _keys_equal_adjacent(sorted_keys: Sequence[Column]) -> torch.Tensor:
@@ -424,32 +411,54 @@ def _keys_equal_adjacent(sorted_keys: Sequence[Column]) -> torch.Tensor:
     return eq
 
 
-def group_rows(key_cols: Sequence[Column], sel,
-               max_groups: int) -> Tuple[GroupContext, List[Column]]:
+def group_rows(key_cols: Sequence[Column], sel, max_groups: int,
+               words=None, ext=None) -> Tuple[GroupContext, List[Column]]:
     """Group rows by key; returns (context, key columns in ORIGINAL order).
 
-    The sort derives dense group ids in key order (adjacent-equal
-    detection); the aggregates then reduce each group's run of the sorted
-    order, reading values through the permutation, so no id goes back to
-    row order and no dead row is read."""
+    ``words``: each key's K3 word (int64) and validity, as K18 writes
+    them beside ``ext``, their extremes over the live non-null rows
+    (int64[k, 2]); None: K3 here, and the extremes over all rows.
+
+    Where the keys fit in one word (``ops/sort.py`` ``sort_words``, a
+    NULL key canonical in it): one pack pass and one stable sort, as the
+    reference's ``_group_sort_perm`` packs its keys (``can_pack``); a
+    group starts where the sorted word changes among the live rows (those
+    below the dead bit). Otherwise the reference's passes (a
+    sort a key, a validity and the dead rows), and adjacent-equal
+    detection over each key gathered into sorted order. Either way the
+    ids are dense and in key order (NULLs first); the aggregates reduce
+    each group's run of the sorted order, reading values through the
+    permutation, so no id goes back to row order and no dead row is
+    read. ``ctx.sort_form`` says which form ran."""
     if not key_cols:
         seg = torch.where(sel, 0, max_groups).to(torch.int32)
         return GroupContext(sel, 1, max_groups, seg_ids=seg), []
-    perm = _group_sort_perm(key_cols, sel)
-    sorted_keys = [Column(c.data[perm],
-                          None if c.validity is None else c.validity[perm],
-                          c.dtype) for c in key_cols]
-    alive = sel[perm]
-    new_group = alive & ~_keys_equal_adjacent(sorted_keys)
+    if words is None:
+        words = [(order_keys(c.data), c.validity) for c in key_cols]
+    keys = [(w, v, True) for w, v in words]
+    srt = sort_words(keys, sel, ext, canonical=True)
+    perm = srt.perm
+    if srt.layout is not None:
+        alive = srt.word < (1 << srt.layout.dead_shift)
+        new_group = alive.clone()
+        new_group[1:] &= srt.word[1:] != srt.word[:-1]
+    else:
+        sorted_keys = [Column(c.data[perm],
+                              None if c.validity is None else
+                              c.validity[perm], c.dtype) for c in key_cols]
+        alive = sel[perm]
+        new_group = alive & ~_keys_equal_adjacent(sorted_keys)
     seg_sorted = torch.cumsum(new_group.to(torch.int64), 0) - 1
     seg_sorted = torch.where(alive, torch.clamp(seg_sorted, 0, max_groups),
                              max_groups).to(torch.int32)
     # the ids never decrease, so the rows with an id below max_groups (the
-    # live rows of groups that fit) are a prefix
+    # live rows of groups that fit: packed, those before the dead bit) are
+    # a prefix
     n_live = torch.searchsorted(seg_sorted,
                                 seg_sorted.new_full((1,), max_groups))[0]
     ctx = GroupContext(sel, new_group.sum(), max_groups, perm=perm,
                        sorted_ids=seg_sorted, n_live=n_live)
+    ctx.sort_form = srt.form
     return ctx, list(key_cols)
 
 

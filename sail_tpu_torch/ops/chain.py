@@ -1,23 +1,28 @@
-"""K16 and K17: a Filter/Project chain as one program, and the chain with
-the keyless or direct-grouped aggregate it feeds.
+"""K16, K17 and K18: a Filter/Project chain as one program, the chain with
+the keyless or direct-grouped aggregate it feeds, and the chain with the
+sort words of the sort or sorted grouping above it.
 
 Replaces the device programs XLA compiled for ``sail_tpu/exec/local.py``
 ``_pipeline_chain``, ``_try_fused_chain``, ``_run_chain``,
-``_apply_chain`` and ``_compile_chain`` (:1585-1760), and the aggregate's
-fused builder (:1765-1930) where its grouping is keyless or direct.
+``_apply_chain`` and ``_compile_chain`` (:1585-1760), the aggregate's
+fused builder (:1765-1930) where its grouping is keyless or direct, and
+``_fused_sort`` (:1403-1450: the chain, each sort key with its dictionary
+rank table, then the lexsort) up to its sort, as the chain of a sorted
+grouping too.
 
 The expression compiler (``plan/compiler.py``) gives each expression it
 can lower a ``Frag``: a node of the expression's program form beside its
 torch closure. ``build_program`` turns the fragments of one chain (its
-filter conditions, then its outputs, or the aggregate's keys and values)
-into a ``ChainProgram``: a flat list of instructions over numbered 64-bit
-registers, each with a validity bit, allocated by liveness; a constant
-table; the lookup tables (dictionary LUTs) it reads; its inputs (column
-index, physical type) and its outputs. Integers of every width, dates,
-dictionary codes, timestamps and unscaled decimals live in a register as
-int64 (a narrower result is sign-extended back from its width, so it
-wraps as the closure's tensor of that width wraps); float32 and float64
-as float64 (a float32 result is rounded back to float32).
+filter conditions, then its outputs, or the aggregate's keys and values,
+and a sort's keys) into a ``ChainProgram``: a flat list of instructions
+over numbered 64-bit registers, each with a validity bit, allocated by
+liveness; a constant table; the lookup tables (dictionary LUTs) it reads;
+its inputs (column index, physical type) and its outputs. Integers of
+every width, dates, dictionary codes, timestamps and unscaled decimals
+live in a register as int64 (a narrower result is sign-extended back from
+its width, so it wraps as the closure's tensor of that width wraps);
+float32 and float64 as float64 (a float32 result is rounded back to
+float32).
 
 Two runners a program:
 
@@ -29,11 +34,15 @@ Two runners a program:
   tensor, or raises; ``run_chain_reduce`` launches K17, the program with
   its aggregate's tail, whose plain version is ``run_chain_plain``'s
   registers reduced by the K1 route's aggregate functions
-  (``ops/aggregate.py``). Each counts its launches in ``.launches``.
+  (``ops/aggregate.py``); ``run_chain_sort`` launches K18, the program
+  with its sort keys' tail (each key's K3 word, ``ops/sort.py``
+  ``order_keys``, its validity, and its extremes over the live rows),
+  whose plain version is ``run_chain_sort_plain``. Each counts its
+  launches in ``.launches``.
 
-No launch is caught to fall back: which route a chain takes (K16, K17, or
-the closures one torch op a node) is decided from the plan when it is
-bound, by whether every expression has a fragment.
+No launch is caught to fall back: which route a chain takes (K16, K17,
+K18, or the closures one torch op a node) is decided from the plan when
+it is bound, by whether every expression has a fragment.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from ..columnar.batch import Column
 from ..functions import numeric as NUM
 from ..functions.kernels import merge_validity
 from . import aggregate as aggk
+from . import sort as sortk
 
 # ---------------------------------------------------------------------------
 # fragments
@@ -179,7 +189,8 @@ OPCODES = (
     "NULLIF_I", "NULLIF_F", "EQNS_I", "EQNS_F", "EXT_I", "EXT_F", "SDIV_I",
     "SDIV_F", "SMOD_I", "SMOD_F", "PMODFIX_I", "PMODFIX_F", "RESCALE",
     "FLOORDIV", "FLOORMOD", "DATEFIELD", "TRUNCDAYS", "YMADD", "NUM1",
-    "NUM2", "ROUND", "CAL", "LUT", "FILTER", "STORE", "BIN", "PEERS", "ACC")
+    "NUM2", "ROUND", "CAL", "LUT", "FILTER", "STORE", "BIN", "PEERS", "ACC",
+    "OKEY")
 _OPC = {name: i for i, name in enumerate(OPCODES)}
 CMP_CODES = {"==": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 DATE_FIELDS = ("year", "month", "day", "quarter", "dayofweek", "weekday",
@@ -196,6 +207,17 @@ MAX_ARGUMENT_WORDS = 512
 # K17 keeps bins x slots accumulators of 8 bytes in shared memory: at most
 # this many (96 KB); a larger aggregate takes K16, then K1
 MAX_ACC_SLOTS = 12288
+
+
+class SortKey(NamedTuple):
+    """One key K18 writes a sort word for: ``value``'s K3 word (descending:
+    its NOT) and validity. ``canonical``: a grouping's key, whose extremes
+    are taken over the live non-null rows (its NULLs pack as one value);
+    else a sort's, over the live rows, NULLs with their data bits."""
+
+    value: Frag
+    descending: bool = False
+    canonical: bool = False
 
 
 class AggSink(NamedTuple):
@@ -218,7 +240,9 @@ class ChainProgram:
     ``inputs`` the (column index, dtype, nullable) each COL reads by slot.
     K17: ``domains`` of the direct keys (None: keyless), ``aggs`` and, per
     aggregate, its (value slot, count slot) among ``slots`` (kind, identity
-    word), slot 0 counting the live rows of each bin."""
+    word), slot 0 counting the live rows of each bin. K18: ``sort_keys``,
+    each OKEY's (dtype, nullable, descending, canonical); an output the
+    consumer does not read maps to ("none", -1)."""
 
     instrs: List[tuple]
     consts: List[Tuple[int, bool, bool, bool]]
@@ -234,6 +258,7 @@ class ChainProgram:
     aggs: Optional[List[AggSink]] = None
     agg_slots: Optional[List[Tuple[int, int]]] = None
     slots: Optional[List[Tuple[int, int]]] = None
+    sort_keys: Optional[List[Tuple[torch.dtype, bool, bool, bool]]] = None
     # its generated source and loaded kernel (chain_codegen.kernel), and
     # K17's identities on the card (uploaded once)
     _kernel: Optional[tuple] = None
@@ -242,6 +267,10 @@ class ChainProgram:
     @property
     def reduces(self) -> bool:
         return self.aggs is not None
+
+    @property
+    def sorts(self) -> bool:
+        return self.sort_keys is not None
 
     @property
     def nbins(self) -> int:
@@ -445,13 +474,15 @@ def _allocate(instrs: List[list]) -> Tuple[List[tuple], int]:
 
 def build_program(filters: Sequence[Frag], outputs: Sequence[Frag],
                   device, keys: Sequence[Tuple[Frag, int]] = (),
-                  aggs: Optional[Sequence[AggSink]] = None
+                  aggs: Optional[Sequence[AggSink]] = None,
+                  sort_keys: Optional[Sequence[SortKey]] = None
                   ) -> ChainProgram:
     """The program of one chain: its ``filters`` (in plan order), then
     either its ``outputs`` (K16: each stored, or passed through where it is
-    a bottom column unchanged) or, for K17, the direct ``keys`` (fragment,
-    domain) and ``aggs``. Raises ValueError where it exceeds the kernel's
-    limits (the caller then takes the closures)."""
+    a bottom column unchanged; None where the consumer does not read it)
+    or, for K17, the direct ``keys`` (fragment, domain) and ``aggs``; K18
+    adds ``sort_keys`` after the outputs. Raises ValueError where it
+    exceeds the kernel's limits (the caller then takes the closures)."""
     em = _Emitter()
     for f in filters:
         em.ins("FILTER", em.emit(f), dst=False)
@@ -460,6 +491,9 @@ def build_program(filters: Sequence[Frag], outputs: Sequence[Frag],
     prog_kw = {}
     if aggs is None:
         for f in outputs:
+            if f is None:
+                out_map.append(("none", -1))
+                continue
             if f.op == "col":
                 out_map.append(("input", f.imm[0]))
                 continue
@@ -493,9 +527,22 @@ def build_program(filters: Sequence[Frag], outputs: Sequence[Frag],
                        key_dtypes=[f.dtype for f, _ in keys],
                        key_nullable=[f.nullable for f, _ in keys],
                        aggs=list(aggs), agg_slots=agg_slots, slots=slots)
+    if sort_keys is not None:
+        if aggs is not None:
+            raise ValueError("a program with sort keys has no aggregates")
+        for j, k in enumerate(sort_keys):
+            if k.value.dtype not in TYPE_CODE:
+                raise ValueError(f"no sort word of a {k.value.dtype} key")
+            em.ins("OKEY", em.emit(k.value), i0=j,
+                   i1=TYPE_CODE[k.value.dtype],
+                   i2=int(k.descending) | int(k.canonical) << 1, dst=False)
+        prog_kw = dict(sort_keys=[(k.value.dtype, k.value.nullable,
+                                   k.descending, k.canonical)
+                                  for k in sort_keys])
     instrs, nreg = _allocate(em.instrs)
     words = 3 + 2 * (len(em.inputs) + len(out_specs) + len(em.tables) +
-                     sum(c[3] for c in em.consts))
+                     sum(c[3] for c in em.consts) +
+                     len(sort_keys or ())) + (sort_keys is not None)
     if words > MAX_ARGUMENT_WORDS:
         raise ValueError(f"chain program of {words} argument words exceeds "
                          f"the kernel's {MAX_ARGUMENT_WORDS}")
@@ -810,11 +857,21 @@ def _full(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _outputs(prog: ChainProgram, cols: Sequence, stored: List):
-    """The chain's output columns: stored ones and passed-through inputs."""
+    """The chain's output columns: stored ones and passed-through inputs
+    (None for one the consumer does not read)."""
     out = []
     for kind, j in prog.out_map:
-        out.append(stored[j] if kind == "store" else cols[j])
+        out.append(stored[j] if kind == "store" else
+                   cols[j] if kind == "input" else None)
     return out
+
+
+def _stored(prog: ChainProgram, ins, R, V, n: int):
+    """A STORE's column as (data, validity)."""
+    dtype, nullable = prog.outputs[ins[5]]
+    v = V[ins[2]]
+    return (_full(from_word(R[ins[2]], dtype), n),
+            None if v is None else _full(v, n))
 
 
 def run_chain_plain(prog: ChainProgram, cols: Sequence, sel: torch.Tensor):
@@ -827,10 +884,7 @@ def run_chain_plain(prog: ChainProgram, cols: Sequence, sel: torch.Tensor):
     def store(ins, R, V):
         if OPCODES[ins[0]] != "STORE":
             raise ValueError(f"K16 program holds {OPCODES[ins[0]]}")
-        dtype, nullable = prog.outputs[ins[5]]
-        v = V[ins[2]]
-        stored[ins[5]] = (_full(from_word(R[ins[2]], dtype), n),
-                          None if v is None else _full(v, n))
+        stored[ins[5]] = _stored(prog, ins, R, V, n)
 
     live = _interpret(prog, cols, sel, store)
     return _outputs(prog, cols, stored), live
@@ -860,8 +914,8 @@ def run_chain(prog: ChainProgram, cols: Sequence, sel: torch.Tensor):
     error included)."""
     if sel.device.type == "cpu":
         return run_chain_plain(prog, cols, sel)
-    if prog.reduces:
-        raise ValueError("run_chain: a K17 program")
+    if prog.reduces or prog.sorts:
+        raise ValueError("run_chain: a K17 or K18 program")
     _check_inputs("run_chain", prog, cols, sel)
     n, dev = sel.shape[0], sel.device
     outs = [(torch.empty(n, dtype=dt_, device=dev),
@@ -1002,3 +1056,98 @@ def run_chain_reduce(prog: ChainProgram, cols: Sequence, sel: torch.Tensor,
 
 
 run_chain_reduce.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K18
+# ---------------------------------------------------------------------------
+
+class ChainSorted(NamedTuple):
+    """K18's outputs: the chain's output columns (None where the consumer
+    reads none) and selection; each sort key's K3 word (int64[n]) and
+    validity (bool[n] or None); their extremes (int64[keys, 2], least and
+    greatest word over the live rows, a grouping's key over its live
+    non-null rows; INT64_MAX, INT64_MIN where there is none)."""
+
+    cols: List
+    sel: torch.Tensor
+    words: List[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+    ext: torch.Tensor
+
+
+def _no_extremes(k: int, dev) -> torch.Tensor:
+    """int64[k, 2] of (INT64_MAX, INT64_MIN), filled on the device (a copy
+    from the host would make the host wait)."""
+    ext = torch.empty((k, 2), dtype=torch.int64, device=dev)
+    ext[:, 0] = torch.iinfo(torch.int64).max
+    ext[:, 1] = torch.iinfo(torch.int64).min
+    return ext
+
+
+def run_chain_sort_plain(prog: ChainProgram, cols: Sequence,
+                         sel: torch.Tensor) -> ChainSorted:
+    """K18's plain version: ``run_chain_plain``'s outputs and selection,
+    and at each OKEY the key's K3 word (``ops/sort.py``
+    ``order_keys_plain`` of its register at its type), its validity and
+    its extremes over the rows live after every filter
+    (``sort.key_extremes``)."""
+    n = sel.shape[0]
+    stored: List = [None] * len(prog.outputs)
+    words: List = [None] * len(prog.sort_keys)
+    ext = _no_extremes(len(prog.sort_keys), sel.device)
+    state: dict = {}
+
+    def sink(ins, R, V):
+        name = OPCODES[ins[0]]
+        if name == "STORE":
+            stored[ins[5]] = _stored(prog, ins, R, V, n)
+            return
+        if name != "OKEY":
+            raise ValueError(f"K18 program holds {name}")
+        j = ins[5]
+        dtype, _, desc, canonical = prog.sort_keys[j]
+        word = _full(sortk.order_keys_plain(from_word(R[ins[2]], dtype),
+                                            not desc), n)
+        v = None if V[ins[2]] is None else _full(V[ins[2]], n)
+        words[j] = (word, v)
+        if n:
+            ext[j] = sortk.key_extremes([(word, v, True)], state["live"],
+                                        canonical)[0]
+
+    live = _interpret(prog, cols, sel, sink, state)
+    return ChainSorted(_outputs(prog, cols, stored), live, words, ext)
+
+
+def run_chain_sort(prog: ChainProgram, cols: Sequence,
+                   sel: torch.Tensor) -> ChainSorted:
+    """K18: ``run_chain_sort_plain`` as one pass of the program's own
+    kernel on the card (``ops/chain_codegen.py``): K16's row body, then
+    each sort key's K3 word (``csrc/order_keys.cuh``, as K3 computes it)
+    and validity stored, and its extremes kept in registers across the
+    thread's rows and combined once a block (a warp's, then the block's,
+    then one 64-bit atomicMin and atomicMax a key into ``ext``, which the
+    wrapper initialises). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises (an NVRTC or load error
+    included)."""
+    if sel.device.type == "cpu":
+        return run_chain_sort_plain(prog, cols, sel)
+    if not prog.sorts:
+        raise ValueError("run_chain_sort: a program without sort keys")
+    _check_inputs("run_chain_sort", prog, cols, sel)
+    n, dev = sel.shape[0], sel.device
+    outs = [(torch.empty(n, dtype=dt_, device=dev),
+             torch.empty(n, dtype=torch.bool, device=dev) if nullable
+             else None) for dt_, nullable in prog.outputs]
+    words = [(torch.empty(n, dtype=torch.int64, device=dev),
+              torch.empty(n, dtype=torch.bool, device=dev) if nullable
+              else None) for _, nullable, _, _ in prog.sort_keys]
+    ext = _no_extremes(len(prog.sort_keys), dev)
+    sel_out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        from .chain_codegen import launch  # it imports this module
+        launch(prog, cols, sel, outs, sel_out, keys=words, ext=ext)
+        run_chain_sort.launches += 1
+    return ChainSorted(_outputs(prog, cols, outs), sel_out, words, ext)
+
+
+run_chain_sort.launches = 0

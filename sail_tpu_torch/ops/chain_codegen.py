@@ -1,8 +1,8 @@
-"""K16 and K17 as generated kernels: each chain program
+"""K16, K17 and K18 as generated kernels: each chain program
 (``ops/chain.py`` ``ChainProgram``) written out as the CUDA C++ source of
 one kernel, compiled with NVRTC when the chain is bound
-(``csrc.jit_kernel``), and launched by ``chain.run_chain`` and
-``chain.run_chain_reduce``.
+(``csrc.jit_kernel``), and launched by ``chain.run_chain``,
+``chain.run_chain_reduce`` and ``chain.run_chain_sort``.
 
 Every instruction becomes one statement over C++ locals (a 64-bit word and
 a validity, as the plain interpreter's registers hold them), so a row
@@ -19,6 +19,12 @@ literals; keyless, each thread keeps its partials in registers across the
 row loop and the block combines them once; with direct bins the warp
 combines a bin's lanes and one lane adds into the block's accumulators in
 shared memory, which the block adds into the global ones once.
+
+K18 is K16's kernel with each sort key's tail after the row's outputs:
+the key's K3 word (``csrc/order_keys.cuh``, the bits K3 computes) and its
+validity stored, and its least and greatest word over the live rows kept
+in registers across the thread's rows, then combined over the warp, the
+block, and by one 64-bit atomicMin and atomicMax a key and block.
 """
 
 from __future__ import annotations
@@ -33,7 +39,15 @@ from ..functions import numeric as NUM
 from . import chain as ch
 
 BLOCK = 128  # chain.cuh kBlock
-KERNEL_NAME = {False: "sail_chain_k16", True: "sail_chain_k17"}
+KERNEL_NAME = {"K16": "sail_chain_k16", "K17": "sail_chain_k17",
+               "K18": "sail_chain_k18"}
+
+
+def kernel_name(prog: ch.ChainProgram) -> str:
+    """The name of ``prog``'s kernel: K17 reduces, K18 writes sort words,
+    K16 does neither."""
+    return KERNEL_NAME["K17" if prog.reduces else
+                       "K18" if prog.sorts else "K16"]
 
 # each physical type's C type in a generated kernel (float64 travels as
 # its bits)
@@ -320,6 +334,31 @@ def _peer_combine(w: _Writer) -> List[str]:
 
 _ACC_ENUM = ("kCount", "kSumI", "kSumF", "kMinI", "kMaxI", "kMinF", "kMaxF")
 
+# each physical type's order bits (csrc/order_keys.cuh) of a register word
+_ORDER_BITS = {0: "order_bits_bool({a} != 0)",
+               5: "order_bits_f32(__double2float_rn(dbl({a})))",
+               6: "order_bits_f64(dbl({a}))"}
+
+
+def _okey(w: _Writer, ins) -> str:
+    """K18's tail of one sort key: its word and validity stored, and the
+    word folded into the thread's extremes where the row is live (and, for
+    a grouping's key, not NULL)."""
+    j, code, flags = ins[5], ins[6], ins[7]
+    _, nullable, _, _ = w.prog.sort_keys[j]
+    bits = _ORDER_BITS.get(code, "order_bits_int({a})")
+    ptr = w.pointer("okey", j, "long long", f"okey{j}")
+    store = f"{ptr}[at] = k_;"
+    if nullable:
+        vp = w.pointer("okey_valid", j, "unsigned char", f"vokey{j}")
+        store += f" {vp}[at] = {{va}};"
+    keep = "live && {va}" if flags & 2 else "live"
+    return (f"{{{{ const long long k_ = order_word({bits}, "
+            f"{_bool(flags & 1)}); if (in) {{{{ {store} }}}} "
+            f"if ({keep}) {{{{ if (k_ < e.lo[{j}]) e.lo[{j}] = k_; "
+            f"if (k_ > e.hi[{j}]) e.hi[{j}] = k_; }}}} }}}}")
+
+
 EMITTERS: Dict[str, Callable] = {
     "COL": _col,
     "CONST": _const,
@@ -408,6 +447,7 @@ EMITTERS: Dict[str, Callable] = {
     "BIN": _bin,
     "PEERS": _peers,
     "ACC": _acc,
+    "OKEY": _okey,
 }
 
 
@@ -441,27 +481,66 @@ def _body(w: _Writer) -> None:
             w.lines.append(text)
 
 
+def _sort_tail(w: _Writer, tag: str) -> Tuple[List[str], List[str],
+                                               List[str]]:
+    """K18's (declarations before the row function, the kernel's lines
+    before its row loop, those after it): each key's extremes in a
+    thread's registers (``Ext<tag>``), then combined over the warp and the
+    block and added into ``ext`` (int64[keys, 2]) by one atomicMin and one
+    atomicMax a key."""
+    k = len(w.prog.sort_keys)
+    ext = w.arg("ext", 0)
+    decl = [f"struct Ext{tag} {{", f"  long long lo[{k}], hi[{k}];", "};",
+            ""]
+    pre = [f"Ext{tag} e;",
+           f"for (int j = 0; j < {k}; ++j) {{ e.lo[j] = LLONG_MAX; "
+           "e.hi[j] = LLONG_MIN; }"]
+    post = [f"unsigned long long* __restrict__ ext = "
+            f"(unsigned long long*){ext};",
+            f"__shared__ long long red[{2 * k}][kBlock / 32];",
+            "const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;"]
+    for j in range(k):
+        post.append(f"{{ const long long lo = reduce_warp_word<kMinI>("
+                    f"e.lo[{j}]), hi = reduce_warp_word<kMaxI>(e.hi[{j}]); "
+                    f"if (lane == 0) {{ red[{2 * j}][wid] = lo; "
+                    f"red[{2 * j + 1}][wid] = hi; }} }}")
+    post.append("__syncthreads();")
+    for j in range(k):
+        post.append(f"if (threadIdx.x == {2 * j}) block_slot<kMinI>("
+                    f"red[{2 * j}], kBlock / 32, LLONG_MAX, ext + "
+                    f"{2 * j});")
+        post.append(f"if (threadIdx.x == {2 * j + 1}) block_slot<kMaxI>("
+                    f"red[{2 * j + 1}], kBlock / 32, LLONG_MIN, ext + "
+                    f"{2 * j + 1});")
+    return decl, pre, post
+
+
 def generate(prog: ch.ChainProgram, tag: str = "") -> Generated:
     """The CUDA source of ``prog``'s kernel. ``tag`` suffixes the names of
-    K16's row function and argument struct (``row<tag>``, ``Args<tag>``),
-    so several programs' row bodies can share a translation unit (the
-    tests build them on the host, where the kernel is left out)."""
+    K16's and K18's row function and structs (``row<tag>``, ``Args<tag>``,
+    ``Ext<tag>``), so several programs' row bodies can share a translation
+    unit (the tests build them on the host, where the kernel is left out;
+    K18's row function there takes its ``Ext<tag>`` of extremes)."""
     w = _Writer(prog)
     _body(w)
     rows, blocks = _shape(prog)
-    name = KERNEL_NAME[prog.reduces]
+    name = kernel_name(prog)
     head = ["// generated by sail_tpu_torch/ops/chain_codegen.py",
             '#include "chain.cuh"', ""]
     sel = ["const unsigned char* __restrict__ sel = "
            "(const unsigned char*)A.a[1];"]
     if not prog.reduces:
         args = f"Args{tag}"
+        decl, pre, post = _sort_tail(w, tag) if prog.sorts else \
+            ([], [], [])
+        ext_param, ext_arg = (f", Ext{tag}& e", ", e") if prog.sorts \
+            else ("", "")
         src = head + [
             "namespace {", "",
             f"struct {args} {{", f"  unsigned long long a[{len(w.layout)}];",
-            "};", "",
+            "};", "", *decl,
             f"__device__ __forceinline__ void row{tag}(const {args}& A, "
-            "long long at, bool in) {",
+            f"long long at, bool in{ext_param}) {{",
             *("  " + x for x in sel + ["unsigned char* __restrict__ sel_out "
                                        "= (unsigned char*)A.a[2];"] +
               w.decls + ["bool live = in && sel[at] != 0;"] + w.lines +
@@ -469,9 +548,10 @@ def generate(prog: ch.ChainProgram, tag: str = "") -> Generated:
             "}", "", "}  // namespace", "",
             "#ifndef SAIL_CHAIN_HOST",
             f'extern "C" __global__ void __launch_bounds__(kBlock, {blocks})',
-            f"{name}(const {args} A) {{",
+            f"{name}(const {args} A) {{", *("  " + x for x in pre),
             f"  for_rows<{rows}>((long long)A.a[0], [&](long long at, "
-            "bool in) {", f"    row{tag}(A, at, in);", "  });", "}",
+            "bool in) {", f"    row{tag}(A, at, in{ext_arg});", "  });",
+            *("  " + x for x in post), "}",
             "#endif", ""]
         return Generated("\n".join(src), name, tuple(w.layout), rows, 0)
     slots = prog.slots
@@ -553,12 +633,14 @@ def _pointer(t: torch.Tensor, keep: list) -> int:
 
 
 def arguments(gen: Generated, prog: ch.ChainProgram, cols, sel: torch.Tensor,
-              outs, sink: torch.Tensor):
+              outs, sink: torch.Tensor, keys=(), ext=None):
     """(the kernel's argument words as a ctypes array, the tensors they
     point into, to be kept until the launch is queued) for ``prog`` over
     the bottom columns ``cols`` and selection ``sel``: K16 writes
     ``outs`` ((data, validity) a STORE) and the selection ``sink``; K17
-    adds into the accumulators ``sink``."""
+    adds into the accumulators ``sink``; K18 writes as K16 does, and each
+    sort key's (word, validity) into ``keys`` and its extremes into
+    ``ext``."""
     keep: list = [sink]
     words = (ctypes.c_uint64 * len(gen.layout))()
     for i, (kind, j) in enumerate(gen.layout):
@@ -577,6 +659,10 @@ def arguments(gen: Generated, prog: ch.ChainProgram, cols, sel: torch.Tensor,
             v = _pointer(prog.tables[j], keep)
         elif kind == "table_len":
             v = prog.tables[j].shape[0]
+        elif kind in ("okey", "okey_valid"):
+            v = keys[j][0 if kind == "okey" else 1].data_ptr()
+        elif kind == "ext":
+            v = ext.data_ptr()
         elif kind == "arg":
             v = prog.consts[j][0]
         else:  # arg_valid
@@ -586,7 +672,7 @@ def arguments(gen: Generated, prog: ch.ChainProgram, cols, sel: torch.Tensor,
 
 
 def launch(prog: ch.ChainProgram, cols, sel: torch.Tensor, outs,
-           sink: torch.Tensor) -> None:
+           sink: torch.Tensor, keys=(), ext=None) -> None:
     """One launch of ``prog``'s kernel (``arguments`` says what it
     writes)."""
     dev = sel.device
@@ -594,11 +680,11 @@ def launch(prog: ch.ChainProgram, cols, sel: torch.Tensor, outs,
     if k.per_sm < 1:
         raise RuntimeError(f"{gen.name}: no block fits on an SM ({k.regs} "
                            f"registers, {gen.smem} B of shared memory)")
-    words, keep = arguments(gen, prog, cols, sel, outs, sink)
+    args, keep = arguments(gen, prog, cols, sel, outs, sink, keys, ext)
     n = sel.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # one wave: every block of the grid-stride loop resident at once (a
     # second, partial wave would leave most SMs idle while it runs)
     grid = max(1, min(-(-n // (gen.rows * BLOCK)), sms * k.per_sm))
-    csrc.jit_launch(k, words, grid, dev)
+    csrc.jit_launch(k, args, grid, dev)
     del keep

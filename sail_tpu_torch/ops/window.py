@@ -51,11 +51,12 @@ import torch
 
 from .. import csrc
 from ..columnar.batch import Column
-from .sort import lexsort_keys, order_keys
+from .sort import (MAX_KEYS, PACK_BITS, Key, PackLayout,  # noqa: F401
+                   _check_rows, _contiguous, _ptr, lexsort_keys, order_keys,
+                   pack_layout, window_pack, window_pack_plain)
 
-# kernels' limits (window.cuh: kMaxKeys, kTile; window_scan.cu:
-# kScanTile; window_extreme.cu: kNarrowMax)
-MAX_KEYS = 16
+# kernels' limits (window.cuh: kMaxKeys, in ops/sort.py, kTile;
+# window_scan.cu: kScanTile; window_extreme.cu: kNarrowMax)
 TILE = 1024
 SCAN_TILE = 2048
 NARROW_MAX = 1025
@@ -157,14 +158,6 @@ def _scatter(perm: torch.Tensor, sorted_vals: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    return None if t is None else t.contiguous()
-
-
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """t contiguous from a 16 B-aligned address (K10's scan loads 16 B at
     a time); a view that starts elsewhere is copied."""
@@ -172,14 +165,6 @@ def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         return None
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _check_rows(name: str, n: int, dev: torch.device, **tensors) -> None:
-    for label, t in tensors.items():
-        if t is not None and (t.dim() != 1 or t.shape[0] != n or
-                              t.device != dev):
-            raise TypeError(f"{name}: {label} must be 1-D with {n} rows on "
-                            f"{dev}, got {tuple(t.shape)} on {t.device}")
 
 
 def _check_n_live(name: str, n_live: torch.Tensor, dev) -> torch.Tensor:
@@ -195,124 +180,12 @@ def _check_n_live(name: str, n_live: torch.Tensor, dev) -> torch.Tensor:
 # the context's sort and K8: segment and peer-group bounds
 # ---------------------------------------------------------------------------
 
-# a packed sort word is a non-negative int64; K8's tile (window_bounds.cu:
-# kBTile)
-PACK_BITS = 63
+# K8's tile (window_bounds.cu: kBTile)
 BOUNDS_TILE = 2048
 
-
-class PackLayout(NamedTuple):
-    """Where ``window_pack`` puts each key's fields in the sort word: per
-    key, its least K3 bits over all rows (``lo``), the shift of its bits
-    minus ``lo`` and that of its null rank (-1: no validity); the dead
-    bit's shift; the mask of the dead bit and the partition fields."""
-    lo: Tuple[int, ...]
-    shift: Tuple[int, ...]
-    vshift: Tuple[int, ...]
-    dead_shift: int
-    part_mask: int
-
-
-# a window key as K3 made it: (int64 key, validity or None, nulls_first)
-Key = Tuple[torch.Tensor, Optional[torch.Tensor], bool]
 # a word K8 reads in sorted order: (int64 word, its partition mask as a
 # signed int64, its validity or None)
 Word = Tuple[torch.Tensor, int, Optional[torch.Tensor]]
-
-
-def pack_layout(keys: Sequence[Key], n_part: int) -> Optional[PackLayout]:
-    """The packed word's layout, or None where the keys do not fit in it.
-
-    ``keys``: most significant first, the ``n_part`` partition keys first.
-    Every key's extremes over all rows (the sort orders the dead rows by
-    their keys too) come to the host in one copy, the context's one host
-    sync. A key takes bit_length(max - min) bits (in Python integers: the
-    difference of two int64 may pass INT64_MAX), and one more for its
-    null rank where it has a validity; they fit where they and the dead
-    bit come to PACK_BITS or fewer."""
-    n = keys[0][0].shape[0] if keys else 0
-    ext = torch.stack([torch.stack(torch.aminmax(k)) for k, _, _ in keys]
-                      ).tolist() if keys and n else [(0, 0)] * len(keys)
-    lo, shift, vshift = [0] * len(keys), [0] * len(keys), [-1] * len(keys)
-    at = order_bits = 0
-    for j in reversed(range(len(keys))):  # the least significant first
-        if j == n_part - 1:
-            order_bits = at
-        lo[j], hi = ext[j]
-        shift[j] = at
-        at += (hi - lo[j]).bit_length()
-        if keys[j][1] is not None:
-            vshift[j] = at
-            at += 1
-    if n_part == 0:
-        order_bits = at
-    if at + 1 > PACK_BITS:
-        return None
-    return PackLayout(tuple(lo), tuple(shift), tuple(vshift), at,
-                      ((1 << (at + 1)) - 1) ^ ((1 << order_bits) - 1))
-
-
-def window_pack_plain(keys: Sequence[Key], sel: torch.Tensor,
-                      layout: PackLayout) -> torch.Tensor:
-    """The sort word of each row: the dead bit (``sel`` false) at
-    ``layout.dead_shift``; per key its K3 bits minus ``lo`` at its shift
-    and its null rank (the validity where nulls sort first, its negation
-    where they sort last) above them. A null row's bits are packed as
-    they are: the sort orders null rows by them, as the passes do."""
-    word = (~sel).to(torch.int64) << layout.dead_shift
-    for (key, valid, nulls_first), lo, shift, vshift in zip(
-            keys, layout.lo, layout.shift, layout.vshift):
-        word |= (key - lo) << shift
-        if valid is not None:
-            word |= (valid if nulls_first else ~valid).to(torch.int64) \
-                << vshift
-    return word
-
-
-def window_pack(keys: Sequence[Key], sel: torch.Tensor,
-                layout: PackLayout) -> torch.Tensor:
-    """K8's pack pass: ``window_pack_plain`` as one kernel pass over the
-    keys in row order.
-
-    Replaces the stable passes of ``sail_tpu/ops/sort.py`` ``lexsort_perm``
-    (:65-74, a sort and a gather a key, a validity and the dead rows) as
-    ``build_window_context`` (:47) calls them: one stable ``torch.sort``
-    of the word orders the rows as they do; csrc/window_bounds.cu states
-    its bound. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
-    if sel.device.type == "cpu":
-        return window_pack_plain(keys, sel, layout)
-    n, dev = sel.shape[0], sel.device
-    if len(keys) > MAX_KEYS or sel.dtype != torch.bool:
-        raise TypeError(f"window_pack: at most {MAX_KEYS} keys and a bool "
-                        f"sel, got {len(keys)} and {sel.dtype}")
-    keys = [(_contiguous(k), _contiguous(v), nf) for k, v, nf in keys]
-    for k, v, _ in keys:
-        if k.dtype != torch.int64 or (v is not None and v.dtype != torch.bool):
-            raise TypeError("window_pack: keys must be int64 (K3 order keys) "
-                            "with bool validities")
-        _check_rows("window_pack", n, dev, key=k, validity=v)
-    sel = sel.contiguous()
-    out = torch.empty(n, dtype=torch.int64, device=dev)
-    if n == 0:
-        return out
-    arrays = [(ctypes.c_void_p * MAX_KEYS)(*[k.data_ptr()
-                                             for k, _, _ in keys]),
-              (ctypes.c_void_p * MAX_KEYS)(*[_ptr(v) for _, v, _ in keys]),
-              (ctypes.c_longlong * MAX_KEYS)(*layout.lo),
-              (ctypes.c_int * MAX_KEYS)(*layout.shift),
-              (ctypes.c_int * MAX_KEYS)(*layout.vshift),
-              (ctypes.c_int * MAX_KEYS)(*[int(nf) for _, _, nf in keys])]
-    with torch.cuda.device(dev):
-        csrc.check(csrc.entry("window_bounds.cu", "sail_window_pack")(
-            *[ctypes.addressof(a) for a in arrays], len(keys),
-            layout.dead_shift, sel.data_ptr(), n, out.data_ptr(),
-            csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "window_pack")
-    window_pack.launches += 1
-    return out
-
-
-window_pack.launches = 0
 
 
 class SortedKeys(NamedTuple):

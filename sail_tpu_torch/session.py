@@ -98,6 +98,10 @@ class SparkSession:
         # operator it feeds and, for a per-op chain, the first expression
         # without a program fragment (LocalExecutor.chain_routes)
         self.last_chain_routes: list = []
+        # each sort and sorted grouping of the last query: its consumer, the
+        # route of its words (K18 or K3) and its form (packed or passes)
+        # (LocalExecutor.sort_routes)
+        self.last_sort_routes: list = []
 
     def sql(self, query: str) -> "DataFrame":
         from .sql import parse_one
@@ -138,6 +142,7 @@ class SparkSession:
                 self.last_runtime_filters = executor.runtime_filters
                 self.last_join_rows = executor.join_rows
                 self.last_chain_routes = executor.chain_routes
+                self.last_sort_routes = executor.sort_routes
         finally:
             reset_session_timezone(token)
 

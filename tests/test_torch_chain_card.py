@@ -1,4 +1,4 @@
-"""K16 and K17 (the kernels ``sail_tpu_torch/ops/chain_codegen.py``
+"""K16, K17 and K18 (the kernels ``sail_tpu_torch/ops/chain_codegen.py``
 generates for each chain program and NVRTC compiles) on the card against
 their plain versions. Every chain of the chain tests' queries runs in a
 session on the card; each K16 launch is held to ``run_chain_plain`` and
@@ -11,7 +11,12 @@ K12 and K14 are held), and K17's float sums within a relative 1e-12 (their
 order varies). The answers must equal the CPU session's. Programs that
 differ only in a scalar subquery's value share one compiled kernel, a
 steady run compiles nothing, and a kernel's module is unloaded when no
-program holds it. Needs a card:
+program holds it. Each K18 launch (a sort's or a sorted grouping's chain
+with its keys' words) is held to ``run_chain_sort_plain``: its words,
+validities and extremes exactly (within 8 of a float64 key's word where
+the chain calls a transcendental function), and the pack kernel with a
+sort's and a grouping's flags (dead rows alone, NULLs canonical) to its
+plain version exactly. Needs a card:
 ``python -m pytest tests/test_torch_chain_card.py -m gpu``.
 """
 
@@ -26,8 +31,10 @@ from sail_tpu_torch import csrc
 from sail_tpu_torch.exec import local as xl
 from sail_tpu_torch.ops import chain as ch
 from sail_tpu_torch.ops import chain_codegen
-from torch_chain_common import (CHAIN_QUERIES, REDUCE_QUERIES, Capture,
-                                chain_table, same_cv, session, ulps_close)
+from sail_tpu_torch.ops import sort as srt
+from torch_chain_common import (CHAIN_QUERIES, REDUCE_QUERIES, SORT_QUERIES,
+                                Capture, chain_table, same_cv, session,
+                                ulps_close)
 
 ULPS_KINDS = ("math", "calendar")
 # a cast of NaN or an infinity to an integer is platform-defined in torch
@@ -108,6 +115,57 @@ def test_k17_matches_plain_on_card(cuda, kind):
             same_cv((k.data, k.validity), (q.data, q.validity), rows=live,
                     exact=False, rtol=SUM_RTOL)
     _answers_equal(got, cpu.sql(REDUCE_QUERIES[kind]).toArrow())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(SORT_QUERIES))
+def test_k18_matches_plain_on_card(cuda, kind):
+    table = chain_table(200_003)
+    card, cpu = session("cuda", table), session("cpu", table)
+    before = ch.run_chain_sort.launches
+    with Capture() as cap:
+        got = card.sql(SORT_QUERIES[kind]).toArrow()
+    assert ch.run_chain_sort.launches > before and cap.k18
+    libm = kind == "sort_exprs"
+    for stage, child, _ in cap.k18:
+        cols, sel = xl.LocalExecutor._cols(child), child.device.sel
+        kern = ch.run_chain_sort(stage.prog, cols, sel)
+        plain = ch.run_chain_sort_plain(stage.prog, cols, sel)
+        assert torch.equal(kern.sel, plain.sel)
+        for k, p in zip(kern.cols, plain.cols):
+            assert (k is None) == (p is None)
+            if k is not None:
+                (ulps_close if libm else same_cv)(k, p)
+        for (kw, kv), (pw, pv) in zip(kern.words, plain.words):
+            assert (kv is None) == (pv is None)
+            assert kv is None or torch.equal(kv, pv)
+            assert int((kw - pw).abs().max()) <= (8 if libm else 0)
+        assert int((kern.ext - plain.ext).abs().max()) <= (8 if libm else 0)
+    _answers_equal(got, cpu.sql(SORT_QUERIES[kind]).toArrow())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("canonical", [False, True])
+def test_pack_with_live_extremes_matches_plain_on_card(cuda, canonical):
+    rng = np.random.default_rng(11)
+    n = 1_000_003
+    sel = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+    keys = []
+    for j, width in enumerate((1000, 70000, 3)):
+        w = torch.from_numpy(rng.integers(-width, width, n)).to(cuda)
+        v = None if j == 1 else torch.from_numpy(rng.random(n) < 0.8).to(cuda)
+        keys.append((w, v, j != 2))
+    ext = srt.key_extremes(keys, sel, canonical)
+    layout = srt.pack_layout(keys, 0, ext.tolist(), canonical)
+    assert layout is not None and layout.dead_only
+    assert torch.equal(srt.window_pack(keys, sel, layout),
+                       srt.window_pack_plain(keys, sel, layout))
+    got = srt.sort_words(keys, sel, ext, canonical)
+    zeroed = [(k if v is None or not canonical else torch.where(v, k, 0),
+               v, nf) for k, v, nf in keys]
+    n_live = int(sel.sum())
+    assert torch.equal(got.perm[:n_live],
+                       srt.lexsort_keys(zeroed, sel)[:n_live])
 
 
 @pytest.mark.gpu

@@ -15,7 +15,11 @@ unit, and run through ctypes on the chains' inputs. Each is held to
 exactly, except where a chain calls a libm function, whose results the
 host's libm and torch's may round apart (within 8 ulp, as on the card).
 A program of each K17 query's chain written as K16 (its filters, then its
-aggregates' values) is held the same way.
+aggregates' values) is held the same way. Each K18 program of
+``SORT_QUERIES`` (a sort's or a sorted grouping's chain with its keys'
+tail) is built the same way, its row body run over every row with its
+extremes, and held to ``run_chain_sort_plain``: outputs, selection, each
+key's word and validity, and the extremes, exactly.
 """
 
 import ctypes
@@ -32,8 +36,9 @@ from sail_tpu_torch.columnar import arrow_interop as ai
 from sail_tpu_torch.exec import local as xl
 from sail_tpu_torch.ops import chain as ch
 from sail_tpu_torch.ops import chain_codegen as cg
-from torch_chain_common import (CHAIN_QUERIES, REDUCE_QUERIES, Capture,
-                                chain_table, same_cv, session, ulps_close)
+from torch_chain_common import (CHAIN_QUERIES, REDUCE_QUERIES, SORT_QUERIES,
+                                Capture, chain_table, same_cv, session,
+                                ulps_close)
 
 TABLE = chain_table()
 CSRC = pathlib.Path(cg.__file__).parents[1] / "csrc"
@@ -65,6 +70,11 @@ inline long long __double_as_longlong(double x) {
   long long w;
   std::memcpy(&w, &x, 8);
   return w;
+}
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
 }
 inline float __double2float_rn(double x) { return (float)x; }
 inline long long __double2ll_rz(double x) {
@@ -119,6 +129,11 @@ def programs():
             spark.sql(sql).toArrow()
         out[kind] = [(_k16_as_k17_chain(*x), x[0]._cols(x[3]),
                       x[3].device.sel) for x in cap.k17]
+    for kind, sql in SORT_QUERIES.items():
+        with Capture() as cap:
+            spark.sql(sql).toArrow()
+        out[kind] = [(st.prog, xl.LocalExecutor._cols(c), c.device.sel)
+                     for st, c, _ in cap.k18]
     hb = xl._positional(ai.from_arrow(TABLE, "cpu"))
     out["synthetic"] = [(_synthetic(), xl.LocalExecutor._cols(hb),
                          hb.device.sel)]
@@ -141,7 +156,7 @@ def test_programs_of_every_opcode_and_kind_generate(programs):
     used, kinds = set(), set()
     for prog in k17 + [p for rows in programs.values() for p, _, _ in rows]:
         gen = cg.generate(prog)
-        assert gen.name == cg.KERNEL_NAME[prog.reduces]
+        assert gen.name == cg.kernel_name(prog)
         assert f"{gen.name}(const Args A)" in gen.source
         used |= {ch.OPCODES[ins[0]] for ins in prog.instrs}
         kinds |= {k for k, _ in prog.slots or ()}
@@ -188,11 +203,23 @@ def host_rows(programs, tmp_path_factory):
             gen = cg.generate(prog, tag=tag)
             n_args = len(gen.layout)
             parts.append(gen.source)
-            parts.append(
-                f'extern "C" void run{tag}(const unsigned long long* a, '
-                f"long long n) {{ Args{tag} A; std::memcpy(A.a, a, "
-                f"sizeof(A.a)); for (long long i = 0; i < n; ++i) "
-                f"row{tag}(A, i, true); }}\n")
+            if prog.sorts:  # K18: the extremes out, lo and hi a key
+                k = len(prog.sort_keys)
+                parts.append(
+                    f'extern "C" void run{tag}(const unsigned long long* a, '
+                    f"long long n, long long* ext) {{ Args{tag} A; "
+                    f"std::memcpy(A.a, a, sizeof(A.a)); Ext{tag} e; "
+                    f"for (int j = 0; j < {k}; ++j) {{ e.lo[j] = LLONG_MAX; "
+                    f"e.hi[j] = LLONG_MIN; }} for (long long i = 0; i < n; "
+                    f"++i) row{tag}(A, i, true, e); for (int j = 0; j < {k}; "
+                    f"++j) {{ ext[2 * j] = e.lo[j]; ext[2 * j + 1] = "
+                    f"e.hi[j]; }} }}\n")
+            else:
+                parts.append(
+                    f'extern "C" void run{tag}(const unsigned long long* a, '
+                    f"long long n) {{ Args{tag} A; std::memcpy(A.a, a, "
+                    f"sizeof(A.a)); for (long long i = 0; i < n; ++i) "
+                    f"row{tag}(A, i, true); }}\n")
             names[(case, j)] = (f"run{tag}", gen, n_args)
     d = tmp_path_factory.mktemp("chain_rows")
     src, lib = d / "rows.cpp", d / "rows.so"
@@ -204,7 +231,8 @@ def host_rows(programs, tmp_path_factory):
     out = {}
     for (case, j), (name, gen, _) in names.items():
         fn = getattr(so, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + (
+            [ctypes.c_void_p] if programs[case][j][0].sorts else [])
         fn.restype = None
         out.setdefault(case, []).append((fn, gen))
     return out
@@ -231,3 +259,50 @@ def test_host_row_bodies_equal_plain(programs, host_rows, case):
                 ulps_close(g, w)
             else:
                 same_cv(g, w)
+
+
+@pytest.mark.parametrize("case", sorted(SORT_QUERIES))
+def test_host_k18_row_bodies_equal_plain(programs, host_rows, case):
+    """Each K18 program's row body, built on the host and run over every
+    row: the chain's outputs and selection, each sort key's word and
+    validity, and the extremes the rows leave in its registers, equal
+    ``run_chain_sort_plain``'s exactly (its keys call no libm function
+    whose rounding differs: sqrt and atan2 of SORT_QUERIES' are held to
+    it within 8 ulp, as a word of a float64 then is)."""
+    assert programs[case], case
+    for (prog, cols, sel), (fn, gen) in zip(programs[case], host_rows[case]):
+        n = sel.shape[0]
+        outs = [(torch.empty(n, dtype=d),
+                 torch.empty(n, dtype=torch.bool) if nullable else None)
+                for d, nullable in prog.outputs]
+        words = [(torch.empty(n, dtype=torch.int64),
+                  torch.empty(n, dtype=torch.bool) if nullable else None)
+                 for _, nullable, _, _ in prog.sort_keys]
+        ext = torch.empty((len(prog.sort_keys), 2), dtype=torch.int64)
+        sel_out = torch.empty(n, dtype=torch.bool)
+        args, keep = cg.arguments(gen, prog, cols, sel, outs, sel_out, words,
+                                  ext)
+        fn(ctypes.byref(args), n, ext.data_ptr())
+        del keep
+        want = ch.run_chain_sort_plain(prog, cols, sel)
+        assert torch.equal(sel_out, want.sel)
+        for g, w in zip(ch._outputs(prog, cols, outs), want.cols):
+            if w is None:
+                assert g is None
+            elif case == "sort_exprs":
+                ulps_close(g, w)
+            else:
+                same_cv(g, w)
+        libm = case == "sort_exprs"
+        for (gw, gv), (ww, wv), (dtype, _, desc, _) in zip(
+                words, want.words, prog.sort_keys):
+            assert (gv is None) == (wv is None)
+            if gv is not None:
+                assert torch.equal(gv, wv)
+            if libm and dtype == torch.float64:
+                # the words of two libm results 8 ulp apart differ by 8
+                assert bool(((gw - ww).abs() <= 8).all())
+            else:
+                assert torch.equal(gw, ww)
+        if not libm:
+            assert torch.equal(ext, want.ext)

@@ -300,15 +300,20 @@ def test_expr_query_matches_reference_where_it_is_right(sessions, tables, q):
 
 def test_expr_query_kernels_name_functions_of_the_wrappers():
     from sail_tpu_torch.functions import numeric
-    from sail_tpu_torch.ops import chain
+    from sail_tpu_torch.ops import aggregate, chain, sort
     wrappers = {"chain": chain.run_chain,
-                "chain_reduce": chain.run_chain_reduce}
+                "chain_reduce": chain.run_chain_reduce,
+                "chain_sort": chain.run_chain_sort,
+                "seg_reduce_runs": aggregate.seg_reduce_runs,
+                "window_pack": sort.window_pack}
     for q, names in expr_queries.KERNELS.items():
         assert q in expr_queries.QUERIES
         for name in names:
             fn = wrappers[name] if name in wrappers else \
                 getattr(numeric, name)
             assert hasattr(fn, "launches")
-    # K12-K15 each stay on the path outside the chains
-    assert {n for names in expr_queries.KERNELS.values() for n in names} >= \
-        {"math_unary", "round_number", "math_binary", "calendar"}
+    # K12-K15 run inside the chains' programs, E7's sort keys in K18's
+    named = {n for names in expr_queries.KERNELS.values() for n in names}
+    assert not named & {"math_unary", "round_number", "math_binary",
+                        "calendar"}
+    assert "chain_sort" in expr_queries.KERNELS["e7"]

@@ -129,16 +129,19 @@ def session(device: str, table: pa.Table) -> SparkSession:
 
 
 class Capture:
-    """Records each K16 stage ``_apply_stage`` runs and each K17 stage
-    ``_reduce_chain`` runs, with the batch below it, while active."""
+    """Records each K16 stage ``_apply_stage`` runs, each K17 stage
+    ``_reduce_chain`` runs and each K18 stage ``_apply_sort_stage`` runs,
+    with the batch below it, while active."""
 
     def __init__(self):
         self.k16 = []  # (stage, child)
         self.k17 = []  # (executor, aggregate, stage, child)
+        self.k18 = []  # (stage, child, consumer)
 
     def __enter__(self):
         self._apply = xl.LocalExecutor._apply_stage
         self._reduce = xl.LocalExecutor._reduce_chain
+        self._sort = xl.LocalExecutor._apply_sort_stage
         cap = self
 
         def apply(ex, stage, child, consumer):
@@ -150,13 +153,19 @@ class Capture:
             cap.k17.append((ex, p, stage, child))
             return cap._reduce(ex, p, stage, child)
 
+        def sort(ex, stage, child, consumer):
+            cap.k18.append((stage, child, consumer))
+            return cap._sort(ex, stage, child, consumer)
+
         xl.LocalExecutor._apply_stage = apply
         xl.LocalExecutor._reduce_chain = reduce
+        xl.LocalExecutor._apply_sort_stage = sort
         return self
 
     def __exit__(self, *exc):
         xl.LocalExecutor._apply_stage = self._apply
         xl.LocalExecutor._reduce_chain = self._reduce
+        xl.LocalExecutor._apply_sort_stage = self._sort
 
 
 class PerOp:
@@ -258,4 +267,23 @@ REDUCE_QUERIES = {
                         "FROM t WHERE i32 > 100000",
     "nan_extremes": "SELECT s, min(f64), max(f64), min(f64 * 0.0), "
                     "max(-f64) FROM t GROUP BY s",
+}
+
+
+# sorts and sorted groupings whose chain and keys K18 takes in, over ``t``
+# (chain_table): keys of every physical type, both directions and NULL
+# orders, computed keys, dictionary codes (a sort's through its rank
+# table), a grouping's keys canonical
+SORT_QUERIES = {
+    "sort_columns": "SELECT i8, i16, i32, i64, f32, f64, dec, d, b, s, ts "
+                    "FROM t WHERE i32 > -900 ORDER BY s DESC, f64, dec "
+                    "NULLS LAST, i8, b DESC, f32 DESC NULLS FIRST, d, ts, "
+                    "i16, i64",
+    "sort_exprs": "SELECT i32, f64, d FROM t WHERE b OR i8 > 0 ORDER BY "
+                  "round(sqrt(f64), 1) DESC, atan2(f64, i32), "
+                  "add_months(d, 1), i32 * 2 + 1 NULLS LAST",
+    "group_exprs": "SELECT i32 % 7, d, count(*), sum(i64), max(f64) FROM t "
+                   "WHERE f64 > -100 GROUP BY i32 % 7, d",
+    "group_codes": "SELECT s2, i8, b, min(dec), count(f32) FROM t WHERE "
+                   "i32 > 0 GROUP BY s2, i8, b",
 }
