@@ -90,16 +90,21 @@ SF10 tables and phase 4's tables):
    a column into sorted order (window_gather), K10's two entry points
    (window_scan, window_frame), K11 (window_extreme), the context's
    inverse permutation (window_inverse) and the unpermute back to row
-   order (window_unpermute, a gather through the inverse) at the contexts the
-   window queries build at ``--sf``: lineitem's rows by (l_suppkey; l_shipdate, l_orderkey, l_linenumber),
-   orders' by (o_custkey; o_orderdate), and orders in one segment; K11
-   at frames of 5 and 10,001 rows (past the shared-memory halo). The
-   inverse and the gather (one engine, a two-pass partitioned scatter)
-   also run at W8's order (orders by o_orderkey, near the stored one) and
-   at lineitem with 1% of its rows live, and both at half the
-   shared-memory tile; lag and lead at lineitem
-   are held to the torch route they replaced (gathers and scatters
-   through perm) and timed beside it (``window_functions``). Each
+   order (window_unpermute, a scatter through perm: of records, and at
+   lineitem of a value column and its validity) at the contexts the
+   window queries build at ``--sf``: lineitem's rows by (l_suppkey;
+   l_shipdate, l_orderkey, l_linenumber), orders' by (o_custkey;
+   o_orderdate), and orders in one segment; K11 at frames of 5 and
+   10,001 rows (past the shared-memory halo). The inverse, the gather and
+   the unpermute (one engine, a two-pass partitioned scatter) also run at
+   W8's order (orders by o_orderkey, near the stored one) and at lineitem
+   with 1% of its rows live, and at half the shared-memory tile. lag and
+   lead at lineitem (the unpermute reading
+   the sorted values shifted) are held to their plain version, the torch
+   route before sorted order (gathers and scatters through perm) and the
+   sorted-order route they replaced (torch ops over the sorted values,
+   the records stacked, then the unpermute), and timed beside them
+   (``window_functions``). Each
    against its plain version, then timed beside it and, where one
    exists, a PyTorch call computing as much on sorted values
    (``unique_consecutive`` of the sorted word for K8, and of its first
@@ -107,7 +112,8 @@ SF10 tables and phase 4's tables):
    ``index_put_`` of the live positions for the inverse, ``cumsum`` for
    K10's scan, ``unfold(...).amin`` for K11 at 5 rows,
    ``index_select`` of one 16 B element a row through ``inv_perm`` for
-   the unpermute), and that call with its gather
+   the unpermute, ``index_copy_`` of the live ones where rows are dead),
+   and that call with its gather
    and its return to row order (``library_perm_ms``) beside the kernel
    with its own gather (``with_gather_ms``).
 9. Window correctness: the queries of ``benchmarks/window_queries.py``
@@ -134,16 +140,22 @@ Then, after phase 10, on the same tables:
    x <= 0 for the logarithms, INT64_MIN for abs and shift counts of 64
    and more planted. Each op against its plain version (integers,
    decimals, dates and bools exactly; float64 within ``EXPR_ULPS`` ulp),
-   then timed beside it, its bound and, where one PyTorch call computes
+   then timed beside it, its bound (the bytes the op moves: a validity
+   where it reads one) and, where one PyTorch call computes
    the same function on the same input, that call (``torch.sqrt``,
    ``torch.exp``, ``torch.log``, ``log10``, ``log2``, ``log1p``,
    ``expm1``, the trigonometric and hyperbolic calls, ``torch.round``
-   for rint, ``sign``, ``isnan``, ``floor``, ``ceil``, ``neg``,
-   ``torch.abs``, ``bitwise_not``, ``torch.round(x, decimals=3)``,
+   for rint, ``sign``, ``isnan``, ``floor``, ``ceil``, ``rad2deg``,
+   ``deg2rad``, ``neg``, ``torch.abs``, ``bitwise_not``,
+   ``torch.round(x, decimals=3)``,
    ``torch.pow``, ``torch.atan2``, ``torch.hypot``, ``torch.bitwise_and``,
    ``bitwise_or``, ``bitwise_xor`` and the shifts, a left shift's counts
-   masked to 0-63 beforehand, as Spark masks them). Each kernel's first
-   (headline) op must reach ``EXPR_BOUND_SHARE`` of its bound.
+   masked to 0-63 beforehand, as Spark masks them). K12 is one kernel
+   entry an operation (``math_unary:<op>``, its instantiations a type),
+   each instantiation's registers and spill stores printed from the
+   compiler's report (none may spill). Each kernel's first (headline)
+   shape (K12's: sqrt of float64) must reach ``EXPR_BOUND_SHARE`` of its
+   bound.
 12. Expression correctness: the queries of
    ``benchmarks/expr_queries.py`` (E1-E6) over the tables at
    ``--check-sf`` on the card against the port's CPU session, as phase 9
@@ -265,7 +277,8 @@ for _q in range(2, 23):
 # the kernels phase 11 holds to their plain versions that no query of the
 # path launches: their element functions run inside the chains' programs
 # (K16-K18), E7's sort keys in its K18 program
-OFF_PATH = ("math_unary", "round_number", "math_binary", "calendar")
+# (K12 by operation: each its own instantiations, ``unary_names``)
+OFF_PATH = ("round_number", "math_binary", "calendar")
 # device functions of the kernels whose time and launches each profiled
 # query reports: K1 over all its launches, then split by entry point (a
 # runs call launches its grid, then one block over the grid's records)
@@ -286,8 +299,8 @@ PROFILED_KERNELS = {
     "K10 window_scan": re.compile(r"\bscan_kernel<|\bframe_kernel<"),
     "K11 window_extreme": re.compile(r"extreme_(narrow|chunks|wide)_kernel<"),
     "window gather, inverse, unpermute": re.compile(
-        r"\bbin_kernel<|\bplace_kernel<|\bunpermute_kernel<"),
-    "K12 math_unary": re.compile(r"\bunary_kernel\("),
+        r"\bbin_kernel<|\bplace_kernel<"),
+    "K12 math_unary": re.compile(r"\bunary_kernel[<(]"),
     "K13 round_number": re.compile(r"\bround_kernel\("),
     "K14 math_binary": re.compile(r"\bbinary_kernel\("),
     "K15 calendar": re.compile(r"\bcalendar_kernel[<(]"),
@@ -1263,6 +1276,11 @@ def check_queries(spark, tables: dict, sf: float) -> dict:
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
+def _unary_name(op: str) -> str:
+    """K12's kernel entry of one operation (its instantiations)."""
+    return f"math_unary:{op}"
+
+
 def _counters():
     from sail_tpu_torch.functions import numeric as num
     from sail_tpu_torch.ops import aggregate as agg
@@ -1287,7 +1305,8 @@ def _counters():
             "window_gather": win.window_gather,
             "window_inverse": win.window_inverse,
             "window_unpermute": win.window_unpermute,
-            "math_unary": num.math_unary, "round_number": num.round_number,
+            **{_unary_name(op): c for op, c in num.math_unary.by_op.items()},
+            "round_number": num.round_number,
             "math_binary": num.math_binary, "calendar": num.calendar,
             "chain": chn.run_chain, "chain_reduce": chn.run_chain_reduce,
             "chain_sort": chn.run_chain_sort}
@@ -1580,36 +1599,86 @@ def _torch_route_shift(ctx, value, offset: int, default):
     return data, validity
 
 
+def _sorted_torch_shift(ctx, value, offset: int, default):
+    """lag/lead as the port computed them before the unpermute read them
+    shifted: torch ops over the sorted values (shifted slices, ``where``,
+    ``cat``), the records stacked (``pack_records``), then one unpermute of
+    the records."""
+    from sail_tpu_torch.ops import window as win
+    vals, valid = ctx.sorted_values(value.data, value.validity)
+    data, ok = win._shift_plain(ctx, vals, valid, win.Shift(offset, default))
+    return win.window_unpermute(ctx, win.pack_records(data, ok))
+
+
 def _time_shift(ctx, col, offset: int, default, label: str) -> dict:
-    """lag/lead over ``col`` (int64) at one context: the sorted-order path
-    (the context's sorted values cached, as for a second output over the
-    column; and with its gather, ``with_gather_ms``) equal to the torch
-    route it replaced and timed beside it (``torch_route_ms``). Bound:
-    the values, inv and seg_start read, the values and validity
-    written."""
+    """lag/lead over ``col`` (int64) at one context: the unpermute reading
+    the sorted values shifted (the context's sorted values cached, as for
+    a second output over the column; and with its gather,
+    ``with_gather_ms``) equal to its plain version, to the torch route
+    before it read sorted values and to the sorted-order route it replaced,
+    and timed beside them (``plain_ms``; ``torch_route_ms``;
+    ``sorted_route_ms``). Bound: the values, inv and seg_start read, the
+    values and validity written."""
     from sail_tpu_torch.ops import window as win
     n = ctx.perm.shape[0]
+    shift = win.Shift(offset, default)
     new = win.shift(ctx, col, offset, default)
-    old = _torch_route_shift(ctx, col, offset, default)
-    if not all(torch.equal(a, b) for a, b in zip(new, old)):
-        raise AssertionError(f"{label}: lag/lead differs from the torch "
-                             f"route")
-    del new, old
+    vals, valid = ctx.sorted_values(col.data, col.validity)
+    for other in (win.window_unpermute_plain(ctx, vals, valid, shift),
+                  _torch_route_shift(ctx, col, offset, default),
+                  _sorted_torch_shift(ctx, col, offset, default)):
+        if not all(torch.equal(a, b) for a, b in zip(new, other)):
+            raise AssertionError(f"{label}: lag/lead differs from its "
+                                 f"plain version or an earlier route")
+    del new, other
 
     def fresh():
         ctx._sorted.clear()
         return win.shift(ctx, col, offset, default)
-    row = dict(shape=label, n=n, ms=cuda_ms(
+    row = dict(shape=label, n=n, max_abs_err=0.0, ms=cuda_ms(
         lambda: win.shift(ctx, col, offset, default)),
         with_gather_ms=cuda_ms(fresh),
+        plain_ms=cuda_ms(lambda: win.window_unpermute_plain(
+            ctx, vals, valid, shift), 3),
         torch_route_ms=cuda_ms(lambda: _torch_route_shift(
             ctx, col, offset, default), 3),
+        sorted_route_ms=cuda_ms(lambda: _sorted_torch_shift(
+            ctx, col, offset, default)),
         bound_ms=_bound_ms(n * (8 + 4 + 4 + 8 + 1)))
     print(f"  {label}: n={n}, {row['ms']:.3f} ms, with its gather "
-          f"{row['with_gather_ms']:.3f} ms, torch route "
-          f"{row['torch_route_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms",
+          f"{row['with_gather_ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+          f"torch route {row['torch_route_ms']:.3f} ms, sorted route "
+          f"{row['sorted_route_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms",
           flush=True)
     return row
+
+
+def _time_unpermute(rows: dict, label: str, ctx, fsorted) -> None:
+    """The unpermute of float64 records {value, ok} (K10's and K11's
+    output; ok: the live positions) at one context (phase 8), equal to its
+    plain version exactly, timed beside it, its bound and one PyTorch
+    call (``library_ms``): ``index_select`` of one 16 B element a row
+    through ``inv_perm`` where every row lives, else ``index_copy_`` of
+    the live records into a zeroed array; and at half the shared-memory
+    tile. Bound: n * (4 B of inv + 8 B + 1 B) + n_live * 16 B of
+    records."""
+    from sail_tpu_torch.ops import window as win
+    n, live = fsorted.shape[0], int(ctx.n_live)
+    recs = win.pack_records(fsorted, ctx.alive)
+    whole = recs.view(torch.complex128).squeeze(-1)
+    inv, perm = ctx.inv_perm, ctx.perm
+    if live == n:
+        library = lambda: whole.index_select(0, inv)  # noqa: E731
+    else:
+        library = lambda: torch.zeros_like(whole).index_copy_(  # noqa: E731
+            0, perm[:live], whole[:live])
+    rows["window_unpermute"].append(_timed(
+        f"unpermute, float64 records, {label}", n,
+        lambda: win.window_unpermute(ctx, recs),
+        lambda: win.window_unpermute_plain(ctx, recs),
+        n * (4 + 8 + 1) + live * 16, library,
+        extra={"half_tile_ms": lambda: win.window_unpermute(
+            ctx, recs, tile_bytes=win.MOVE_TILE_BYTES // 2)}))
 
 
 def check_window_kernels(tables: dict, dev) -> list:
@@ -1619,9 +1688,10 @@ def check_window_kernels(tables: dict, dev) -> list:
     beside it, a PyTorch call that computes as much on sorted values (the
     port never calls it), and that call with its gather and its return to
     row order (``library_perm_ms``; the kernel's own composite is
-    ``with_gather_ms``); the inverse and the gather also where the order
-    is near the stored one (W8's) and where 1% of lineitem lives; lag and
-    lead beside their old torch route. Bounds: bytes once at
+    ``with_gather_ms``); the inverse, the gather and the unpermute also
+    where the order is near the stored one (W8's) and where 1% of
+    lineitem lives; lag and lead (the unpermute's shift) beside their
+    plain version and the routes they replaced. Bounds: bytes once at
     HBM_BYTES_PER_S. Returns (the kernels' entries, the lag/lead rows)."""
     from sail_tpu_torch.columnar.batch import Column
     from sail_tpu_torch.ops import window as win
@@ -1781,16 +1851,17 @@ def check_window_kernels(tables: dict, dev) -> list:
                                            ctx.peer_end),
             n * (4 + 4 + 4 + 8 + 4 + 8 + 1)))
         del scan
-        recs = win.pack_records(fsorted, ctx.alive)
-        # its library call gathers each 16 B record as one element
-        whole = recs.view(torch.complex128).squeeze(-1)
-        rows["window_unpermute"].append(_timed(
-            f"unpermute, float64 records, {label}", n,
-            lambda: win.window_unpermute(ctx, recs),
-            lambda: win.window_unpermute_plain(ctx, recs),
-            n * (4 + 16 + 8 + 1), lambda: whole.index_select(0, inv)))
-        del whole
-        del recs, fvals, fsorted
+        _time_unpermute(rows, label, ctx, fsorted)
+        if label.startswith("lineitem"):  # nth_value's, first's, last's
+            ok = ctx.alive
+            rows["window_unpermute"].append(_timed(
+                f"unpermute, float64 and its validity as two arrays, "
+                f"{label}", n,
+                lambda: win.window_unpermute(ctx, fsorted, ok),
+                lambda: win.window_unpermute_plain(ctx, fsorted, ok),
+                n * (4 + 8 + 1) + n * (8 + 1)))
+            del ok
+        del fvals, fsorted
         if part:  # K11 at the moving frames of the partitioned contexts
             for width in EXTREME_WIDTHS:
                 lo, hi = -(width // 2), width // 2
@@ -1835,8 +1906,11 @@ def check_window_kernels(tables: dict, dev) -> list:
             [(c(o), None, dt.LongType(), True, None) for o in order], sel)
         print(f"moves at {label}: {int(ctx.n_live)} of {n} rows live",
               flush=True)
-        _time_moves(rows, label, ctx.perm, ctx.n_live, c(vals))
-        del ctx, sel
+        values = c(vals)
+        _time_moves(rows, label, ctx.perm, ctx.n_live, values)
+        fsorted, _ = ctx.sorted_values(values.to(torch.float64) / 100, None)
+        _time_unpermute(rows, label, ctx, fsorted)
+        del ctx, sel, values, fsorted
         torch.cuda.empty_cache()
     sources = {"window_pack": ("window_bounds.cu", "sail_tpu/ops/sort.py:65"),
                "window_bounds": ("window_bounds.cu", "sail_tpu/ops/window.py:52"),
@@ -2114,15 +2188,42 @@ def _expr_columns(tables: dict, dev) -> dict:
     return c
 
 
-def _expr_entry(name: str, replaces: str, rows: list) -> dict:
+# ptxas's report of each K12 instantiation (nvcc -Xptxas -v): the
+# mangled name of unary_kernel<OP, In>, its spill stores, its registers
+_UNARY_MANGLED = re.compile(r"unary_kernelILi(\d+)E([ixd])E")
+_MANGLED_TYPES = {"i": "int", "x": "int64", "d": "float64"}
+
+
+def _unary_registers(log: str) -> dict:
+    """{(op code, input type): (registers, spill store bytes)} of each
+    K12 instantiation in expr_math.cu's compiler log."""
+    out, current, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = _UNARY_MANGLED.search(line)
+            current = None if m is None else (int(m.group(1)),
+                                              _MANGLED_TYPES[m.group(2)])
+            spill = 0
+        elif current is not None and "bytes spill stores" in line:
+            spill = int(re.search(r"(\d+) bytes spill stores",
+                                  line).group(1))
+        elif current is not None and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            out[current] = (regs, spill)
+            current = None
+    return out
+
+
+def _expr_entry(name: str, replaces: str, rows: list,
+                enforce: bool = True) -> dict:
     """A kernel's JSON entry: its headline (first) shape's numbers, every
     shape under ``shapes``; the headline must reach EXPR_BOUND_SHARE of
-    its bound."""
+    its bound where ``enforce``."""
     head = rows[0]
     share = head["bound_ms"] / head["ms"]
     print(f"{name}: headline {head['shape']} {head['ms']:.3f} ms against a "
           f"bound of {head['bound_ms']:.3f} ms ({share:.0%})", flush=True)
-    if share < EXPR_BOUND_SHARE:
+    if enforce and share < EXPR_BOUND_SHARE:
         raise AssertionError(f"{name}: {share:.0%} of its bound at "
                              f"{head['shape']}, under "
                              f"{EXPR_BOUND_SHARE:.0%}")
@@ -2138,6 +2239,7 @@ def check_expr_kernels(tables: dict, dev) -> list:
     planted, each op against its plain version, then timed beside it,
     its bound and, where one PyTorch call computes the same function on
     the same input, that call."""
+    from sail_tpu_torch import csrc
     from sail_tpu_torch.functions import numeric as num
 
     c = _expr_columns(tables, dev)
@@ -2147,15 +2249,20 @@ def check_expr_kernels(tables: dict, dev) -> list:
     entries = []
 
     def unary(label, x, v, op, scale=0, library=None):
-        fresh = op in num.LOG_OPS
+        # the bytes the op moves: its validity where it reads one (the
+        # logarithms, isnan) and the logarithms' fresh one
+        reads = v if op in num.LOG_OPS or op == "isnan" else None
         out_size = 1 if op == "isnan" else (
             8 if op in num.FLOAT_OPS or op in ("floor", "ceil")
             else x.element_size())
-        return _timed(f"{op} {label}", x.shape[0],
-                      lambda: num.math_unary(x, v, op, scale),
-                      lambda: num.math_unary_plain(x, v, op, scale),
-                      _nbytes(x, v) + x.shape[0] * (out_size + fresh),
-                      library, _cv_err)
+        row = _timed(f"{op} {label}", x.shape[0],
+                     lambda: num.math_unary(x, v, op, scale),
+                     lambda: num.math_unary_plain(x, v, op, scale),
+                     _nbytes(x, reads) + x.shape[0] * (
+                         out_size + (op in num.LOG_OPS)),
+                     library, _cv_err)
+        row["op"] = op
+        return row
 
     price, dbl, okey = c["price_edge"], c["dbl"], c["okey_edge"]
     rows = [unary("l_extendedprice as float64, NaN, +-inf planted", dbl,
@@ -2178,7 +2285,8 @@ def check_expr_kernels(tables: dict, dev) -> list:
                      ("cosh", torch.cosh), ("tanh", torch.tanh),
                      ("rint", torch.round), ("sign", torch.sign),
                      ("isnan", torch.isnan), ("floor", torch.floor),
-                     ("ceil", torch.ceil), ("cbrt", None)):
+                     ("ceil", torch.ceil), ("cbrt", None),
+                     ("degrees", torch.rad2deg), ("radians", torch.deg2rad)):
         rows.append(unary("float64", dbl, valid, op, library=None
                           if call is None else lambda f=call: f(dbl)))
     for op in ("floor", "ceil"):
@@ -2192,8 +2300,36 @@ def check_expr_kernels(tables: dict, dev) -> list:
                       "abs", library=lambda: torch.abs(okey)))
     rows.append(unary("l_orderkey int64", okey, valid, "~",
                       library=lambda: torch.bitwise_not(okey)))
-    entries.append(_expr_entry("math_unary",
-                               "sail_tpu/plan/compiler.py:937", rows))
+    rows.append(unary("float64", dbl, None, "negative",
+                      library=lambda: torch.neg(dbl)))
+    rows.append(unary("float64", dbl, None, "abs",
+                      library=lambda: torch.abs(dbl)))
+    # an int32 column (l_linenumber's width) through the int instantiations
+    i32 = c["okey"].to(torch.int32)
+    rows.append(unary("int32", i32, None, "sqrt"))
+    rows.append(unary("int32", i32, None, "~",
+                      library=lambda: torch.bitwise_not(i32)))
+    regs = _unary_registers(csrc.build_logs()["expr_math.cu"])
+    print("K12 instantiations (op, input: registers, spill store bytes): "
+          + "; ".join(f"{num.UNARY_OPS[op]} {t}: {r}, {sp}"
+                      for (op, t), (r, sp) in sorted(regs.items())),
+          flush=True)
+    spilling = [k for k, (_, sp) in regs.items() if sp]
+    if len(regs) != 3 * len(num.UNARY_OPS) - 1 or spilling:
+        raise AssertionError(f"K12: {len(regs)} instantiations, spilling "
+                             f"{spilling}")
+    for op in num.UNARY_OPS:
+        # the headline: the first shape beside a PyTorch call, if any
+        mine = sorted((r for r in rows if r["op"] == op),
+                      key=lambda r: r["library_ms"] is None)
+        for r in mine:
+            r["registers"] = {t: regs[(num.UNARY_OPS.index(op), t)][0]
+                              for t in ("int", "int64", "float64")
+                              if (num.UNARY_OPS.index(op), t) in regs}
+        # K12's headline, as when it was one kernel: sqrt of float64
+        entries.append(_expr_entry(_unary_name(op),
+                                   "sail_tpu/plan/compiler.py:937", mine,
+                                   enforce=op == "sqrt"))
 
     def rounding(label, x, half_even, digits, s, so, library=None):
         return _timed(f"{'bround' if half_even else 'round'}({digits}) "
@@ -3331,7 +3467,8 @@ def main() -> int:
                     **({"shapes": e["shapes"]} if "shapes" in e else {}))
                for e in entries]
     for k in kernels:
-        if k["launches"] == 0 and k["name"] not in OFF_PATH:
+        if k["launches"] == 0 and k["name"] not in OFF_PATH and \
+                not k["name"].startswith(_unary_name("")):
             raise AssertionError(f"{k['name']} launched on no query's path")
     full = {"main_path": report, "checks": checks, "sf": args.sf,
             "check_sf": args.check_sf, "window": win_report,

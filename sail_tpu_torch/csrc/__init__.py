@@ -93,8 +93,10 @@ _ENTRY = {
     "window_perm.cu": {"sail_window_gather": [P, LL, P, I, P, P, P, I, P,
                                               LL, P],
                        "sail_window_inverse": [P, P, LL, P, I, P, LL, P],
-                       "sail_window_unpermute": [P, LL, P, I, P, P, P]},
-    "expr_math.cu": {"sail_math_unary": [P, I, I, P, LL, I, P, P, I, P],
+                       "sail_window_unpermute": [P, P, LL, I, P, I, P, P,
+                                                 LL, I, ULL, P, P, I, P, LL,
+                                                 P]},
+    "expr_math.cu": {"sail_math_unary": [P, I, I, P, LL, I, P, P, P],
                      "sail_round": [P, I, LL, I, I, I, I, D, P, I, P],
                      "sail_math_binary": [P, I, I, I, P, P, I, I, I, P, LL,
                                           I, I, P, P, I, P],

@@ -14,29 +14,39 @@
 //
 // Each kernel is one pass over a column of int32, int64 (integers and
 // unscaled decimals, whose scale is an argument) or float64, with an
-// optional bool validity; the operation is an argument uniform across the
-// grid, so no warp diverges on it. Where the reference is wrong the
-// kernels give Spark's answer (sail_tpu_torch/functions/numeric.py lists
-// the cases): a decimal becomes a double as unscaled / 10^s (an exact power
-// of ten) for every operand, abs and negative of a decimal stay exact on
-// the unscaled integer, rounding to negative digits drops whole digits, a
-// logarithm of x <= 0 is NULL, and a shift count is masked to 6 bits (5 for
-// an int).
+// optional bool validity. Where the reference is wrong the kernels give
+// Spark's answer (sail_tpu_torch/functions/numeric.py lists the cases): a
+// decimal becomes a double as unscaled / 10^s (an exact power of ten) for
+// every operand, abs and negative of a decimal stay exact on the unscaled
+// integer, rounding to negative digits drops whole digits, a logarithm of
+// x <= 0 is NULL, and a shift count is masked to 6 bits (5 for an int).
 //
 // Bound: bytes. Each reads its operands once and writes its result (and a
 // validity where the operation makes one) once: 8-24 bytes a row against a
-// few to a few dozen float64 or int32 operations. A grid-stride loop, one
-// row per thread an iteration, keeps neighbouring threads on neighbouring
-// addresses. K13 loads four rows a thread before it computes any, which
-// ran faster there; in the others it took more registers and ran slower.
-// K14 and K15 are held to 32 registers a thread (__launch_bounds__(256,
-// 8)), so that a full SM's worth of threads keeps loads in flight; K12 and
-// K13 ran slower so, spilling.
+// few to a few dozen float64 or int32 operations.
+// K12 is instantiated an operation and input type (unary_kernel<OP, In>,
+// SAIL_UNARY_TABLE): a kernel that took the operation as an argument held
+// every libm function of the switch in one body and its registers, and ran
+// 5-46% behind one PyTorch call on the same column. Each instantiation
+// moves 16 B vectors where the column is aligned, kUnaryVecs of them in
+// flight a thread, and its op has its own launch bounds (unary_blocks).
+// K13-K15 run a grid-stride loop, one row per thread an iteration, so
+// neighbouring threads read neighbouring addresses; their operation is an
+// argument uniform across the grid (K15: an instantiation an op), so no
+// warp diverges on it. K13 loads four rows a thread before it computes
+// any, which ran faster there; in K14 and K15 it took more registers and
+// ran slower. K14 and K15 are held to 32 registers a thread
+// (__launch_bounds__(256, 8)), so that a full SM's worth of threads keeps
+// loads in flight; K13 ran slower so, spilling.
 // Integer division by
 // a power of ten goes through one float64 division where the dividend is
 // below 2^52 (exact there), and the calendar works in 32-bit integers
 // (days fit in an int32): 64-bit integer division is many instructions on
 // the card. pow by a constant 2 (E2's power(l_tax, 2)) is x * x.
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "expr_math.cuh"
@@ -44,52 +54,196 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// K12: one-operand math
+// K12: one-operand math, one instantiation an operation and input type
 // ---------------------------------------------------------------------------
 
-__global__ void unary_kernel(const void* __restrict__ x, int t, int scale,
-                 const bool* __restrict__ valid, long long n, int op,
-                 void* __restrict__ out, bool* __restrict__ out_valid) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (op <= kSign) {
-      double v = load_d(x, t, scale, i);
-      static_cast<double*>(out)[i] = float_op(op, v);
-      if (out_valid != nullptr) {  // the logarithms: NULL at x <= 0
-        bool ok = op == kLog1p ? !(v <= -1.0) : !(v <= 0.0);
-        out_valid[i] = ok && (valid == nullptr || valid[i]);
+// The result's type: a double (the float ops and sign), an int64 (floor
+// and ceil), a bool (isnan) or the input's (~, abs, negative).
+template <int OP, typename In>
+using UnaryOut = std::conditional_t<
+    OP <= kSign, double,
+    std::conditional_t<OP == kFloor || OP == kCeil, long long,
+                       std::conditional_t<OP == kIsnan, bool, In>>>;
+
+__host__ __device__ constexpr bool is_log(int op) {
+  return op == kLn || op == kLog10 || op == kLog2 || op == kLog1p;
+}
+
+// One row of OP over an input of type In (int, long long or double);
+// scale: a decimal's scale (ints and unscaled decimals), applied as one
+// division by 10^scale, as load_d does; v: the row's validity, read by
+// the logarithms (which write their own, ok) and isnan only.
+template <int OP, typename In>
+struct UnaryOp {
+  using Out = UnaryOut<OP, In>;
+  static constexpr bool kFloat = std::is_same<In, double>::value;
+  static constexpr bool kReadsValid = is_log(OP) || OP == kIsnan;
+  double p;     // 10^scale
+  long long f;  // 10^scale, for floor and ceil of a decimal
+  bool scaled;  // scale > 0
+
+  __device__ __forceinline__ Out operator()(In x, bool v, bool& ok) const {
+    if constexpr (OP <= kSign) {
+      double d = (double)x;
+      if constexpr (!kFloat) {
+        d = (double)(long long)x;
+        if (scaled) d = d / p;
       }
-    } else if (op == kFloor || op == kCeil) {
-      long long r;
-      if (t == kF64) {
-        double v = static_cast<const double*>(x)[i];
-        r = sat_i64(op == kFloor ? floor(v) : ceil(v));
+      if constexpr (is_log(OP))  // NULL at x <= 0 (log1p: x <= -1)
+        ok = (OP == kLog1p ? !(d <= -1.0) : !(d <= 0.0)) && v;
+      return float_op(OP, d);
+    } else if constexpr (OP == kFloor || OP == kCeil) {
+      if constexpr (kFloat) {
+        return sat_i64(OP == kFloor ? floor(x) : ceil(x));
       } else {
-        long long v = load_i(x, t, i), f = ipow10(scale);
-        r = op == kFloor ? floor_div_pow10(v, f) : -floor_div_pow10(-v, f);
+        const long long w = (long long)x;
+        return OP == kFloor ? floor_div_pow10(w, f)
+                            : -floor_div_pow10(-w, f);
       }
-      static_cast<long long*>(out)[i] = r;
-    } else if (op == kIsnan) {
-      static_cast<bool*>(out)[i] =
-          t == kF64 && isnan(static_cast<const double*>(x)[i]) &&
-          (valid == nullptr || valid[i]);
-    } else if (t == kF64) {  // abs, negative
-      double v = static_cast<const double*>(x)[i];
-      static_cast<double*>(out)[i] = op == kAbs ? fabs(v) : -v;
-    } else {  // ~, abs, negative: exact, two's complement (abs(MIN) = MIN)
-      unsigned long long w = (unsigned long long)load_i(x, t, i);
-      unsigned long long neg = 0ull - w;
-      unsigned long long r = op == kNot ? ~w
-                             : op == kNegative ? neg
-                             : ((long long)w < 0 ? neg : w);
-      if (t == kI32)
-        static_cast<int*>(out)[i] = (int)(unsigned)r;
+    } else if constexpr (OP == kIsnan) {
+      if constexpr (kFloat)
+        return isnan(x) && v;
       else
-        static_cast<long long*>(out)[i] = (long long)r;
+        return false;
+    } else if constexpr (kFloat) {  // abs, negative
+      return OP == kAbs ? fabs(x) : -x;
+    } else {  // ~, abs, negative: exact, two's complement (abs(MIN) = MIN)
+      const unsigned long long w = (unsigned long long)(long long)x;
+      const unsigned long long neg = 0ull - w;
+      const unsigned long long r = OP == kNot        ? ~w
+                                   : OP == kNegative ? neg
+                                   : ((long long)w < 0 ? neg : w);
+      return (In)(long long)r;
     }
   }
+};
+
+// E values of T side by side: one vector access of E * sizeof(T) bytes
+// (at most 16 B an access; 32 B go as two)
+template <typename T, int E>
+struct alignas(E * sizeof(T) < 16 ? E * sizeof(T) : 16) Pack {
+  T v[E];
+};
+
+constexpr int kUnaryThreads = 256;
+
+constexpr int kUnaryVecs = 4;  // 16 B input vectors a thread holds in flight
+
+// Each op's resident blocks an SM, in its instantiations' launch bounds:
+// as many as the registers of the most demanding of them leave room for,
+// so none spills (ptxas's report of each instantiation, printed by
+// chip_smoke.py phase 11; PERF.md, section 6).
+__host__ __device__ constexpr int unary_blocks(int op) {
+  return is_log(op)                                   ? 2
+         : op == kExp || op == kAsin || op == kAtan   ? 3
+         : op == kIsnan || op == kNot                 ? 5
+                                                      : 4;
 }
+
+// Rows [0, n_vec) in vectors of E = 16 / sizeof(In) rows (n_vec a
+// multiple of E; x and a validity read at 16 B and E B alignment), a thread
+// loading kUnaryVecs of them, kUnaryThreads apart, before it computes
+// any; rows [n_vec, n) one at a time. A block takes one span of vectors:
+// the grid covers the rows once, as PyTorch's elementwise kernels do (a
+// grid-stride loop over the resident blocks alone ran slower: PERF.md,
+// section 6).
+template <int OP, typename In>
+__global__ void __launch_bounds__(kUnaryThreads, unary_blocks(OP))
+    unary_kernel(const In* __restrict__ x, int scale,
+                 const bool* __restrict__ valid, long long n, long long n_vec,
+                 UnaryOut<OP, In>* __restrict__ out,
+                 bool* __restrict__ out_valid) {
+  using Op = UnaryOp<OP, In>;
+  using Out = typename Op::Out;
+  constexpr int E = 16 / sizeof(In);
+  const bool reads = Op::kReadsValid && valid != nullptr;
+  const Op op{kPow10[scale], ipow10(scale), scale > 0};
+  const long long nv = n_vec / E;
+  constexpr int V = kUnaryVecs;
+  const long long span = (long long)kUnaryThreads * V;
+  for (long long k0 = (long long)blockIdx.x * span + threadIdx.x; k0 < nv;
+       k0 += (long long)gridDim.x * span) {
+    Pack<In, E> xs[V];
+    Pack<bool, E> vs[V];
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const long long k = k0 + u * kUnaryThreads;
+      if (k >= nv) continue;
+      xs[u] = reinterpret_cast<const Pack<In, E>*>(x)[k];
+      if (reads) vs[u] = reinterpret_cast<const Pack<bool, E>*>(valid)[k];
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const long long k = k0 + u * kUnaryThreads;
+      if (k >= nv) continue;
+      Pack<Out, E> r;
+      Pack<bool, E> ok;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        r.v[e] = op(xs[u].v[e], reads ? vs[u].v[e] : true, ok.v[e]);
+      reinterpret_cast<Pack<Out, E>*>(out)[k] = r;
+      if constexpr (is_log(OP))
+        reinterpret_cast<Pack<bool, E>*>(out_valid)[k] = ok;
+    }
+  }
+  const long long stride = (long long)gridDim.x * kUnaryThreads;
+  for (long long i = n_vec + (long long)blockIdx.x * kUnaryThreads +
+                     threadIdx.x;
+       i < n; i += stride) {
+    bool ok = false;
+    out[i] = op(x[i], reads ? valid[i] : true, ok);
+    if constexpr (is_log(OP)) out_valid[i] = ok;
+  }
+}
+
+// One launch of unary_kernel<OP, In>: the rows in vectors where x (and a
+// validity it reads) are aligned for them, a block a span of them.
+template <int OP, typename In>
+cudaError_t unary_launch(const void* x, int scale, const bool* valid,
+                         long long n, void* out, bool* out_valid,
+                         cudaStream_t s) {
+  constexpr int E = 16 / sizeof(In);
+  const bool aligned =
+      reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+      (!UnaryOp<OP, In>::kReadsValid || valid == nullptr ||
+       reinterpret_cast<uintptr_t>(valid) % E == 0);
+  const long long n_vec = aligned ? n / E * E : 0;
+  const long long rows_per_block =
+      aligned ? (long long)kUnaryThreads * kUnaryVecs * E : kUnaryThreads;
+  long long grid = (n + rows_per_block - 1) / rows_per_block;
+  if (grid > 0x7fffffffLL) grid = 0x7fffffffLL;
+  unary_kernel<OP, In><<<(unsigned)grid, kUnaryThreads, 0, s>>>(
+      static_cast<const In*>(x), scale, valid, n, n_vec,
+      static_cast<UnaryOut<OP, In>*>(out), out_valid);
+  return cudaGetLastError();
+}
+
+// OP over an input of the given type (~ of a double: none)
+template <int OP>
+cudaError_t unary_typed(const void* x, int type, int scale,
+                        const bool* valid, long long n, void* out,
+                        bool* out_valid, cudaStream_t s) {
+  switch (type) {
+    case kI32:
+      return unary_launch<OP, int>(x, scale, valid, n, out, out_valid, s);
+    case kI64:
+      return unary_launch<OP, long long>(x, scale, valid, n, out, out_valid,
+                                         s);
+  }
+  if constexpr (OP == kNot) {
+    return cudaErrorInvalidValue;
+  } else {
+    return unary_launch<OP, double>(x, scale, valid, n, out, out_valid, s);
+  }
+}
+
+// K12's dispatch table: every op of enum Unary (functions/numeric.py
+// UNARY_OPS, in its order) has its instantiations
+#define SAIL_UNARY_TABLE(X)                                                 \
+  X(kSqrt) X(kExp) X(kExpm1) X(kLn) X(kLog10) X(kLog2) X(kLog1p) X(kSin)    \
+  X(kCos) X(kTan) X(kAsin) X(kAcos) X(kAtan) X(kSinh) X(kCosh) X(kTanh)     \
+  X(kCbrt) X(kRint) X(kDegrees) X(kRadians) X(kSign) X(kFloor) X(kCeil)     \
+  X(kIsnan) X(kNot) X(kAbs) X(kNegative)
 
 // ---------------------------------------------------------------------------
 // K13: round (half up) and bround (half even)
@@ -363,18 +517,25 @@ bool bad_type(int t) { return t < kI32 || t > kF64; }
 
 // K12. type: 0 int32, 1 int64, 2 float64; scale: the decimal scale of an
 // int64 of unscaled decimals (0 otherwise); out_valid: written by the
-// logarithms only (else null).
+// logarithms only (else null). One host switch picks the op's
+// instantiation.
 extern "C" int sail_math_unary(const void* x, int type, int scale,
                                const void* valid, long long n, int op,
-                               void* out, void* out_valid, int grid,
-                               void* stream) {
-  if (bad_type(type) || scale < 0 || scale > 18 || op < kSqrt ||
-      op > kNegative)
+                               void* out, void* out_valid, void* stream) {
+  if (bad_type(type) || scale < 0 || scale > 18)
     return (int)cudaErrorInvalidValue;
-  unary_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, type, scale, static_cast<const bool*>(valid), n, op, out,
-      static_cast<bool*>(out_valid));
-  return (int)cudaGetLastError();
+  if (is_log(op) && out_valid == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool* v = static_cast<const bool*>(valid);
+  bool* ov = static_cast<bool*>(out_valid);
+  switch (op) {
+#define SAIL_UNARY_CASE(OP) \
+  case OP:                  \
+    return (int)unary_typed<OP>(x, type, scale, v, n, out, ov, s);
+    SAIL_UNARY_TABLE(SAIL_UNARY_CASE)
+#undef SAIL_UNARY_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // K13. half_even: 0 round, 1 bround; fscale = 10.0 ** digits (doubles).

@@ -5,8 +5,11 @@
 // move: a window over a filtered input (a join's output, most rows dead)
 // pays for its live rows.
 //
-// The inverse and the gather are one engine, a two-pass partitioned
-// scatter, out[dest] = payload, templated on the payload:
+// All three are one engine, a two-pass partitioned scatter, out[dest] =
+// payload, templated on its source: a functor that says whether the
+// sources are the rows (each going to inv[r]) or the live sorted positions
+// (each going to perm[i]) and what source i carries (a payload of 1, 2, 4
+// or 8 bytes, moved as bits, and a validity bit):
 //   sail_window_inverse replaces the reference's `inv_perm`
 //     (sail_tpu/ops/window.py:78): inv[perm[i]] = i for the live sorted
 //     positions i < n_live (a device scalar), -1 at the dead rows;
@@ -15,28 +18,40 @@
 //     (:169-204, :280-288): vals_s[inv[r]] = vals[r] and valid_s[inv[r]] =
 //     valid[r] for the live rows r (inv[r] >= 0), 0 and false at the dead
 //     positions: the gather vals_s[i] = vals[perm[i]] written as a scatter
-//     from row order through the context's inv_perm. Values of 1, 2, 4 or
-//     8 bytes, moved as bits; either column may be absent.
+//     from row order through the context's inv_perm. Either column may be
+//     absent;
+//   sail_window_unpermute replaces `_unsort` (:82, `sorted[ctx.inv_perm]`)
+//     and, for lag/lead, `shift`'s shifted reads (:169): out[perm[i]] =
+//     value i and ok_out[perm[i]] = its validity for the live sorted
+//     positions i < n_live, 0 and invalid at the dead rows, from one of
+//     three sources read in sorted order: window.cuh records {value, ok}
+//     (K10's frame evaluation, K11); a value column and a bool column (or
+//     none: plain words); or lag/lead's shift, value i - offset where that
+//     position is in the row's segment (seg_start[i - offset] ==
+//     seg_start[i]), else the default (valid) or 0 and invalid.
 // A direct write of one 4-8 B word to a random place of a 240-480 MB array
 // fills a part of a 32 B sector no other write in flight shares, so the
-// memory reads and writes a whole sector a row. Instead, destinations are
-// binned into buckets of consecutive positions, and each bucket is placed
-// on chip:
+// memory reads and writes a whole sector a row; a gather of one reads a
+// whole sector a row. Instead, destinations are binned into buckets of
+// consecutive positions, and each bucket is placed on chip:
 //   1. bin_kernel reads 8,192 sources a block, in order. It counts them by
 //      bucket, reserves its slots in each bucket with one atomic on the
 //      bucket's cursor, sorts its (offset in the bucket | validity bit,
 //      payload) records by bucket in shared memory and stores them in that
-//      order: a warp writes runs of consecutive slots. Since perm is a
-//      bijection a bucket of B positions receives at most B records, so
-//      bucket b's run is slots [b * B, b * B + B) of one staging buffer:
-//      no histogram pass.
+//      order: a warp writes runs of consecutive slots. Since the
+//      destinations are distinct, a bucket of B positions receives at most
+//      B records, so bucket b's run is slots [b * B, b * B + B) of one
+//      staging buffer: no histogram pass.
 //   2. place_kernel, a cluster of kCluster = 8 blocks a bucket, each block
 //      holding one tile of it in shared memory (the wrapper sizes a tile,
 //      ops/window.py MOVE_TILE_BYTES: 2^15 int32 in 128 KB), fills the
 //      tiles with the fill value (-1 bits, or 0 and false), writes each of
 //      the bucket's records into the tile that holds its position
-//      (distributed shared memory: random, but on chip) and stores the
-//      tiles in order. Every output is written once; no memset.
+//      (distributed shared memory: random, but on chip; a value and its
+//      validity side by side, one store) and stores the tiles in order.
+//      Every output is written once; no memset. The distributed stores
+//      bound the pass, so a record is one of them, not two (PERF.md,
+//      section 6).
 //   A bucket of eight tiles (2^18 positions for the inverse) keeps the
 //   buckets few (229 at 60M rows), so a binning block's run in a bucket is
 //   dozens of records and its sectors are written whole: with one tile a
@@ -46,20 +61,12 @@
 //   a group of them.
 // Bound: bytes. Inverse: n_live * 8 B perm read + n * 4 B written. Gather:
 //   n * (4 B inv + value + 1 B validity) read + n * (value + 1 B) written.
-//   The engine moves each record twice more (written, read: 8 B, or 16 B
+//   Unpermute: n * (value + 1 B) written + n_live * the source (a record;
+//   a value and its validity; a shift's value, validity and segment start)
+//   read, and the destinations, which PERF.md counts as n * 4 B of inv.
+//   The engine reads 8 B of perm a live row (4 B of inv a row for the
+//   gather) and moves each record twice more (written, read: 8 B, or 16 B
 //   for 8-byte values).
-//
-// sail_window_unpermute replaces `_unsort` (:82, `sorted[ctx.inv_perm]`):
-//   a sorted-order result, plain words or window.cuh records {value, ok}
-//   (8 B or 16 B), goes back to row order in one pass, value and validity
-//   together: out[r] = src[inv[r]], and 0 and invalid where inv[r] < 0
-//   (a dead row). A scatter of the record through perm writes two random
-//   partial sectors a row: at 60M rows in a random order on an NVIDIA
-//   H100 80GB HBM3 it took 8.730 ms against this gather's 2.178
-//   (PERF.md, section 6).
-// Bound: bytes, n * (4 B inv + value + 1 B validity) + n_live * record.
-//   One random record (one sector) is read a live row; both outputs are
-//   written in order.
 
 #include <cooperative_groups.h>
 
@@ -70,11 +77,8 @@ namespace {
 using namespace sail::win;
 namespace cg = cooperative_groups;
 
-constexpr int kPer = 4;  // positions a thread, kThreads (256) apart
-constexpr int kSpan = kThreads * kPer;
-
 // ---------------------------------------------------------------------------
-// the partitioned scatter: the inverse and the gather
+// the partitioned scatter: the inverse, the gather and the unpermute
 // ---------------------------------------------------------------------------
 
 constexpr int kBinThreads = 1024;
@@ -146,21 +150,109 @@ __device__ __forceinline__ void exclusive_scan(const unsigned* cnt,
     }
 }
 
-// Pass 1, over buckets of 2^bits positions. kInverse: the sources are the
-// sorted positions i < n_live, dest perm[i], payload i. Else the rows r <
-// n with dest inv[r] >= 0, payload vals[r] and validity valid[r] (either
-// may be null). Only the buckets [b0, b0 + groups) are binned in this
-// sweep. A block takes kBinSpan sources: it counts them by bucket,
-// reserves its slots in each bucket with one atomic on the bucket's
-// cursor, sorts its records by bucket in shared memory and stores them in
-// that order, so a warp writes runs of consecutive slots.
-template <typename P, bool kInverse>
+// The sources of pass 1. kLive: the sources are the sorted positions i <
+// n_live (a device scalar), source i goes to perm[i]; else they are the
+// rows r < n, row r goes to inv[r] (-1: a dead row, nowhere). load: the
+// source's payload and validity bit, from what pass 1 reads (vals,
+// valid, seg_start: bin_kernel's parameters, restrict-qualified there;
+// held in a functor, the pointers lose that), given whether it is a
+// source (in) and whether its destination is in the sweep (dest_ok). Its
+// reads are selects on those flags, not branches around the call: so
+// the pass issues every item's reads before it waits for any (a branch
+// a read serialised them, and the pass ran slower).
+
+// the inverse: sorted position i carries i
+struct InverseSrc {
+  static constexpr bool kLive = true;
+  template <typename P>
+  __device__ __forceinline__ bool load(const void*, const bool*, const int*,
+                                       long long i, bool, bool,
+                                       P& pay) const {
+    pay = (P)i;
+    return false;
+  }
+};
+
+// the gather: row r carries vals[r] and valid[r] (either may be null); a
+// dead row's are not read
+struct GatherSrc {
+  static constexpr bool kLive = false;
+  template <typename P>
+  __device__ __forceinline__ bool load(const void* vals, const bool* valid,
+                                       const int*, long long r, bool,
+                                       bool dest_ok, P& pay) const {
+    pay = dest_ok && vals != nullptr ? static_cast<const P*>(vals)[r] : P(0);
+    return dest_ok && valid != nullptr && valid[r];
+  }
+};
+
+// The unpermute's sources, each read at position i (or i - offset)
+// whatever the sweep: the reads are in order, and issuing them beside
+// perm's keeps both in flight.
+
+// window.cuh records {value, ok} of 4- or 8-byte values, one load each
+struct RecordSrc {
+  static constexpr bool kLive = true;
+  template <typename P>
+  __device__ __forceinline__ bool load(const void* vals, const bool*,
+                                       const int*, long long i, bool in,
+                                       bool, P& pay) const {
+    const Rec<P> r = in ? static_cast<const Rec<P>*>(vals)[i] : Rec<P>{0, 0};
+    pay = r.v;
+    return r.ok != 0;
+  }
+};
+
+// a value column and its validity (null: every value valid, or no
+// validity written)
+struct ArraySrc {
+  static constexpr bool kLive = true;
+  template <typename P>
+  __device__ __forceinline__ bool load(const void* vals, const bool* valid,
+                                       const int*, long long i, bool in,
+                                       bool, P& pay) const {
+    pay = in ? static_cast<const P*>(vals)[i] : P(0);
+    return in && (valid == nullptr || valid[i]);
+  }
+};
+
+// lag (offset > 0) and lead (offset < 0): the value and validity at i -
+// offset where that position holds a row of i's segment (a dead row's
+// segment starts at itself, so no live row reaches one), else the default
+// (fill bits, valid) where there is one, or 0 and invalid
+struct ShiftSrc {
+  static constexpr bool kLive = true;
+  long long n, offset;
+  unsigned long long fill;
+  bool has_default;
+  template <typename P>
+  __device__ __forceinline__ bool load(const void* vals, const bool* valid,
+                                       const int* seg_start, long long i,
+                                       bool in, bool, P& pay) const {
+    const long long j = i - offset;
+    const bool inside = in && j >= 0 && j < n;
+    const P v = inside ? static_cast<const P*>(vals)[j] : P(0);
+    const bool ok = inside && (valid == nullptr || valid[j]);
+    const bool same = inside && seg_start[j] == seg_start[i];
+    pay = same ? v : has_default ? (P)fill : P(0);
+    return same ? ok : has_default;
+  }
+};
+
+// Pass 1, over buckets of 2^bits positions: the sources with a
+// destination in the buckets [b0, b0 + groups) of this sweep. A block
+// takes kBinSpan sources: it counts them by bucket, reserves its slots in
+// each bucket with one atomic on the bucket's cursor, sorts its records by
+// bucket in shared memory and stores them in that order, so a warp writes
+// runs of consecutive slots.
+template <typename P, typename Src>
 __global__ void __launch_bounds__(kBinThreads, 1)
-bin_kernel(const long long* __restrict__ perm,
+bin_kernel(const Src src, const long long* __restrict__ perm,
            const long long* __restrict__ n_live_p,
-           const int* __restrict__ inv, long long n,
-           const P* __restrict__ vals, const bool* __restrict__ valid,
-           int bits, int b0, int groups, unsigned* __restrict__ cursor,
+           const int* __restrict__ inv, const void* __restrict__ vals,
+           const bool* __restrict__ valid,
+           const int* __restrict__ seg_start, long long n, int bits, int b0,
+           int groups, unsigned* __restrict__ cursor,
            Entry<P>* __restrict__ stage) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ unsigned warp_sums[32];
@@ -169,7 +261,7 @@ bin_kernel(const long long* __restrict__ perm,
   unsigned* cnt = slot_of + kBinSpan;  // the block's records a bucket
   unsigned* off = cnt + groups;        // their first place in buf
   unsigned* at = off + groups;         // their first slot in the bucket
-  const long long count = kInverse ? *n_live_p : n;
+  const long long count = Src::kLive ? *n_live_p : n;
   const long long first = (long long)blockIdx.x * kBinSpan;
   if (first >= count) return;
   for (int k = threadIdx.x; k < groups; k += kBinThreads) cnt[k] = 0;
@@ -180,15 +272,11 @@ bin_kernel(const long long* __restrict__ perm,
   for (int j = 0; j < kBinItems; ++j) {
     const long long i = first + threadIdx.x + j * kBinThreads;
     d[j] = -1;
-    if (i < count) d[j] = kInverse ? (int)perm[i] : inv[i];
+    if (i < count) d[j] = Src::kLive ? (int)perm[i] : inv[i];
     if (d[j] >= 0 && (unsigned)((d[j] >> bits) - b0) >= (unsigned)groups)
       d[j] = -1;
-    if constexpr (kInverse) {
-      pay[j] = (P)i;
-    } else {
-      pay[j] = d[j] >= 0 && vals != nullptr ? vals[i] : P(0);
-      if (d[j] >= 0 && valid != nullptr && valid[i]) vbits |= 1u << j;
-    }
+    if (src.load(vals, valid, seg_start, i, i < count, d[j] >= 0, pay[j]))
+      vbits |= 1u << j;
   }
   __syncthreads();
   unsigned rank[kBinItems];
@@ -232,12 +320,28 @@ __device__ __forceinline__ void store_tile(unsigned char* __restrict__ dst,
     dst[k] = src[k];
 }
 
+// A tile's position where both a value and its validity are written:
+// the two side by side, so one shared-memory store (distributed: most go
+// to another block of the cluster) places a record.
+template <typename P>
+struct alignas(2 * sizeof(P)) Slot {
+  P v;
+  P ok;
+};
+
+// A tile's bytes a position: a value, a validity, or both (a Slot).
+template <typename P>
+__host__ __device__ constexpr int slot_bytes(bool values, bool valid) {
+  return values && valid ? (int)sizeof(Slot<P>) : values ? (int)sizeof(P) : 1;
+}
+
 // Pass 2, a cluster of kCluster blocks a bucket: block r of the cluster
-// holds the tile of the bucket's positions [r * 2^bits, (r + 1) * 2^bits),
-// values (out given) then validity (valid_out given), in dynamic shared
-// memory. Each block reads a share of the bucket's records and writes each
-// into the tile of the block that holds its position (distributed shared
-// memory); then each stores its tile in order.
+// holds the tile of the bucket's positions [r * 2^bits, (r + 1) * 2^bits)
+// in dynamic shared memory: values (out given), validity (valid_out
+// given), or Slots of both (then fill is 0). Each block reads a share of
+// the bucket's records and writes each into the tile of the block that
+// holds its position (distributed shared memory); then each stores its
+// tile in order, a Slot's value and validity to their two columns.
 template <typename P>
 __global__ void __cluster_dims__(kCluster, 1, 1)
 __launch_bounds__(kPlaceThreads)
@@ -250,12 +354,11 @@ place_kernel(long long n, int bits, const unsigned* __restrict__ cursor,
   const long long bucket = blockIdx.x / kCluster;
   const int size = 1 << bits;
   const long long lo = (bucket * kCluster + me) << bits;
-  const int vbytes = out != nullptr ? size * (int)sizeof(P) : 0;
-  const int total = vbytes + (valid_out != nullptr ? size : 0);
-  for (int k = threadIdx.x; k < total / 16; k += kPlaceThreads) {
-    const unsigned w = k * 16 < vbytes ? fill : 0u;
+  const bool both = out != nullptr && valid_out != nullptr;
+  const int total = size * slot_bytes<P>(out != nullptr, valid_out != nullptr);
+  const unsigned w = out != nullptr && !both ? fill : 0u;
+  for (int k = threadIdx.x; k < total / 16; k += kPlaceThreads)
     reinterpret_cast<uint4*>(tile)[k] = make_uint4(w, w, w, w);
-  }
   cluster.sync();
   const int cnt = (int)cursor[bucket];
   const Entry<P>* run = stage + (bucket << (bits + 3));
@@ -274,37 +377,50 @@ place_kernel(long long n, int bits, const unsigned* __restrict__ cursor,
       const unsigned key = e[u].key & ~kValidBit;
       unsigned char* owner = cluster.map_shared_rank(tile, key >> bits);
       const unsigned k = key & mask;
-      if (out != nullptr) reinterpret_cast<P*>(owner)[k] = e[u].pay;
-      if (valid_out != nullptr)
-        reinterpret_cast<bool*>(owner + vbytes)[k] =
-            (e[u].key & kValidBit) != 0;
+      const bool ok = (e[u].key & kValidBit) != 0;
+      if (both)
+        reinterpret_cast<Slot<P>*>(owner)[k] = Slot<P>{e[u].pay, P(ok)};
+      else if (out != nullptr)
+        reinterpret_cast<P*>(owner)[k] = e[u].pay;
+      else
+        reinterpret_cast<bool*>(owner)[k] = ok;
     }
   }
   cluster.sync();
   if (lo >= n) return;
   const int len = (int)(n - lo < size ? n - lo : size);
-  if (out != nullptr)
+  if (both) {
+    const Slot<P>* slots = reinterpret_cast<const Slot<P>*>(tile);
+    for (int k = threadIdx.x; k < len; k += kPlaceThreads) {
+      const Slot<P> r = slots[k];
+      out[lo + k] = r.v;
+      valid_out[lo + k] = r.ok != 0;
+    }
+  } else if (out != nullptr) {
     store_tile(reinterpret_cast<unsigned char*>(out + lo), tile,
                len * (int)sizeof(P));
-  if (valid_out != nullptr)
-    store_tile(reinterpret_cast<unsigned char*>(valid_out + lo),
-               tile + vbytes, len);
+  } else {
+    store_tile(reinterpret_cast<unsigned char*>(valid_out + lo), tile, len);
+  }
 }
 
 // Both passes. bits: log2 of a placing block's tile; a bucket holds
 // kCluster tiles. scratch (scratch_bytes): the cursors (one word a bucket,
 // padded to 256 B), then each bucket's run of 2^(bits + 3) records.
-template <typename P, bool kInverse>
-cudaError_t scatter(const long long* perm, const long long* n_live,
-                    const int* inv, long long n, const void* vals,
-                    const bool* valid, void* out, bool* valid_out, int bits,
-                    void* scratch, long long scratch_bytes, unsigned fill,
-                    cudaStream_t s) {
+template <typename P, typename Src>
+cudaError_t scatter(const Src& src, const long long* perm,
+                    const long long* n_live, const int* inv,
+                    const void* vals, const bool* valid,
+                    const int* seg_start, long long n, void* out,
+                    bool* valid_out, int bits, void* scratch,
+                    long long scratch_bytes, unsigned fill, cudaStream_t s) {
   if (bits < 4 || bits > kMaxBits) return cudaErrorInvalidValue;
   const long long size = 1LL << bits;
-  const long long tile = (out != nullptr ? size * (long long)sizeof(P) : 0) +
-                         (valid_out != nullptr ? size : 0);
-  if (tile > kMaxTileBytes) return cudaErrorInvalidValue;
+  const long long tile =
+      size * slot_bytes<P>(out != nullptr, valid_out != nullptr);
+  if (tile > kMaxTileBytes || (out != nullptr && valid_out != nullptr &&
+                               fill != 0u))
+    return cudaErrorInvalidValue;
   const int bucket_bits = bits + 3;  // kCluster tiles
   const long long buckets = (n + (1LL << bucket_bits) - 1) >> bucket_bits;
   const long long head = (buckets * 4 + 255) / 256 * 256;
@@ -316,7 +432,7 @@ cudaError_t scatter(const long long* perm, const long long* n_live,
       reinterpret_cast<Entry<P>*>(static_cast<char*>(scratch) + head);
   cudaError_t err = cudaMemsetAsync(cursor, 0, buckets * sizeof(unsigned), s);
   if (err != cudaSuccess) return err;
-  auto bin = bin_kernel<P, kInverse>;
+  auto bin = bin_kernel<P, Src>;
   err = cudaFuncSetAttribute(bin, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bin_shared<P>(kMaxGroup));
   if (err != cudaSuccess) return err;
@@ -325,8 +441,8 @@ cudaError_t scatter(const long long* perm, const long long* n_live,
     const int groups = (int)(buckets - b0 < kMaxGroup ? buckets - b0
                                                       : kMaxGroup);
     bin<<<bin_blocks, kBinThreads, bin_shared<P>(groups), s>>>(
-        perm, n_live, inv, n, static_cast<const P*>(vals), valid,
-        bucket_bits, (int)b0, groups, cursor, stage);
+        src, perm, n_live, inv, vals, valid, seg_start, n, bucket_bits,
+        (int)b0, groups, cursor, stage);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -339,58 +455,31 @@ cudaError_t scatter(const long long* perm, const long long* n_live,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// the unpermute
-// ---------------------------------------------------------------------------
+// the unpermute's sources (ops/window.py _UNPERMUTE_KINDS)
+enum Kind { kRecords = 0, kArrays = 1, kShift = 2 };
 
-// src: records {value, ok} when ok_out is set, else plain words
-template <typename W>
-__global__ void __launch_bounds__(kThreads)
-unpermute_kernel(const int* __restrict__ inv, long long n,
-                 const void* __restrict__ src, W* __restrict__ out,
-                 bool* __restrict__ ok_out) {
-  const long long base = (long long)blockIdx.x * kSpan + threadIdx.x;
-  long long from[kPer];  // -1: a dead row, or past the end
-#pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const long long r = base + j * kThreads;
-    from[j] = r < n ? inv[r] : -1;
+template <typename P>
+cudaError_t unpermute(const long long* perm, const long long* n_live,
+                      long long n, int kind, const void* src, const bool* ok,
+                      const int* seg_start, long long offset,
+                      int has_default, unsigned long long default_bits,
+                      void* out, bool* ok_out, int bits, void* scratch,
+                      long long scratch_bytes, cudaStream_t s) {
+#define SAIL_TO_ROWS(SRC, SEG)                                              \
+  scatter<P>(SRC, perm, n_live, nullptr, src, ok, SEG, n, out, ok_out, bits, \
+             scratch, scratch_bytes, 0u, s)
+  switch (kind) {
+    case kRecords:
+      if constexpr (sizeof(P) >= 4) return SAIL_TO_ROWS(RecordSrc{}, nullptr);
+      return cudaErrorInvalidValue;  // records of 4- or 8-byte values only
+    case kArrays: return SAIL_TO_ROWS(ArraySrc{}, nullptr);
+    case kShift:
+      if (seg_start == nullptr) return cudaErrorInvalidValue;
+      return SAIL_TO_ROWS(
+          (ShiftSrc{n, offset, default_bits, has_default != 0}), seg_start);
   }
-  if (ok_out != nullptr) {
-    const Rec<W>* rec = static_cast<const Rec<W>*>(src);
-    Rec<W> v[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j)
-      v[j] = from[j] >= 0 ? rec[from[j]] : Rec<W>{0, 0};
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const long long r = base + j * kThreads;
-      if (r < n) {
-        out[r] = v[j].v;
-        ok_out[r] = v[j].ok != 0;
-      }
-    }
-  } else {
-    const W* words = static_cast<const W*>(src);
-    W v[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) v[j] = from[j] >= 0 ? words[from[j]] : 0;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const long long r = base + j * kThreads;
-      if (r < n) out[r] = v[j];
-    }
-  }
-}
-
-unsigned blocks(long long n) { return (unsigned)((n + kSpan - 1) / kSpan); }
-
-template <typename W>
-cudaError_t unpermute(const int* inv, long long n, const void* src, void* out,
-                      void* ok, cudaStream_t s) {
-  unpermute_kernel<W><<<blocks(n), kThreads, 0, s>>>(
-      inv, n, src, static_cast<W*>(out), static_cast<bool*>(ok));
-  return cudaGetLastError();
+#undef SAIL_TO_ROWS
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -403,10 +492,10 @@ extern "C" int sail_window_inverse(const void* perm, const void* n_live,
                                    void* scratch, long long scratch_bytes,
                                    void* stream) {
   if (n <= 0) return 0;
-  return (int)scatter<unsigned int, true>(
-      static_cast<const long long*>(perm),
-      static_cast<const long long*>(n_live), nullptr, n, nullptr, nullptr,
-      inv, nullptr, bits, scratch, scratch_bytes, 0xffffffffu,
+  return (int)scatter<unsigned int>(
+      InverseSrc{}, static_cast<const long long*>(perm),
+      static_cast<const long long*>(n_live), nullptr, nullptr, nullptr,
+      nullptr, n, inv, nullptr, bits, scratch, scratch_bytes, 0xffffffffu,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -424,8 +513,8 @@ extern "C" int sail_window_gather(const void* inv, long long n,
   const bool* vd = static_cast<const bool*>(valid);
   bool* vs = static_cast<bool*>(valid_s);
 #define SAIL_SCATTER(P)                                                  \
-  scatter<P, false>(nullptr, nullptr, i, n, vals, vd, vals_s, vs, bits, \
-                    scratch, scratch_bytes, 0u, s)
+  scatter<P>(GatherSrc{}, nullptr, nullptr, i, vals, vd, nullptr, n, vals_s, \
+             vs, bits, scratch, scratch_bytes, 0u, s)
   switch (vals == nullptr ? 1 : width) {
     case 1: return (int)SAIL_SCATTER(unsigned char);
     case 2: return (int)SAIL_SCATTER(unsigned short);
@@ -436,17 +525,34 @@ extern "C" int sail_window_gather(const void* inv, long long n,
   return (int)cudaErrorInvalidValue;
 }
 
-// inv: n int32 (-1 at a dead row); src: n records of 2 x width bytes
-// when ok is set, else n words of width (4 or 8) bytes.
-extern "C" int sail_window_unpermute(const void* inv, long long n,
-                                     const void* src, int width, void* out,
-                                     void* ok, void* stream) {
+// perm: n int64, the live rows' first (n_live, a device int64); kind:
+// kRecords (src: n window.cuh records of 2 x width bytes, width 4 or 8;
+// ok unused), kArrays (src: n values of width 1, 2, 4 or 8 bytes; ok: n
+// bools or null) or kShift (as kArrays, with seg_start: n int32, offset,
+// and the default's bits where has_default); ok_out may be null (plain
+// words: no validity written); scratch as for sail_window_gather.
+extern "C" int sail_window_unpermute(
+    const void* perm, const void* n_live, long long n, int kind,
+    const void* src, int width, const void* ok, const void* seg_start,
+    long long offset, int has_default, unsigned long long default_bits,
+    void* out, void* ok_out, int bits, void* scratch,
+    long long scratch_bytes, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* i = static_cast<const int*>(inv);
+  const long long* p = static_cast<const long long*>(perm);
+  const long long* nl = static_cast<const long long*>(n_live);
+  bool* oo = static_cast<bool*>(ok_out);
+  const bool* o = static_cast<const bool*>(ok);
+  const int* ss = static_cast<const int*>(seg_start);
+#define SAIL_UNPERMUTE(P)                                                  \
+  unpermute<P>(p, nl, n, kind, src, o, ss, offset, has_default,           \
+               default_bits, out, oo, bits, scratch, scratch_bytes, s)
   switch (width) {
-    case 4: return (int)unpermute<unsigned int>(i, n, src, out, ok, s);
-    case 8: return (int)unpermute<unsigned long long>(i, n, src, out, ok, s);
+    case 1: return (int)SAIL_UNPERMUTE(unsigned char);
+    case 2: return (int)SAIL_UNPERMUTE(unsigned short);
+    case 4: return (int)SAIL_UNPERMUTE(unsigned int);
+    case 8: return (int)SAIL_UNPERMUTE(unsigned long long);
   }
+#undef SAIL_UNPERMUTE
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,8 @@ The builders of ``plan/compiler.py`` call these wrappers: ``math_unary``
 (K12), ``round_number`` (K13), ``math_binary`` (K14) and ``calendar``
 (K15), all in ``csrc/expr_math.cu``. A CPU tensor takes the plain version
 (``*_plain``); a CUDA tensor launches the kernel or raises. Each entry
-point counts its launches in ``.launches``; a column of zero rows
-launches nothing.
+point counts its launches in ``.launches`` (K12 also by operation, in
+``math_unary.by_op``); a column of zero rows launches nothing.
 
 Columns are int32, int64 (integers, and decimals as unscaled int64 with
 their scale passed beside them) or float64; int8, int16 and bool widen to
@@ -38,6 +38,7 @@ these give Spark's answer:
 from __future__ import annotations
 
 import math
+import types
 from typing import Optional, Tuple
 
 import torch
@@ -291,7 +292,8 @@ def math_unary_plain(x: torch.Tensor, valid: Optional[torch.Tensor],
 def math_unary(x: torch.Tensor, valid: Optional[torch.Tensor], op: str,
                scale: int = 0) -> CV:
     """K12: ``math_unary_plain`` as a kernel on the card
-    (``csrc/expr_math.cu`` ``sail_math_unary``). A CPU tensor takes the
+    (``csrc/expr_math.cu`` ``sail_math_unary``: one instantiation an
+    operation and input type, picked on the host). A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
     if op not in _UNARY_CODE or not 0 <= scale <= 18:
         raise ValueError(f"math_unary: {op!r} at scale {scale}")
@@ -320,8 +322,9 @@ def math_unary(x: torch.Tensor, valid: Optional[torch.Tensor], op: str,
             csrc.check(csrc.entry("expr_math.cu", "sail_math_unary")(
                 xf.data_ptr(), _TYPE_CODE[x.dtype], scale, _ptr(vf), n,
                 _UNARY_CODE[op], out.data_ptr(), _ptr(out_valid),
-                csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "math_unary")
+                csrc.stream_ptr(dev)), "math_unary")
         math_unary.launches += 1
+        math_unary.by_op[op].launches += 1
     if op in LOG_OPS:
         validity = out_valid
     elif op == "isnan":
@@ -333,6 +336,9 @@ def math_unary(x: torch.Tensor, valid: Optional[torch.Tensor], op: str,
 
 
 math_unary.launches = 0
+# the launches of each operation's instantiations
+math_unary.by_op = {op: types.SimpleNamespace(launches=0)
+                    for op in UNARY_OPS}
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,9 @@ bounds:
   avg and the running extremes;
 - K11 (``window_extreme``): MIN/MAX, and float SUM/AVG, over ROWS
   frames whose two offsets are finite;
-- lag, lead, nth_value, first and last: torch ops over the sorted
-  values (shifted slices, reads at the segment and frame bounds).
+- lag and lead: the return to row order itself, reading each sorted
+  value at its shifted position (``window_unpermute`` with a ``Shift``);
+  nth_value, first and last: torch reads at the frame bounds.
 
 Every window function works in sorted order, as the reference's do. The
 context's int32 ``inv_perm`` is built once (``window_inverse``). A value
@@ -28,13 +29,14 @@ column and its validity go into sorted order once per context
 (``window_gather``, a scatter from row order through ``inv_perm``,
 cached by ``WindowContext.sorted_values``); the scans, frames, extremes,
 ranks and lag/lead/nth/first/last read and write contiguous sorted
-arrays, and each output goes back to row order in one pass: a gather
-through ``inv_perm``, as the reference's ``_unsort`` does
-(``window_unpermute``; K9's own for its records of one word an output).
-The inverse and the gather are one engine on the card, a two-pass
-partitioned scatter (csrc/window_perm.cu). Every row is written: dead
-rows (``sel`` false; they sort last) get 0, invalid where the output has
-a validity.
+arrays, and each output goes back to row order in one pass, as the
+reference's ``_unsort`` does: a scatter through perm of K10's and K11's
+records, of a value column and its validity, or of lag/lead's shifted
+reads (``window_unpermute``; K9 gathers its records of one word an
+output through ``inv_perm``). The inverse, the gather and the unpermute
+are one engine on the card, a two-pass partitioned scatter
+(csrc/window_perm.cu). Every row is written: dead rows (``sel`` false;
+they sort last) get 0, invalid where the output has a validity.
 
 Each kernel's wrapper takes the ``*_plain`` version for a CPU tensor; a
 CUDA tensor launches the kernel or raises. Each keeps a ``.launches``
@@ -495,8 +497,8 @@ def ntile(ctx: WindowContext, n_tiles: int) -> torch.Tensor:
 # between row order and sorted order: the inverse, the gather, the unpermute
 # ---------------------------------------------------------------------------
 
-# a placing block's tile in shared memory, the inverse's and the gather's
-# (their values and validity a position); csrc/window_perm.cu:
+# a placing block's tile in shared memory, the inverse's, the gather's and
+# the unpermute's (``_slot_bytes`` a position); csrc/window_perm.cu:
 # kMaxTileBytes is the most a wrapper may ask. A bucket holds
 # MOVE_CLUSTER tiles (kCluster).
 MOVE_TILE_BYTES = 160 * 1024
@@ -504,6 +506,13 @@ MOVE_TILE_MAX = 200 * 1024
 MOVE_CLUSTER = 8
 # window_perm.cu: a tile holds 2^4 to 2^24 positions
 _MOVE_BITS = (4, 24)
+
+
+def _slot_bytes(width: int, valid: bool) -> int:
+    """A placing block's tile bytes a position (window_perm.cu
+    ``slot_bytes``): a value of ``width`` bytes (0: none), a validity, or
+    both side by side in twice the value's width."""
+    return 2 * width if width and valid else width or 1
 
 
 def _move_scratch(n: int, row_bytes: int, entry_bytes: int,
@@ -618,7 +627,7 @@ def window_gather(inv: torch.Tensor, vals: Optional[torch.Tensor],
     if n == 0 or (vals is None and valid is None):
         return vals_s, valid_s
     width = 0 if vals is None else vals.element_size()
-    bits, scratch = _move_scratch(n, width + (valid is not None),
+    bits, scratch = _move_scratch(n, _slot_bytes(width, valid is not None),
                                   16 if width == 8 else 8, tile_bytes, dev)
     with torch.cuda.device(dev):
         csrc.check(csrc.entry("window_perm.cu", "sail_window_gather")(
@@ -634,6 +643,17 @@ window_gather.launches = 0
 
 # a record's words read as integers (its ok word is 0 or 1)
 _WORDS = {4: torch.int32, 8: torch.int64}
+# window_perm.cu's sources of the unpermute (Kind)
+_UNPERMUTE_KINDS = {"records": 0, "arrays": 1, "shift": 2}
+
+
+class Shift(NamedTuple):
+    """lag/lead as ``window_unpermute``'s source: sorted position i takes
+    the value at i - ``offset`` (lag looks back, offset > 0; lead forward)
+    where that position is in the row's segment, else ``default`` (valid)
+    or 0 and invalid where there is none."""
+    offset: int
+    default: object = None
 
 
 def pack_records(vals: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
@@ -644,63 +664,16 @@ def pack_records(vals: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     return words.view(vals.dtype)
 
 
-def window_unpermute_plain(ctx: WindowContext, src: torch.Tensor):
-    """(out, ok) in row order from ``src`` in sorted order: n values (ok
-    None) or [n, 2] records {value, ok} (``pack_records``); a dead row
-    gets 0 and invalid."""
-    live = ctx.alive
-    if src.dim() == 1:
-        return _scatter(ctx.perm, torch.where(live, src, 0)), None
-    words = src.view(_WORDS[src.element_size()])
-    return (_scatter(ctx.perm, torch.where(live, src[:, 0], 0)),
-            _scatter(ctx.perm, (words[:, 1] != 0) & live))
-
-
-def window_unpermute(ctx: WindowContext, src: torch.Tensor):
-    """``window_unpermute_plain`` as one kernel pass, value and validity
-    together: out[r] = src[inv_perm[r]].
-
-    Replaces ``sail_tpu/ops/window.py`` ``_unsort`` (:82) for K10's frame
-    evaluation and K11; csrc/window_perm.cu states its bound. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel or
-    raises."""
-    perm = ctx.perm
-    if perm.device.type == "cpu":
-        return window_unpermute_plain(ctx, src)
-    n, dev = perm.shape[0], perm.device
-    records = src.dim() == 2
-    if src.element_size() not in _WORDS or src.shape[0] != n or \
-            src.device != dev or (records and src.shape[1] != 2) or \
-            not src.is_contiguous():
-        raise TypeError(f"window_unpermute: {n} contiguous values or [n, 2] "
-                        f"records of 4 or 8 bytes on {dev}, got "
-                        f"{src.dtype}{tuple(src.shape)} on {src.device}")
-    out = torch.empty(n, dtype=src.dtype, device=dev)
-    ok = torch.empty(n, dtype=torch.bool, device=dev) if records else None
-    if n == 0:
-        return out, ok
-    with torch.cuda.device(dev):
-        csrc.check(csrc.entry("window_perm.cu", "sail_window_unpermute")(
-            ctx.inv_perm.data_ptr(), n, src.data_ptr(),
-            src.element_size(), out.data_ptr(), _ptr(ok),
-            csrc.stream_ptr(dev)), "window_unpermute")
-    window_unpermute.launches += 1
-    return out, ok
-
-
-window_unpermute.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# lag/lead, nth_value, first and last: in sorted order, then one unpermute
-# ---------------------------------------------------------------------------
-
-def _record_values(vals: torch.Tensor) -> torch.Tensor:
-    """Values a record holds (4 or 8 bytes): narrower ones widen (int32,
-    or float32); the caller casts the result back."""
-    if vals.element_size() >= 4:
-        return vals
-    return vals.to(torch.float32 if vals.is_floating_point() else torch.int32)
+def _shift_fill(dtype: torch.dtype, default) -> torch.Tensor:
+    """The default as a 0-d tensor of ``dtype`` on the host (0 where
+    None), cast through the 4- or 8-byte type a narrower value widens to
+    (int32, float32), as a record of it would hold it."""
+    if default is None:
+        return torch.zeros((), dtype=dtype)
+    wide = dtype
+    if torch.empty((), dtype=dtype).element_size() < 4:
+        wide = torch.float32 if dtype.is_floating_point else torch.int32
+    return torch.full((), default, dtype=wide).to(dtype)
 
 
 def _shifted(t: torch.Tensor, offset: int, fill) -> torch.Tensor:
@@ -711,18 +684,119 @@ def _shifted(t: torch.Tensor, offset: int, fill) -> torch.Tensor:
     return torch.cat((pad, t[:n - k]) if offset >= 0 else (t[k:], pad))
 
 
+def _shift_plain(ctx: WindowContext, vals: torch.Tensor,
+                 valid: Optional[torch.Tensor], shift: Shift):
+    """(data, ok) in sorted order of ``shift`` over the sorted ``vals`` and
+    ``valid`` (None: all valid): the reference's ``shift``
+    (sail_tpu/ops/window.py:169), its default of the value's type."""
+    in_seg = _shifted(ctx.seg_start, shift.offset, -1) == ctx.seg_start
+    fill = _shift_fill(vals.dtype, shift.default).to(vals.device)
+    data = torch.where(in_seg, _shifted(vals, shift.offset, 0), fill)
+    if valid is not None:
+        ok = _shifted(valid, shift.offset, False)
+        ok = ok & in_seg if shift.default is None else ok | ~in_seg
+    else:
+        ok = in_seg if shift.default is None else torch.ones_like(in_seg)
+    return data, ok
+
+
+def window_unpermute_plain(ctx: WindowContext, src: torch.Tensor,
+                           ok: Optional[torch.Tensor] = None,
+                           shift: Optional[Shift] = None):
+    """(out, validity) in row order from a source in sorted order: [n, 2]
+    records {value, ok} (``pack_records``); n values and their validity
+    ``ok`` (None: no validity, and None comes back); or, with ``shift``,
+    lag/lead over the sorted values ``src`` and validity ``ok`` (None: all
+    valid). A dead row gets 0 and invalid."""
+    if shift is not None:
+        src, ok = _shift_plain(ctx, src, ok, shift)
+    elif src.dim() == 2:
+        words = src.view(_WORDS[src.element_size()])
+        src, ok = src[:, 0], words[:, 1] != 0
+    live = ctx.alive
+    out = _scatter(ctx.perm, torch.where(live, src, src.new_zeros(())))
+    return out, None if ok is None else _scatter(ctx.perm, ok & live)
+
+
+def window_unpermute(ctx: WindowContext, src: torch.Tensor,
+                     ok: Optional[torch.Tensor] = None,
+                     shift: Optional[Shift] = None,
+                     tile_bytes: int = MOVE_TILE_BYTES):
+    """``window_unpermute_plain`` as one partitioned scatter through perm
+    on the inverse's engine: the live sorted positions read in order, each
+    value with its validity binned by its row, then each bucket placed in
+    a cluster's shared memory and stored in order, value and validity
+    columns each written once.
+
+    Replaces ``sail_tpu/ops/window.py`` ``_unsort`` (:82) for K10's frame
+    evaluation, K11, nth_value and first/last, and with a ``Shift``
+    ``shift`` (:169) whole; csrc/window_perm.cu states its bound. Records
+    of 4- or 8-byte values; value columns of 1, 2, 4 or 8 bytes.
+    ``tile_bytes``: a placing block's tile (value and validity a row). A
+    CPU tensor takes the plain version; a CUDA tensor launches the kernels
+    or raises."""
+    perm = ctx.perm
+    if perm.device.type == "cpu":
+        return window_unpermute_plain(ctx, src, ok, shift)
+    n, dev = perm.shape[0], perm.device
+    records = src.dim() == 2
+    width = src.element_size()
+    if records:
+        kind = "records"
+        bad = width not in _WORDS or src.shape[1] != 2 or ok is not None \
+            or shift is not None
+    else:
+        kind = "arrays" if shift is None else "shift"
+        bad = src.dim() != 1 or width not in (1, 2, 4, 8) or \
+            (ok is not None and ok.dtype != torch.bool)
+    if bad or src.shape[0] != n or src.device != dev:
+        raise TypeError(f"window_unpermute: {n} values of 1, 2, 4 or 8 bytes "
+                        f"with a bool validity, or [n, 2] records of 4 or 8 "
+                        f"bytes, on {dev}; got {src.dtype}{tuple(src.shape)} "
+                        f"on {src.device}")
+    _check_rows("window_unpermute", n, dev, ok=ok)
+    n_live = _check_n_live("window_unpermute", ctx.n_live, dev)
+    src, ok = _contiguous(src), _contiguous(ok)
+    seg_start, default_bits = None, 0
+    if shift is not None:
+        seg_start = ctx.seg_start
+        if seg_start.dtype != torch.int32:
+            raise TypeError("window_unpermute: an int32 seg_start")
+        seg_start = _contiguous(seg_start)
+        fill = _shift_fill(src.dtype, shift.default).reshape(1)
+        default_bits = int(fill.view({1: torch.uint8, 2: torch.int16,
+                                      4: torch.int32, 8: torch.int64}[width])
+                           [0]) & ((1 << (8 * width)) - 1)
+    out = torch.empty(n, dtype=src.dtype, device=dev)
+    with_ok = records or ok is not None or shift is not None
+    ok_out = torch.empty(n, dtype=torch.bool, device=dev) if with_ok else None
+    if n == 0:
+        return out, ok_out
+    bits, scratch = _move_scratch(n, _slot_bytes(width, with_ok),
+                                  16 if width == 8 else 8, tile_bytes, dev)
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("window_perm.cu", "sail_window_unpermute")(
+            perm.data_ptr(), n_live.data_ptr(), n, _UNPERMUTE_KINDS[kind],
+            src.data_ptr(), width, _ptr(ok), _ptr(seg_start),
+            0 if shift is None else shift.offset,
+            int(shift is not None and shift.default is not None),
+            default_bits, out.data_ptr(), _ptr(ok_out), bits,
+            scratch.data_ptr(), scratch.numel(), csrc.stream_ptr(dev)),
+            "window_unpermute")
+    window_unpermute.launches += 1
+    return out, ok_out
+
+
+window_unpermute.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# lag/lead, nth_value, first and last: in sorted order, then one unpermute
+# ---------------------------------------------------------------------------
+
 def _at(t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     """t[src], src clamped into t (sorted positions)."""
     return t[torch.clamp(src, 0, max(t.shape[0] - 1, 0))]
-
-
-def _to_rows(ctx: WindowContext, dtype: torch.dtype, data: torch.Tensor,
-             ok: torch.Tensor):
-    """(data, validity) in row order, of ``dtype``, from sorted-order
-    ``data`` and ``ok``: one ``window_unpermute`` of their records; a dead
-    row gets 0 and invalid."""
-    out, valid = window_unpermute(ctx, pack_records(data, ok))
-    return out.to(dtype), valid
 
 
 def shift(ctx: WindowContext, value: Column, offset: int, default=None):
@@ -731,20 +805,12 @@ def shift(ctx: WindowContext, value: Column, offset: int, default=None):
     is in the row's segment (its segment start is the row's), else the
     default (valid) or 0 and invalid; then to row order.
 
-    Replaces ``sail_tpu/ops/window.py`` ``shift`` (:169), in its shape:
-    the value gathered into sorted order once per context
-    (``ctx.sorted_values``), shifted slices there, one unpermute."""
+    Replaces ``sail_tpu/ops/window.py`` ``shift`` (:169): the value
+    gathered into sorted order once per context (``ctx.sorted_values``),
+    then one ``window_unpermute`` that reads it at the shifted positions
+    (``Shift``)."""
     vals, valid = ctx.sorted_values(value.data, value.validity)
-    vals = _record_values(vals)
-    in_seg = _shifted(ctx.seg_start, offset, -1) == ctx.seg_start
-    fill = vals.new_full((), 0 if default is None else default)
-    data = torch.where(in_seg, _shifted(vals, offset, 0), fill)
-    if valid is not None:
-        ok = _shifted(valid, offset, False)
-        ok = ok & in_seg if default is None else ok | ~in_seg
-    else:
-        ok = in_seg if default is None else torch.ones_like(in_seg)
-    return _to_rows(ctx, value.data.dtype, data, ok)
+    return window_unpermute(ctx, vals, valid, Shift(offset, default))
 
 
 def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None,
@@ -761,19 +827,19 @@ def nth(ctx: WindowContext, value: Column, n_th: int, peer_end=None,
     vals, valid = ctx.sorted_values(value.data, value.validity)
     lo, hi = _frame_bounds(ctx, lower, upper, peer_end)
     src = lo + (n_th - 1)
-    return _read_sorted(ctx, value, vals, valid, src, src <= hi)
+    return _read_sorted(ctx, vals, valid, src, src <= hi)
 
 
-def _read_sorted(ctx: WindowContext, value: Column, vals: torch.Tensor,
+def _read_sorted(ctx: WindowContext, vals: torch.Tensor,
                  valid: Optional[torch.Tensor], src: torch.Tensor,
                  ok: torch.Tensor):
     """(data, validity) in row order of the sorted values read at sorted
-    positions ``src`` where ``ok``; 0 and invalid elsewhere."""
-    vals = _record_values(vals)
-    data = torch.where(ok, _at(vals, src), 0)
+    positions ``src`` where ``ok``; 0 and invalid elsewhere: the value
+    column and its validity unpermuted together."""
+    data = torch.where(ok, _at(vals, src), vals.new_zeros(()))
     if valid is not None:
         ok = ok & _at(valid, src)
-    return _to_rows(ctx, value.data.dtype, data, ok)
+    return window_unpermute(ctx, data, ok)
 
 
 # ---------------------------------------------------------------------------
@@ -1216,7 +1282,7 @@ def framed_agg(ctx: WindowContext, value: Optional[Column], fn: str,
         at = lo if fn == "first" else hi
         if ignore_nulls and valid is not None:
             at = _nearest_valid(valid, at, fn == "first")
-        return _read_sorted(ctx, value, vals, valid, at,
+        return _read_sorted(ctx, vals, valid, at,
                             (hi >= lo) & (at >= lo) & (at <= hi))
     if fn == "count":
         return window_frame(ctx, None, ctx.count_scan(valid), "count", lower,

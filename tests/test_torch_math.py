@@ -446,6 +446,38 @@ def test_wrappers_refuse_unknown_operations():
         num.math_binary(x, None, x, None, "&")
 
 
+def _k12_table():
+    """K12's source: the op names of ``enum Unary`` (expr_math.cuh), in
+    order, and those of the dispatch table ``SAIL_UNARY_TABLE``
+    (expr_math.cu), from which ``sail_math_unary`` picks an instantiation
+    a call."""
+    import pathlib
+    import re
+    csrc = pathlib.Path(num.__file__).parents[1] / "csrc"
+    header = (csrc / "expr_math.cuh").read_text()
+    body = re.search(r"enum Unary \{(.*?)\};", header, re.S).group(1)
+    enum = [x.split("=")[0].strip() for x in body.split(",") if x.strip()]
+    source = (csrc / "expr_math.cu").read_text()
+    table = re.search(r"#define SAIL_UNARY_TABLE\(X\)(.*?)\n\n", source,
+                      re.S).group(1)
+    return enum, re.findall(r"X\((k\w+)\)", table)
+
+
+def test_every_unary_op_has_an_instantiation():
+    """Every op that the compiler's builders send to ``math_unary``
+    (``functions/numeric.py`` UNARY_OPS, each code its position) is the
+    enum member of that code in expr_math.cuh, and is in the dispatch
+    table of expr_math.cu once: it has its own instantiations."""
+    enum, table = _k12_table()
+    assert len(enum) == len(num.UNARY_OPS)
+    assert set(num.UNARY_OPS) <= set(tcomp._BUILDERS)
+    for op, member in zip(num.UNARY_OPS, enum):
+        assert member.lower() == "k" + {"~": "not"}.get(op, op), (op,
+                                                                   member)
+        assert table.count(member) == 1, member
+    assert len(table) == len(enum)
+
+
 # cbrt's edge cases: zeros, subnormals (the smallest, and an exact cube
 # of 2^-350), exact cubes, values near the overflow limit, infinities, NaN
 CBRT_CASES = [0.0, -0.0, 5e-324, -5e-324, 1e-310, 2.0 ** -1050, -3e-320,
@@ -559,6 +591,25 @@ def test_k12_matches_plain_on_card(cuda, op):
         assert num.math_unary.launches == before + 1
         want = num.math_unary_plain(x, c["v"], op, scale)
         assert _cv_equal(got, want), (op, x.dtype, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", num.UNARY_OPS)
+def test_k12_instantiations_match_plain_on_card(cuda, op):
+    """Each instantiation (op, input type) at 100,000 rows with the edge
+    values, held to ``math_unary_plain`` within 8 ulp: the columns
+    aligned (the 16 B vectors), a row off alignment (one row at a time),
+    with a validity and without."""
+    c = _edge_columns(cuda, 100_001)
+    inputs = [(c["l"], 0), (c["i"], 0)] if op == "~" else \
+        [(c["d"], 0), (c["m"], 2), (c["l"], 0), (c["i"], 0)]
+    for x, scale in inputs:
+        for lo in (0, 1):
+            xs, vs = x[lo:lo + 100_000], c["v"][lo:lo + 100_000]
+            for v in (vs, None):
+                got = num.math_unary(xs, v, op, scale)
+                want = num.math_unary_plain(xs, v, op, scale)
+                assert _cv_equal(got, want), (op, x.dtype, scale, lo)
 
 
 @pytest.mark.gpu

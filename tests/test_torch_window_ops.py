@@ -695,6 +695,73 @@ def _check_moves(cuda, rng, order: str) -> None:
                     assert torch.equal(got[0][at], v[perm][at])
 
 
+def _segments(cuda, rng, n: int, n_live: int) -> torch.Tensor:
+    """seg_start (int32) of a context over n sorted positions: segments
+    of 1 to 200 live positions, each dead position its own start (as K8
+    writes it)."""
+    starts = np.zeros(n, bool)
+    cuts = np.cumsum(rng.integers(1, 200, n // 2 + 1))
+    starts[cuts[cuts < n]] = True
+    starts[0] = True
+    starts[n_live:] = True
+    idx = np.arange(n)
+    seg = np.maximum.accumulate(np.where(starts, idx, 0))
+    return torch.from_numpy(seg.astype(np.int32)).to(cuda)
+
+
+def _check_unpermute(cuda, rng, order: str) -> None:
+    """The unpermute's three sources, torch.equal to their plain version,
+    at each of _MOVE_SHAPES and n_live of 0, 1, 0.1%, 95% and all of n,
+    perm ``order``: records of 4- and 8-byte values; every value width as
+    two arrays, with a validity and without (plain words); and the shift
+    at offsets within and past the segments, with a default and without,
+    over a column with NULLs and one without."""
+    for n, tile in _MOVE_SHAPES:
+        perm = {"random": torch.from_numpy(rng.permutation(n)),
+                "identity": torch.arange(n),
+                "reversed": torch.arange(n - 1, -1, -1)}[order].to(cuda)
+        valid = torch.from_numpy(rng.random(n) < 0.7).to(cuda)
+        for n_live in (0, 1, n // 1000, n * 95 // 100, n):
+            seg = _segments(cuda, rng, n, n_live)
+            ctx = twin.WindowContext(
+                perm, torch.tensor(n_live, dtype=torch.int64, device=cuda),
+                seg, seg, seg, seg, seg)
+            cases = []
+            for dtype in (torch.int32, torch.float64):
+                v = torch.from_numpy(rng.normal(0, 1e3, n)).to(cuda).to(dtype)
+                cases.append((twin.pack_records(v, valid), None, None))
+            for dtype in _MOVE_DTYPES + (torch.bool,):
+                v = torch.from_numpy(rng.integers(-100, 100, n)).to(
+                    cuda).to(dtype)
+                cases += [(v, None, None), (v, valid, None)]
+            v = torch.from_numpy(rng.integers(-10**12, 10**12, n)).to(cuda)
+            for offset, default in ((1, -7), (-2, None), (3, None), (0, 5),
+                                    (-3, 9), (250, None), (-n, -1)):
+                cases += [(v, valid, twin.Shift(offset, default)),
+                          (v, None, twin.Shift(offset, default))]
+            small = torch.from_numpy(rng.integers(-100, 100, n)).to(cuda)
+            for dtype in (torch.int8, torch.int16, torch.bool):
+                cases.append((small.to(dtype), valid, twin.Shift(1, 1)))
+            for src, ok, shift in cases:
+                got = twin.window_unpermute(ctx, src, ok, shift, tile)
+                want = twin.window_unpermute_plain(ctx, src, ok, shift)
+                label = (n, tile, n_live, src.dtype, ok is None, shift)
+                for g, w in zip(got, want):
+                    assert (g is None) == (w is None), label
+                    assert g is None or torch.equal(g, w), label
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", ["random", "identity", "reversed"])
+def test_unpermute_sources_match_plain_on_card(cuda, order):
+    """The partitioned scatter of each of the unpermute's sources
+    (records, two arrays, lag/lead's shift) against its plain version at
+    100,000 rows and the other move shapes, its bucket and sweep edges."""
+    before = twin.window_unpermute.launches
+    _check_unpermute(cuda, np.random.default_rng(21), order)
+    assert twin.window_unpermute.launches > before
+
+
 @pytest.mark.gpu
 def test_sorted_order_kernels_match_plain_at_100k_rows(cuda):
     """The gather, the inverse permutation, K10's scan (every op, both
