@@ -150,12 +150,17 @@ Then, after phase 10, on the same tables:
    ``torch.round(x, decimals=3)``,
    ``torch.pow``, ``torch.atan2``, ``torch.hypot``, ``torch.bitwise_and``,
    ``bitwise_or``, ``bitwise_xor`` and the shifts, a left shift's counts
-   masked to 0-63 beforehand, as Spark masks them). K12 is one kernel
-   entry an operation (``math_unary:<op>``, its instantiations a type),
-   each instantiation's registers and spill stores printed from the
-   compiler's report (none may spill). Each kernel's first (headline)
-   shape (K12's: sqrt of float64) must reach ``EXPR_BOUND_SHARE`` of its
-   bound.
+   masked to 0-63 beforehand, as Spark masks them). K12, K14 and K15 are
+   one kernel entry an operation (``math_unary:<op>``,
+   ``math_binary:<op>``, ``calendar:<op>``, its instantiations the
+   operand types), each instantiation's registers and spill stores
+   printed from the compiler's report (none may spill). A literal
+   operand is a scalar on the host, as the compiler passes it; K14 also
+   runs power(float64, 2) and ``|`` of two aligned columns without a
+   validity, K15 its ops at lineitem's 60M rows and orders' 15M. Each
+   kernel's first (headline) shape (K12's: sqrt of float64; K14's
+   power(decimal, 2); K15's add_months at 60M) must reach
+   ``EXPR_BOUND_SHARE`` of its bound.
 12. Expression correctness: the queries of
    ``benchmarks/expr_queries.py`` (E1-E6) over the tables at
    ``--check-sf`` on the card against the port's CPU session, as phase 9
@@ -181,7 +186,12 @@ Then, after phase 10, on the same tables:
    (spills and stack) the driver reports of its kernel; the printed line
    adds the earlier interpreter's time where it had one
    (``INTERPRETER_MS``, from PERF.md, in brackets). The run prints the
-   programs compiled, their seconds and how many of them spill.
+   programs compiled, their seconds and how many of them spill. Then
+   Spark's casts and IN (``CAST_IN_SQL``: a double to BIGINT, INT and
+   DECIMAL(12,2), ``k IN (1, NULL)``) over ``CAST_IN_ROWS`` of lineitem's
+   rows with NaN, +-inf, +-1e30 and +-3e9 planted, as one generated K16
+   program (F2I, F2I32): its answer against Spark's (numpy), the kernel
+   against run_chain_plain, timed as a K16 row.
 
 15. Sort words: K18 (chain_sort, ops/chain.py run_chain_sort), the
    chain's kernel that also writes each sort key's K3 word, validity and
@@ -276,9 +286,10 @@ for _q in range(2, 23):
         PATH_KERNELS[f"q{_q}"] += ("window_pack",)
 # the kernels phase 11 holds to their plain versions that no query of the
 # path launches: their element functions run inside the chains' programs
-# (K16-K18), E7's sort keys in its K18 program
-# (K12 by operation: each its own instantiations, ``unary_names``)
-OFF_PATH = ("round_number", "math_binary", "calendar")
+# (K16-K18), E7's sort keys in its K18 program (K12, K14 and K15 by
+# operation, ``math_unary:<op>``, ``math_binary:<op>``, ``calendar:<op>``:
+# each its own instantiations)
+OFF_PATH = ("round_number", "math_unary:", "math_binary:", "calendar:")
 # device functions of the kernels whose time and launches each profiled
 # query reports: K1 over all its launches, then split by entry point (a
 # runs call launches its grid, then one block over the grid's records)
@@ -302,7 +313,7 @@ PROFILED_KERNELS = {
         r"\bbin_kernel<|\bplace_kernel<"),
     "K12 math_unary": re.compile(r"\bunary_kernel[<(]"),
     "K13 round_number": re.compile(r"\bround_kernel\("),
-    "K14 math_binary": re.compile(r"\bbinary_kernel\("),
+    "K14 math_binary": re.compile(r"\bbinary_kernel[<(]"),
     "K15 calendar": re.compile(r"\bcalendar_kernel[<(]"),
     "K16 chain": re.compile(r"\bsail_chain_k16\b"),
     "K17 chain_reduce": re.compile(r"\bsail_chain_k17\b"),
@@ -1276,9 +1287,10 @@ def check_queries(spark, tables: dict, sf: float) -> dict:
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
-def _unary_name(op: str) -> str:
-    """K12's kernel entry of one operation (its instantiations)."""
-    return f"math_unary:{op}"
+def _by_op(kernel: str, op: str) -> str:
+    """The kernels entry of one operation of K12, K14 or K15 (its
+    instantiations): ``math_unary:sqrt``."""
+    return f"{kernel}:{op}"
 
 
 def _counters():
@@ -1305,9 +1317,11 @@ def _counters():
             "window_gather": win.window_gather,
             "window_inverse": win.window_inverse,
             "window_unpermute": win.window_unpermute,
-            **{_unary_name(op): c for op, c in num.math_unary.by_op.items()},
+            **{_by_op(k, op): c for k, fn in (
+                ("math_unary", num.math_unary),
+                ("math_binary", num.math_binary),
+                ("calendar", num.calendar)) for op, c in fn.by_op.items()},
             "round_number": num.round_number,
-            "math_binary": num.math_binary, "calendar": num.calendar,
             "chain": chn.run_chain, "chain_reduce": chn.run_chain_reduce,
             "chain_sort": chn.run_chain_sort}
 
@@ -2188,21 +2202,25 @@ def _expr_columns(tables: dict, dev) -> dict:
     return c
 
 
-# ptxas's report of each K12 instantiation (nvcc -Xptxas -v): the
-# mangled name of unary_kernel<OP, In>, its spill stores, its registers
-_UNARY_MANGLED = re.compile(r"unary_kernelILi(\d+)E([ixd])E")
+# ptxas's report of each K12, K14 and K15 instantiation (nvcc -Xptxas
+# -v): the template arguments of unary_kernel<OP, In>, binary_kernel<OP,
+# X, Y, YS> and calendar_kernel<OP, XK, YK, SC> in their mangled names
+_TEMPLATE_ARG = re.compile(r"Li(-?\d+)E|Lb([01])E|([ixd])")
 _MANGLED_TYPES = {"i": "int", "x": "int64", "d": "float64"}
 
 
-def _unary_registers(log: str) -> dict:
-    """{(op code, input type): (registers, spill store bytes)} of each
-    K12 instantiation in expr_math.cu's compiler log."""
+def _instantiations(log: str, kernel: str) -> dict:
+    """{template arguments: (registers, spill store bytes)} of each
+    instantiation of ``kernel`` in a compiler log (integers, ``int``,
+    ``int64``, ``float64`` and bools in their order)."""
+    pattern = re.compile(kernel + r"I((?:Li-?\d+E|Lb[01]E|[ixd])+)E")
     out, current, spill = {}, None, 0
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = _UNARY_MANGLED.search(line)
-            current = None if m is None else (int(m.group(1)),
-                                              _MANGLED_TYPES[m.group(2)])
+            m = pattern.search(line)
+            current = None if m is None else tuple(
+                int(a) if a else bool(int(b)) if b else _MANGLED_TYPES[t]
+                for a, b, t in _TEMPLATE_ARG.findall(m.group(1)))
             spill = 0
         elif current is not None and "bytes spill stores" in line:
             spill = int(re.search(r"(\d+) bytes spill stores",
@@ -2212,6 +2230,26 @@ def _unary_registers(log: str) -> dict:
             out[current] = (regs, spill)
             current = None
     return out
+
+
+def _print_instantiations(label: str, regs: dict, ops) -> None:
+    """Print each instantiation's registers and spill stores (the op by
+    name); fail on a spill or on none."""
+    print(f"{label} instantiations (op, arguments: registers, spill store "
+          f"bytes): " + "; ".join(
+              f"{ops[k[0]]} {' '.join(map(str, k[1:]))}: {r}, {sp}"
+              for k, (r, sp) in sorted(regs.items())), flush=True)
+    spilling = [k for k, (_, sp) in regs.items() if sp]
+    if not regs or spilling:
+        raise AssertionError(f"{label}: {len(regs)} instantiations, "
+                             f"spilling {spilling}")
+
+
+def _op_registers(regs: dict, code: int) -> dict:
+    """The registers of each instantiation of one op, by its other
+    template arguments."""
+    return {" ".join(map(str, k[1:])): r for k, (r, _) in regs.items()
+            if k[0] == code}
 
 
 def _expr_entry(name: str, replaces: str, rows: list,
@@ -2309,25 +2347,19 @@ def check_expr_kernels(tables: dict, dev) -> list:
     rows.append(unary("int32", i32, None, "sqrt"))
     rows.append(unary("int32", i32, None, "~",
                       library=lambda: torch.bitwise_not(i32)))
-    regs = _unary_registers(csrc.build_logs()["expr_math.cu"])
-    print("K12 instantiations (op, input: registers, spill store bytes): "
-          + "; ".join(f"{num.UNARY_OPS[op]} {t}: {r}, {sp}"
-                      for (op, t), (r, sp) in sorted(regs.items())),
-          flush=True)
-    spilling = [k for k, (_, sp) in regs.items() if sp]
-    if len(regs) != 3 * len(num.UNARY_OPS) - 1 or spilling:
-        raise AssertionError(f"K12: {len(regs)} instantiations, spilling "
-                             f"{spilling}")
+    log = csrc.build_logs()["expr_math.cu"]
+    regs = _instantiations(log, "unary_kernel")
+    _print_instantiations("K12", regs, num.UNARY_OPS)
+    if len(regs) != 3 * len(num.UNARY_OPS) - 1:
+        raise AssertionError(f"K12: {len(regs)} instantiations")
     for op in num.UNARY_OPS:
         # the headline: the first shape beside a PyTorch call, if any
         mine = sorted((r for r in rows if r["op"] == op),
                       key=lambda r: r["library_ms"] is None)
         for r in mine:
-            r["registers"] = {t: regs[(num.UNARY_OPS.index(op), t)][0]
-                              for t in ("int", "int64", "float64")
-                              if (num.UNARY_OPS.index(op), t) in regs}
+            r["registers"] = _op_registers(regs, num.UNARY_OPS.index(op))
         # K12's headline, as when it was one kernel: sqrt of float64
-        entries.append(_expr_entry(_unary_name(op),
+        entries.append(_expr_entry(_by_op("math_unary", op),
                                    "sail_tpu/plan/compiler.py:937", mine,
                                    enforce=op == "sqrt"))
 
@@ -2351,25 +2383,32 @@ def check_expr_kernels(tables: dict, dev) -> list:
     entries.append(_expr_entry("round_number",
                                "sail_tpu/plan/compiler.py:1313", rows))
 
-    two = torch.tensor(2, device=dev, dtype=torch.int32)
-    seven = torch.tensor(7, device=dev, dtype=torch.int32)
-    four = torch.tensor(4, device=dev, dtype=torch.int32)
+    # a literal operand is a scalar on the host, as the compiler passes it
+    # (read there without waiting for the card)
+    two = torch.tensor(2, dtype=torch.int32)
+    seven = torch.tensor(7, dtype=torch.int32)
+    four = torch.tensor(4, dtype=torch.int32)
     tax_d = c["disc"].to(torch.float64) / 100.0
 
     def binary(label, x, xv, y, yv, op, sx=0, sy=0, library=None):
         fresh = op in ("log", "nanvl") or (xv is not None and yv is not None)
         out_size = x.element_size() if op in num.BITWISE_OPS else 8
-        read = _nbytes(x, xv, y, yv)
+        # the validities are read where the result's is written
+        read = _nbytes(x, xv, y, yv) if fresh else _nbytes(x, y)
         if op == "nanvl":  # y is read where x is a NaN only
             read -= _nbytes(y) - int(torch.isnan(x).sum()) * y.element_size()
-        return _timed(f"{op} {label}", n,
-                      lambda: num.math_binary(x, xv, y, yv, op, sx, sy),
-                      lambda: num.math_binary_plain(x, xv, y, yv, op, sx,
-                                                    sy),
-                      read + n * (out_size + fresh), library, _cv_err)
+        row = _timed(f"{op} {label}", n,
+                     lambda: num.math_binary(x, xv, y, yv, op, sx, sy),
+                     lambda: num.math_binary_plain(x, xv, y, yv, op, sx,
+                                                   sy),
+                     read + n * (out_size + fresh), library, _cv_err)
+        row["op"] = op
+        return row
 
     rows = [binary("l_discount decimal(15,2), 2", c["disc"], None, two, None,
                    "power", 2, library=lambda: torch.pow(tax_d, 2))]
+    rows.append(binary("float64, 2", dbl, None, two, None, "power",
+                       library=lambda: torch.pow(dbl, 2)))
     rows.append(binary("float64, l_orderkey", dbl, valid, okey, None,
                        "atan2", library=lambda: torch.atan2(
                            dbl, okey.to(torch.float64))))
@@ -2384,6 +2423,9 @@ def check_expr_kernels(tables: dict, dev) -> list:
     rows.append(binary("l_orderkey int64, 7", okey, None, seven, None, "&",
                        library=lambda: torch.bitwise_and(okey, 7)))
     counts = c["counts"]
+    rows.append(binary("l_orderkey int64, counts, both 16 B-aligned", okey,
+                       None, counts, None, "|",
+                       library=lambda: torch.bitwise_or(okey, counts)))
     rows.append(binary("l_orderkey int64, counts", okey, valid, counts,
                        None, "|", library=lambda: torch.bitwise_or(
                            okey, counts)))
@@ -2399,37 +2441,62 @@ def check_expr_kernels(tables: dict, dev) -> list:
     rows.append(binary("l_orderkey int64 by 4", okey, None, four, None,
                        "shiftright", library=lambda:
                        torch.bitwise_right_shift(okey, 4)))
-    entries.append(_expr_entry("math_binary",
-                               "sail_tpu/plan/compiler.py:954", rows))
+    regs = _instantiations(log, "binary_kernel")
+    _print_instantiations("K14", regs, num.BINARY_OPS + ("square",))
+    for op in num.BINARY_OPS:
+        mine = sorted((r for r in rows if r["op"] == op),
+                      key=lambda r: r["library_ms"] is None)
+        for r in mine:
+            r["registers"] = _op_registers(regs, num.BINARY_OPS.index(op))
+        # K14's headline, as when it was one kernel: power(decimal, 2)
+        entries.append(_expr_entry(_by_op("math_binary", op),
+                                   "sail_tpu/plan/compiler.py:954", mine,
+                                   enforce=op == "power"))
 
-    date, us = c["date"], c["us"]
-    base = torch.tensor(10592, device=dev, dtype=torch.int32)  # 1999-01-01
-    three = torch.tensor(3, device=dev, dtype=torch.int32)
+    date, us, ship = c["date"], c["us"], c["ship"]
+    base = torch.tensor(10592, dtype=torch.int32)  # 1999-01-01
+    three = torch.tensor(3, dtype=torch.int32)
+    one = torch.tensor(1, dtype=torch.int32)
 
     def cal(label, op, x, xv, y=None, yv=None, xm=False, ym=False):
         out_size = 8 if op == "months_between" else 4
         fresh = xv is not None and yv is not None
         rows = max(t.shape[0] for t in (x, y) if t is not None and t.dim())
-        return _timed(f"{op} {label}", rows,
-                      lambda: num.calendar(x, xv, op, y, yv, xm, ym),
-                      lambda: num.calendar_plain(x, xv, op, y, yv, xm, ym),
-                      _nbytes(x, xv, y, yv) + rows * (out_size + fresh),
-                      None, _cv_err)
+        read = _nbytes(x, xv, y, yv) if fresh else _nbytes(x, y)
+        row = _timed(f"{op} {label}", rows,
+                     lambda: num.calendar(x, xv, op, y, yv, xm, ym),
+                     lambda: num.calendar_plain(x, xv, op, y, yv, xm, ym),
+                     read + rows * (out_size + fresh), None, _cv_err)
+        row["op"] = op
+        return row
 
-    one = torch.tensor(1, device=dev, dtype=torch.int32)
-    rows = [cal("l_shipdate, 1 (E5)", "add_months", c["ship"], None, one)]
-    rows.append(cal("o_orderdate, 3", "add_months", date, None, three))
-    rows.append(cal("o_orderdate, months, NULLs", "add_months", date, dvalid,
-                    c["months"], None))
-    rows.append(cal("1999-01-01, o_orderdate", "months_between", base, None,
-                    date, dvalid))
-    rows.append(cal("timestamps", "months_between", us, dvalid,
-                    us.flip(0), dvalid, True, True))
-    rows.append(cal("o_orderdate", "last_day", date, dvalid))
-    rows.append(cal("o_orderdate", "weekofyear", date, None))
-    rows.append(cal("timestamps", "weekofyear", us, None, xm=True))
-    entries.append(_expr_entry("calendar",
-                               "sail_tpu/plan/compiler.py:1177", rows))
+    rows = [cal("l_shipdate, 1 (E5)", "add_months", ship, None, one),
+            cal("o_orderdate, 3", "add_months", date, None, three),
+            cal("o_orderdate, months, NULLs", "add_months", date, dvalid,
+                c["months"], dvalid),
+            cal("1999-01-01, o_orderdate", "months_between", base, None,
+                date, dvalid),
+            cal("o_orderdate, 1999-01-01", "months_between", date, None,
+                base),
+            cal("timestamps", "months_between", us, dvalid, us.flip(0),
+                dvalid, True, True),
+            cal("o_orderdate", "last_day", date, dvalid),
+            cal("l_shipdate", "last_day", ship, None),
+            cal("o_orderdate", "weekofyear", date, None),
+            cal("l_shipdate", "weekofyear", ship, None),
+            cal("timestamps", "weekofyear", us, None, xm=True)]
+    regs = _instantiations(log, "calendar_kernel")
+    _print_instantiations("K15", regs, num.CALENDAR_OPS)
+    for op in num.CALENDAR_OPS:
+        for r in rows:
+            if r["op"] == op:
+                r["registers"] = _op_registers(regs,
+                                               num.CALENDAR_OPS.index(op))
+        # K15's headline, as when it was one kernel: add_months at 60M
+        entries.append(_expr_entry(
+            _by_op("calendar", op), "sail_tpu/plan/compiler.py:1177",
+            [r for r in rows if r["op"] == op],
+            enforce=op == "add_months"))
     del c
     torch.cuda.empty_cache()
     return entries
@@ -2803,8 +2870,89 @@ def check_chain_query(spark, name: str, sql: str, k16_too: bool) -> dict:
     return rows
 
 
+# Spark's casts of a float and IN with a NULL item, in one chain
+CAST_IN_SQL = ("SELECT CAST(f AS BIGINT), CAST(f AS INT), "
+               "CAST(f AS DECIMAL(12,2)), k IN (1, NULL) FROM t")
+CAST_IN_EDGES = (math.nan, math.inf, -math.inf, 1e30, -1e30, 3e9, -3e9)
+
+
+# rows of the cast and IN check: orders' count at SF10
+CAST_IN_ROWS = 15_000_000
+
+
+def _cast_in_table(lineitem: pa.Table) -> pa.Table:
+    """lineitem's first CAST_IN_ROWS rows as f = l_extendedprice / 100
+    (float64) with CAST_IN_EDGES planted in turn every 997th row, and k =
+    l_linenumber."""
+    lineitem = lineitem.slice(0, CAST_IN_ROWS)
+    f = _unscaled(lineitem.column("l_extendedprice")) / 100.0
+    for j, v in enumerate(CAST_IN_EDGES):
+        f[j::997 * len(CAST_IN_EDGES)] = v
+    return pa.table({"f": f, "k": lineitem.column("l_linenumber")})
+
+
+def _cast_in_spark(table: pa.Table) -> list:
+    """Spark's answers to CAST_IN_SQL, in numpy: (values, valid) a column.
+    A double to BIGINT and INT: toward zero, NaN 0, saturated; to
+    DECIMAL(12,2): rounded half up, NULL at NaN, +-inf and past 12 digits;
+    k IN (1, NULL): TRUE at 1, else NULL."""
+    f = table.column("f").to_numpy()
+    k = table.column("k").to_numpy()
+    fin = np.nan_to_num(f, nan=0.0)  # the infinities to the largest doubles
+    big = np.trunc(np.clip(fin, -2.0 ** 63, 2.0 ** 63 - 1024)).astype(np.int64)
+    big[f >= 2.0 ** 63] = (1 << 63) - 1
+    big[f <= -2.0 ** 63] = -(1 << 63)
+    small = np.trunc(np.clip(fin, -2.0 ** 31, 2.0 ** 31 - 1)).astype(np.int32)
+    y = f * 100.0
+    with np.errstate(invalid="ignore"):
+        r = np.sign(y) * np.floor(np.abs(y) + 0.5)
+        ok = np.isfinite(r) & (np.abs(r) < 1e12)
+    dec = np.where(ok, r, 0).astype(np.int64)
+    every = np.ones(len(f), dtype=bool)
+    return [(big, every), (small, every), (dec, ok),
+            (np.ones(len(f), dtype=bool), k == 1)]
+
+
+def check_cast_in_chain(lineitem: pa.Table) -> dict:
+    """Phase 14's cast and IN check: CAST_IN_SQL over CAST_IN_ROWS of
+    lineitem's rows with NaN, +-inf, +-1e30 and +-3e9 planted, as one
+    generated K16 program (F2I, F2I32, the decimal's bound, IN's NULL),
+    held to run_chain_plain (exactly) and its answer to Spark's (numpy);
+    then timed as a K16 row."""
+    from sail_tpu_torch import SparkSession
+    from sail_tpu_torch.ops import chain as chn
+
+    table = _cast_in_table(lineitem)
+    spark = SparkSession({"spark.sail.device": "cuda"})
+    spark.createDataFrame(table).createOrReplaceTempView("t")
+    with captured_chains() as got:
+        result = spark.sql(CAST_IN_SQL).toArrow()
+    torch.cuda.synchronize()
+    routes = [r["route"] for r in spark.last_chain_routes]
+    (ex, stage, child), = got["k16"]
+    names = {chn.OPCODES[ins[0]] for ins in stage.prog.instrs}
+    if routes != ["K16"] or not {"F2I", "F2I32", "ANDV"} <= names:
+        raise AssertionError(f"cast/IN: routes {routes}, ops {names}")
+    for j, (want, valid) in enumerate(_cast_in_spark(table)):
+        col = result.column(j).combine_chunks()
+        if not np.array_equal(col.is_valid().to_numpy(zero_copy_only=False),
+                              valid):
+            raise AssertionError(f"cast/IN column {j}: NULLs differ")
+        got_values = _unscaled(result.column(j)) if j == 2 else \
+            col.to_numpy(zero_copy_only=False)
+        if not np.array_equal(np.asarray(got_values)[valid], want[valid]):
+            raise AssertionError(f"cast/IN column {j}: values differ")
+    print(f"  cast/IN: {table.num_rows} rows equal Spark's answers "
+          f"({len(CAST_IN_EDGES)} edge values planted)", flush=True)
+    row = _k16_row("cast/IN K16", stage.prog, stage.chain_fn,
+                   ex._cols(child), child.device.sel, ("chain", "cast", False))
+    spark.stop()
+    return row
+
+
 def check_chain_kernels(tables: dict) -> dict:
-    """Phase 14: K16 and K17 over the SF tables (CHAIN_QUERIES)."""
+    """Phase 14: K16 and K17 over the SF tables (CHAIN_QUERIES), and the
+    cast and IN check."""
     from sail_tpu_torch import SparkSession
     from sail_tpu_torch.benchmarks.expr_queries import QUERIES as EXPR
     from sail_tpu_torch.benchmarks.tpch_queries import QUERIES as TPCH
@@ -2821,6 +2969,7 @@ def check_chain_kernels(tables: dict) -> dict:
                                       ).items():
             rows[k] += v
     spark.stop()
+    rows["chain"].append(check_cast_in_chain(tables["lineitem"]))
     torch.cuda.empty_cache()
     return rows
 
@@ -3467,8 +3616,9 @@ def main() -> int:
                     **({"shapes": e["shapes"]} if "shapes" in e else {}))
                for e in entries]
     for k in kernels:
-        if k["launches"] == 0 and k["name"] not in OFF_PATH and \
-                not k["name"].startswith(_unary_name("")):
+        if k["launches"] == 0 and not any(
+                k["name"] == o or o.endswith(":") and k["name"].startswith(o)
+                for o in OFF_PATH):
             raise AssertionError(f"{k['name']} launched on no query's path")
     full = {"main_path": report, "checks": checks, "sf": args.sf,
             "check_sf": args.check_sf, "window": win_report,

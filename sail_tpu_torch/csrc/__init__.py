@@ -98,10 +98,10 @@ _ENTRY = {
                                                  P]},
     "expr_math.cu": {"sail_math_unary": [P, I, I, P, LL, I, P, P, P],
                      "sail_round": [P, I, LL, I, I, I, I, D, P, I, P],
-                     "sail_math_binary": [P, I, I, I, P, P, I, I, I, P, LL,
-                                          I, I, P, P, I, P],
-                     "sail_calendar": [P, I, I, P, P, I, I, P, LL, I, P, P,
-                                       I, P]},
+                     "sail_math_binary": [P, I, I, P, P, I, I, P, I, D, LL,
+                                          LL, I, I, P, P, P],
+                     "sail_calendar": [P, I, P, P, I, P, I, LL, LL, I, P, P,
+                                       P, P, P]},
     "chain_jit.cu": {"sail_jit_compile": [P, P, P, I],
                      "sail_jit_result": [P],
                      "sail_jit_log": [P, P, LL],

@@ -34,19 +34,11 @@ __device__ __forceinline__ long long ipow10(int k) {
   return p;
 }
 
-// Column or scalar of type t, as int64 or as double with the decimal scale
-// applied.
+// Row i of a column of type t, as int64 (K13).
 __device__ __forceinline__ long long load_i(const void* p, int t, long long i) {
   if (t == kI32) return (long long)static_cast<const int*>(p)[i];
   if (t == kI64) return static_cast<const long long*>(p)[i];
   return (long long)static_cast<const double*>(p)[i];
-}
-
-__device__ __forceinline__ double load_d(const void* p, int t, int scale,
-                                         long long i) {
-  if (t == kF64) return static_cast<const double*>(p)[i];
-  double v = (double)load_i(p, t, i);
-  return scale ? v / kPow10[scale] : v;
 }
 
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
@@ -63,13 +55,22 @@ __device__ __forceinline__ long long floor_div_pow10(long long v, long long f) {
   return floor_div(v, f);
 }
 
-// Spark's non-ANSI cast of a double to a long: NaN is 0, out of range
-// saturates.
+// Spark's non-ANSI cast of a double to a long: toward zero, NaN is 0, out
+// of range saturates (the chain's F2I).
 __device__ __forceinline__ long long sat_i64(double v) {
   if (isnan(v)) return 0;
   if (v >= 9.2233720368547758e18) return LLONG_MAX;
   if (v <= -9.2233720368547758e18) return LLONG_MIN;
   return (long long)v;
+}
+
+// ... and to an int, as an int64 word (F2I32; SMALLINT and TINYINT keep
+// its low bits).
+__device__ __forceinline__ long long sat_i32(double v) {
+  if (isnan(v)) return 0;
+  if (v >= 2147483647.0) return 2147483647ll;
+  if (v <= -2147483648.0) return -2147483648ll;
+  return (long long)(int)v;
 }
 
 enum Unary {

@@ -14,6 +14,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .numeric import saturating_long
+
 CV = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 
@@ -144,7 +146,8 @@ def int_div(a: CV, b: CV) -> CV:
     zero = bd == 0
     safe = torch.where(zero, torch.ones_like(bd), bd)
     if a[0].is_floating_point():
-        data = (a[0] / safe).to(torch.int64)
+        # the quotient to a long as Spark casts a double (the chain's F2I)
+        data = saturating_long(a[0] / safe)
     else:
         data = torch.div(a[0], safe.to(a[0].dtype), rounding_mode="trunc")
     validity = merge_validity(a[1], b[1])

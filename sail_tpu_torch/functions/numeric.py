@@ -5,8 +5,8 @@ The builders of ``plan/compiler.py`` call these wrappers: ``math_unary``
 (K12), ``round_number`` (K13), ``math_binary`` (K14) and ``calendar``
 (K15), all in ``csrc/expr_math.cu``. A CPU tensor takes the plain version
 (``*_plain``); a CUDA tensor launches the kernel or raises. Each entry
-point counts its launches in ``.launches`` (K12 also by operation, in
-``math_unary.by_op``); a column of zero rows launches nothing.
+point counts its launches in ``.launches`` (K12, K14 and K15 also by
+operation, in ``.by_op``); a column of zero rows launches nothing.
 
 Columns are int32, int64 (integers, and decimals as unscaled int64 with
 their scale passed beside them) or float64; int8, int16 and bool widen to
@@ -243,13 +243,20 @@ _FLOAT_FNS = {
 }
 
 
-def _saturating_long(v: torch.Tensor) -> torch.Tensor:
-    """A double to a long as Spark's non-ANSI cast: NaN 0, out of range
-    saturated."""
+def saturating_long(v: torch.Tensor) -> torch.Tensor:
+    """A double to a long as Spark's non-ANSI cast: toward zero, NaN 0,
+    out of range saturated (``expr_math.cuh`` ``sat_i64``)."""
     inside = v.nan_to_num(0.0).clamp(-_TWO63, 9223372036854774784.0)
     out = inside.to(torch.int64)
     out = torch.where(v >= _TWO63, _INT64_MAX, out)
     return torch.where(v <= -_TWO63, _INT64_MIN, out)
+
+
+def saturating_int(v: torch.Tensor) -> torch.Tensor:
+    """A double to an int as Spark's non-ANSI cast: toward zero, NaN 0,
+    out of range saturated at the int's limits (``sat_i32``)."""
+    return v.nan_to_num(0.0).clamp(-2.0 ** 31, 2.0 ** 31 - 1).to(
+        torch.int32)
 
 
 def math_unary_plain(x: torch.Tensor, valid: Optional[torch.Tensor],
@@ -270,7 +277,7 @@ def math_unary_plain(x: torch.Tensor, valid: Optional[torch.Tensor],
     if op in ("floor", "ceil"):
         if x.is_floating_point():
             fn = torch.floor if op == "floor" else torch.ceil
-            return _saturating_long(fn(x)), valid
+            return saturating_long(fn(x)), valid
         f = 10 ** scale
         v = x.to(torch.int64)
         if op == "floor":
@@ -464,13 +471,36 @@ def math_binary_plain(x: torch.Tensor, xv: Optional[torch.Tensor],
     return out.to(x.dtype), _merge(xv, yv)
 
 
+def _host_scalar(t: Optional[torch.Tensor]) -> bool:
+    """A 0-d tensor on the host: a literal's value, read without waiting
+    for the card."""
+    return t is not None and t.dim() == 0 and t.device.type == "cpu"
+
+
+def _column_on(x: torch.Tensor, xv: Optional[torch.Tensor], n: int, dev):
+    """A first operand as a column of ``n`` rows on ``dev`` (a scalar
+    repeated: a literal's filled in from the host, without a wait for the
+    card), with its validity."""
+    if _host_scalar(x):
+        x = torch.full((n,), x.item(), dtype=x.dtype, device=dev)
+    elif x.dim() == 0:
+        x = x.reshape(1).expand(n).contiguous()
+    if xv is not None:
+        xv = _row_validity(xv.to(dev), x)
+    return x, xv
+
+
 def math_binary(x: torch.Tensor, xv: Optional[torch.Tensor],
                 y: torch.Tensor, yv: Optional[torch.Tensor], op: str,
                 x_scale: int = 0, y_scale: int = 0) -> CV:
     """K14: ``math_binary_plain`` as a kernel on the card
-    (``csrc/expr_math.cu`` ``sail_math_binary``); each operand a column or
-    a 0-d scalar. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel or raises."""
+    (``csrc/expr_math.cu`` ``sail_math_binary``: one instantiation an
+    operation and operand types, picked on the host). Each operand is a
+    column or a 0-d scalar; a scalar second operand is read once a
+    thread, from the host where it lies there (a literal's value: power
+    by a 2 there takes the square's instantiation) or on the card; a
+    scalar first operand beside a column is repeated into one. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
     if op not in _BINARY_CODE or not (0 <= x_scale <= 18 and
                                       0 <= y_scale <= 18):
         raise ValueError(f"math_binary: {op!r} at scales {x_scale}, "
@@ -483,7 +513,8 @@ def math_binary(x: torch.Tensor, xv: Optional[torch.Tensor],
         raise TypeError("math_binary: nanvl of a non-double first operand")
     if x.device.type == "cpu" and y.device.type == "cpu":
         return math_binary_plain(x, xv, y, yv, op, x_scale, y_scale)
-    dev = _check_cuda("math_binary", x, xv, y, yv)
+    dev = _check_cuda("math_binary", *(t for t in (x, xv, y, yv)
+                                       if not _host_scalar(t)))
     n = _rows(x, xv, y, yv)
     scalar = x.dim() == 0 and y.dim() == 0
     out_dtype = x.dtype if op in BITWISE_OPS else torch.float64
@@ -494,23 +525,42 @@ def math_binary(x: torch.Tensor, xv: Optional[torch.Tensor],
     out_valid = torch.empty(n, dtype=torch.bool, device=dev) \
         if fresh and (op == "log" or xv is not None or yv is not None) \
         else None
-    xf, yf = _flat(x), _flat(y)
-    vxf, vyf = _row_validity(xv, x), _row_validity(yv, y)
+    xf, vxf = _column_on(x, xv, n, dev)
+    yv = None if yv is None else yv.to(dev)
+    y_scalar = y.dim() == 0
+    yf, vyf = _flat(y), _row_validity(yv, y)
+    y_word, y_double = 0, 0.0
+    if y_scalar and _host_scalar(y):  # a literal's value, read here
+        yf, value = None, y.item()
+        if op in BITWISE_OPS:
+            y_word = int(value)
+        elif y.is_floating_point() or not y_scale:
+            y_double = float(value)
+        else:  # one division, as the kernel divides a column's
+            y_double = float(value) / float(10 ** y_scale)
+    # else a scalar on the card is read there, once a thread
+    square = op == "power" and y_scalar and yf is None and y_double == 2.0
+    if out_valid is None:  # the kernel reads no validity
+        vxf = vyf = None
     if n:
         with torch.cuda.device(dev):
             csrc.check(csrc.entry("expr_math.cu", "sail_math_binary")(
-                xf.data_ptr(), _TYPE_CODE[x.dtype], x_scale, int(x.dim() == 0),
-                _ptr(vxf), yf.data_ptr(), _TYPE_CODE[y.dtype], y_scale,
-                int(y.dim() == 0), _ptr(vyf), n, _BINARY_CODE[op],
-                _TYPE_CODE[out_dtype], out.data_ptr(), _ptr(out_valid),
-                csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "math_binary")
+                xf.data_ptr(), _TYPE_CODE[x.dtype], x_scale, _ptr(vxf),
+                _ptr(yf), _TYPE_CODE[y.dtype], y_scale, _ptr(vyf),
+                int(y_scalar), y_double, y_word, n, _BINARY_CODE[op],
+                int(square), out.data_ptr(), _ptr(out_valid),
+                csrc.stream_ptr(dev)), "math_binary")
         math_binary.launches += 1
+        math_binary.by_op[op].launches += 1
     validity = out_valid if fresh else (xv if yv is None else yv)
     return _shape_back(out, scalar), _shape_back(validity, scalar) \
         if fresh else validity
 
 
 math_binary.launches = 0
+# the launches of each operation's instantiations
+math_binary.by_op = {op: types.SimpleNamespace(launches=0)
+                     for op in BINARY_OPS}
 
 
 # ---------------------------------------------------------------------------
@@ -563,12 +613,38 @@ def calendar_plain(x: torch.Tensor, xv: Optional[torch.Tensor], op: str,
     return _div(torch.round(out * 1e8), 1e8), _merge(xv, yv)
 
 
+_CALENDAR_TABLES = {}
+
+
+def calendar_tables(device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15's tables, built once a device and kept: the first day (days
+    since 1970-01-01) of each month of 1900-2100 and of 2101-01 (int32),
+    and the month (its index in the first) of each day from 1900-01-01 to
+    2100-12-31 (int16)."""
+    device = torch.device(device)
+    tables = _CALENDAR_TABLES.get(device)
+    if tables is None:
+        j = torch.arange(201 * 12 + 1, dtype=torch.int64)
+        starts = days_from_civil(1900 + j // 12, j % 12 + 1,
+                                 torch.ones_like(j))
+        lengths = starts[1:] - starts[:-1]
+        of_day = torch.repeat_interleave(j[:-1], lengths)
+        tables = _CALENDAR_TABLES[device] = (
+            starts.to(torch.int32).to(device),
+            of_day.to(torch.int16).to(device))
+    return tables
+
+
 def calendar(x: torch.Tensor, xv: Optional[torch.Tensor], op: str,
              y: Optional[torch.Tensor] = None,
              yv: Optional[torch.Tensor] = None, x_micros: bool = False,
              y_micros: bool = False) -> CV:
     """K15: ``calendar_plain`` as a kernel on the card
-    (``csrc/expr_math.cu`` ``sail_calendar``). A CPU tensor takes the
+    (``csrc/expr_math.cu`` ``sail_calendar``: one instantiation an
+    operation and operand kinds, over the tables of
+    ``calendar_tables``). A scalar second operand is read once a thread,
+    from the host where it lies there (a literal's value) or on the card; a
+    scalar first operand beside a column is repeated into one. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernel or raises."""
     if op not in _CALENDAR_CODE:
         raise ValueError(f"calendar: {op!r}")
@@ -582,9 +658,10 @@ def calendar(x: torch.Tensor, xv: Optional[torch.Tensor], op: str,
                 (y_micros and y.dtype != torch.int64))):
         raise TypeError("calendar: int32 or int64 days (or months), int64 "
                         "microseconds")
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and (y is None or y.device.type == "cpu"):
         return calendar_plain(x, xv, op, y, yv, x_micros, y_micros)
-    dev = _check_cuda("calendar", x, xv, y, yv)
+    dev = _check_cuda("calendar", *(t for t in (x, xv, y, yv)
+                                    if not _host_scalar(t)))
     n = _rows(x, xv, y, yv)
     scalar = x.dim() == 0 and (y is None or y.dim() == 0)
     out = torch.empty(n, dtype=torch.float64 if op == "months_between"
@@ -592,26 +669,42 @@ def calendar(x: torch.Tensor, xv: Optional[torch.Tensor], op: str,
     fresh = xv is not None and yv is not None
     out_valid = torch.empty(n, dtype=torch.bool, device=dev) if fresh \
         else None
-    xf, yf = _flat(x), _flat(y)
-    vxf = _row_validity(xv, x)
+    xv = None if xv is None else xv.to(dev)
+    yv = None if yv is None else yv.to(dev)
+    xf, vxf = _column_on(x, xv, n, dev)
+    yf = _flat(y)
     vyf = None if y is None else _row_validity(yv, y)
+    word = 0
+    if y is not None and y.dim() == 0:
+        if _host_scalar(y):  # a literal's value, read here
+            yf, word = None, int(y.item())
+        else:  # read on the card, once a thread, as an int64
+            yf = yf.to(torch.int64)
+    if not fresh:  # the kernel reads no validity
+        vxf = vyf = None
     if n:
         with torch.cuda.device(dev):
             csrc.check(csrc.entry("expr_math.cu", "sail_calendar")(
                 xf.data_ptr(), _MICROS if x_micros else _TYPE_CODE[x.dtype],
-                int(x.dim() == 0), _ptr(vxf), _ptr(yf),
+                _ptr(vxf), _ptr(yf),
                 0 if y is None else
                 _MICROS if y_micros else _TYPE_CODE[y.dtype],
-                int(y is None or y.dim() == 0), _ptr(vyf), n,
-                _CALENDAR_CODE[op], out.data_ptr(), _ptr(out_valid),
-                csrc.grid_for(n, dev), csrc.stream_ptr(dev)), "calendar")
+                _ptr(vyf), int(y is not None and y.dim() == 0), word, n,
+                _CALENDAR_CODE[op], *(t.data_ptr()
+                                      for t in calendar_tables(dev)),
+                out.data_ptr(), _ptr(out_valid), csrc.stream_ptr(dev)),
+                "calendar")
         calendar.launches += 1
+        calendar.by_op[op].launches += 1
     validity = out_valid if fresh else (xv if yv is None else yv)
     return _shape_back(out, scalar), _shape_back(validity, scalar) \
         if fresh else validity
 
 
 calendar.launches = 0
+# the launches of each operation's instantiations
+calendar.by_op = {op: types.SimpleNamespace(launches=0)
+                  for op in CALENDAR_OPS}
 
 
 # ---------------------------------------------------------------------------

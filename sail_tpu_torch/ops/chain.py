@@ -183,8 +183,8 @@ def strict(name: str, *args: Frag, dtype: torch.dtype,
 # opcodes: each has its emitter in chain_codegen.EMITTERS
 OPCODES = (
     "COL", "CONST", "ADD_I", "SUB_I", "MUL_I", "ADD_F", "SUB_F", "MUL_F",
-    "DIV_F", "WRAP", "I2F", "I2F32", "F2F32", "F2I", "NE0_I", "NE0_F",
-    "TRUNC_F", "RHA_F", "CMP_I", "CMP_F", "AND3", "OR3", "NOT", "ISNULL",
+    "DIV_F", "WRAP", "I2F", "I2F32", "F2F32", "F2I", "F2I32", "NE0_I",
+    "NE0_F", "RHA_F", "CMP_I", "CMP_F", "AND3", "OR3", "NOT", "ISNULL",
     "ISNOTNULL", "SELECT", "SELV", "PASSV", "SETV", "ANDV", "BAND_NV", "BOR",
     "NULLIF_I", "NULLIF_F", "EQNS_I", "EQNS_F", "EXT_I", "EXT_F", "SDIV_I",
     "SDIV_F", "SMOD_I", "SMOD_F", "PMODFIX_I", "PMODFIX_F", "RESCALE",
@@ -378,8 +378,7 @@ class _Emitter:
         if o in ("ne0",):
             return self.ins("NE0" + sfx, a)
         if o in ("and3", "or3", "not", "isnull", "isnotnull", "select",
-                 "selv", "passv", "setv", "andv", "band_nv", "bor", "trunc_f",
-                 "rha_f", "floordiv", "floormod", "ymadd"):
+                 "selv", "passv", "setv", "andv", "band_nv", "bor", "rha_f", "floordiv", "floormod", "ymadd"):
             return self.ins(o.upper(), a, b, c, i0=int(f.imm[0]) if f.imm
                             else 0)
         if o == "rescale":
@@ -431,9 +430,11 @@ class _Emitter:
                 return self.ins("F2F32", v) if dst == torch.float32 and \
                     src == torch.float64 else v
             return self.ins("I2F32" if dst == torch.float32 else "I2F", v)
-        if is_float(src):
-            v = self.ins("F2I", v)
-            return self._narrow(v, dst)
+        if is_float(src):  # Spark's cast: a long's or an int's limits
+            if dst == torch.int64:
+                return self.ins("F2I", v)
+            v = self.ins("F2I32", v)
+            return v if dst == torch.int32 else self._narrow(v, dst)
         src_bits = 1 if src == torch.bool else _INT_BITS.get(src, 64)
         dst_bits = _INT_BITS.get(dst, 64)
         return v if src_bits <= dst_bits else self._narrow(v, dst)
@@ -706,11 +707,11 @@ def _interpret(prog: ChainProgram, cols: Sequence, sel: torch.Tensor,
         elif name in ("I2F32", "F2F32"):
             out, valid = x.to(torch.float32).to(torch.float64), va
         elif name == "F2I":
-            out, valid = x.to(torch.int64), va
+            out, valid = NUM.saturating_long(x), va
+        elif name == "F2I32":
+            out, valid = _i(NUM.saturating_int(x)), va
         elif name in ("NE0_I", "NE0_F"):
             out, valid = _i(x != 0), va
-        elif name == "TRUNC_F":
-            out, valid = torch.trunc(x), va
         elif name == "RHA_F":
             out, valid = torch.sign(x) * torch.floor(torch.abs(x) + 0.5), va
         elif name in ("CMP_I", "CMP_F"):

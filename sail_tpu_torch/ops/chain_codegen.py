@@ -373,10 +373,10 @@ EMITTERS: Dict[str, Callable] = {
     "I2F": _unary("wrd((double){a})"),
     "I2F32": _unary("wrd((double)(float){a})"),
     "F2F32": _unary("wrd((double)__double2float_rn(dbl({a})))"),
-    "F2I": _unary("__double2ll_rz(dbl({a}))"),
+    "F2I": _unary("sat_i64(dbl({a}))"),
+    "F2I32": _unary("sat_i32(dbl({a}))"),
     "NE0_I": _unary("(long long)({a} != 0)"),
     "NE0_F": _unary("(long long)(dbl({a}) != 0.0)"),
-    "TRUNC_F": _unary("wrd(trunc(dbl({a})))"),
     "RHA_F": lambda w, ins: (
         "{{ const double y = dbl({a}); "
         "const double s = (double)((y > 0.0) - (y < 0.0)); "

@@ -291,30 +291,46 @@ class ExprCompiler:
             return Compiled(to_date, dst,
                             frag=None if days is None else ch.conv(days, tdt))
 
+        # a value past the target decimal's precision is NULL, as in Spark
+        fit = _decimal_fit(src, dst)
+
         def fn(cols):
             x, validity = child.fn(cols)
+            fits = None
             if src_scale is not None and dst_scale is None:
                 x = x.to(torch.float64) / (10.0 ** src_scale)
             if dst_scale is not None:
-                if src_scale is not None:
-                    if dst_scale > src_scale:
-                        x = x * (10 ** (dst_scale - src_scale))
-                    elif dst_scale < src_scale:
-                        x = _rescale_down(x, src_scale - dst_scale)
-                elif x.is_floating_point():
-                    y = x * (10.0 ** dst_scale)
-                    x = (torch.sign(y) * torch.floor(torch.abs(y) + 0.5)
-                         ).to(torch.int64)
+                if src_scale is not None and dst_scale < src_scale:
+                    x = _rescale_down(x, src_scale - dst_scale)
+                    if fit is not None:
+                        fits = _within(x, fit)
+                elif src_scale is not None or not x.is_floating_point():
+                    if src_scale is None:
+                        x = x.to(torch.int64)
+                    if fit is not None:  # before the multiply can wrap
+                        fits = _within(x, fit)
+                    up = dst_scale - (src_scale or 0)
+                    if up:
+                        x = x * (10 ** up)
                 else:
-                    x = x.to(torch.int64) * (10 ** dst_scale)
+                    y = x * (10.0 ** dst_scale)
+                    r = (torch.sign(y) * torch.floor(torch.abs(y) + 0.5)
+                         ).to(torch.float64)
+                    if fit is not None:
+                        fits = _within(r, fit)
+                    x = NUM.saturating_long(r)
             elif isinstance(dst, dt.BooleanType):
                 x = x != 0
             elif not tdt.is_floating_point and x.is_floating_point():
-                x = torch.trunc(x)
+                x = _spark_int(x, tdt)
+            elif fit is not None:  # a decimal held as a double
+                fits = _within(x.to(torch.float64), fit)
+            if fits is not None:
+                validity = fits if validity is None else validity & fits
             return x.to(tdt), validity
 
         return Compiled(fn, dst, frag=_f_cast(child.frag, src_scale,
-                                              dst_scale, dst, tdt))
+                                              dst_scale, dst, tdt, fit))
 
     def _cast_from_string(self, child: Compiled, dst: dt.DataType
                           ) -> Compiled:
@@ -579,9 +595,13 @@ class ExprCompiler:
             child = args[0]
             if not _is_str(child.dtype):
                 return None
-            items = set()
+            # a NULL item: the rows no item matches are NULL (Spark)
+            items, null_item = set(), False
             for a in args[1:]:
-                items.update(_dict_strings(dict_of(a)))
+                if _is_null_literal(a):
+                    null_item = True
+                else:
+                    items.update(_dict_strings(dict_of(a)))
             values = dict_of(child)
 
             def build():
@@ -591,7 +611,8 @@ class ExprCompiler:
                     torch.bool)
 
             lut = self._cached([values], ("in", tuple(sorted(items))), build)
-            return by_code(child, lut, dt.BooleanType())
+            return by_code(child, lut, dt.BooleanType(),
+                           lut if null_item else None)
 
         length = _ARROW_LENGTHS.get(name)
         if length is not None:
@@ -947,6 +968,80 @@ def _promote(x: torch.Tensor, y: torch.Tensor):
     return x.to(t), y.to(t)
 
 
+def _spark_int(x: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    """A float cast to an integer type as Spark's non-ANSI cast: toward
+    zero, NaN 0, out of range saturated at a long's limits (BIGINT) or an
+    int's (INT; SMALLINT and TINYINT then keep that int's low 16 or 8
+    bits, as Spark's ``toInt(b).toShort``)."""
+    x = x.to(torch.float64)
+    if tdt == torch.int64:
+        return NUM.saturating_long(x)
+    return NUM.saturating_int(x).to(tdt)
+
+
+# the integer digits a value of each integer type may hold
+_INT_DIGITS = {dt.ByteType: 3, dt.ShortType: 5, dt.IntegerType: 10,
+               dt.LongType: 19, dt.BooleanType: 1}
+
+
+def _decimal_fit(src: dt.DataType, dst: dt.DataType):
+    """The bound a cast of ``src`` to the decimal ``dst`` holds its value
+    to (Spark gives NULL past the target's precision; NaN and the
+    infinities fail it too), or None where no value of ``src`` can pass
+    it (a widening cast: no check). The bound is on the unscaled int64
+    before the scale is raised (|x| < bound) or after it is lowered and
+    rounded; on the rounded scaled double of a float (also within int64's
+    range); or on the value of a decimal held as a double (scale over
+    6). An int64 holds at most 19 digits, so a decimal held in one past
+    that is read as having 19."""
+    if not isinstance(dst, dt.DecimalType):
+        return None
+    p, s = dst.precision, dst.scale
+    src_scale = _decimal_scale(src)
+    if src_scale is not None:  # rounding may add a digit
+        src_digits = min(src.precision, 19) - src_scale + (src_scale > s)
+    elif isinstance(src, dt.DecimalType):
+        src_digits = src.precision - src.scale + (src.scale > s)
+    elif isinstance(src, (dt.FloatType, dt.DoubleType)):
+        src_digits = None
+    elif type(src) in _INT_DIGITS:
+        src_digits = _INT_DIGITS[type(src)]
+    else:
+        return None
+    if src_digits is not None and src_digits <= p - s:
+        return None
+    if _decimal_scale(dst) is None:  # held as a double: its value
+        return float(10 ** (p - s))
+    if src_digits is None or src_scale is None and \
+            isinstance(src, dt.DecimalType):  # a double: rounded, scaled
+        return float(min(10 ** p, 1 << 63))
+    up = s - (src_scale or 0)
+    # lowered and rounded: the result; raised: the source before the
+    # multiply (then under 10^18: a bound past 19 digits is none)
+    return 10 ** p if up <= 0 else 10 ** max(p - up, 0)
+
+
+def _within(x: torch.Tensor, bound) -> torch.Tensor:
+    """-bound < x < bound (false at NaN)."""
+    return (x < bound) & (x > -bound)
+
+
+def _host_literal(c: Compiled) -> Optional[torch.Tensor]:
+    """A literal operand's value as a 0-d host tensor (else None): the
+    kernels read a scalar on the host, and this one needs no wait for the
+    card."""
+    f = c.frag
+    return None if f is None or f.op != "const" else ch.host_value(f)[0]
+
+
+def _is_null_literal(c: Compiled) -> bool:
+    """``c`` is a NULL literal (its fragment a constant that is not
+    valid)."""
+    f = c.frag
+    return f is not None and f.op == "const" and len(f.imm) == 2 and \
+        not f.imm[1]
+
+
 def _rescale_down(x: torch.Tensor, digits: int) -> torch.Tensor:
     """Divide an unscaled decimal by 10**digits, rounding half away from
     zero."""
@@ -1022,31 +1117,55 @@ def _f_to_days(f: Optional[ch.Frag], d: dt.DataType) -> Optional[ch.Frag]:
 
 
 def _f_cast(x: Optional[ch.Frag], src_scale, dst_scale, dst: dt.DataType,
-            tdt: torch.dtype) -> Optional[ch.Frag]:
-    """``_compile_cast``'s numeric fn."""
+            tdt: torch.dtype, fit) -> Optional[ch.Frag]:
+    """``_compile_cast``'s numeric fn: a float to an integer through
+    F2I/F2I32 (Spark's cast), a value past ``fit`` NULL."""
     if x is None:
         return None
+    ok = None
     if src_scale is not None and dst_scale is None:
         x = _f_over(x, 10.0 ** src_scale)
     if dst_scale is not None:
-        if src_scale is not None:
-            if dst_scale > src_scale:
-                x = _f_times(x, 10 ** (dst_scale - src_scale))
-            elif dst_scale < src_scale:
-                x = None if x.dtype != _I64 else ch.op(
-                    "rescale", x, dtype=_I64, nullable=x.nullable,
-                    imm=(src_scale - dst_scale,))
-        elif ch.is_float(x.dtype):
-            y = _f_times(x, 10.0 ** dst_scale)
-            x = None if y is None else ch.conv(ch.op(
-                "rha_f", y, dtype=_F64, nullable=y.nullable), _I64)
+        if src_scale is not None and dst_scale < src_scale:
+            if x.dtype != _I64:
+                return None
+            x = ch.op("rescale", x, dtype=_I64, nullable=x.nullable,
+                      imm=(src_scale - dst_scale,))
+            ok = _f_within(x, fit)
+        elif src_scale is not None or not ch.is_float(x.dtype):
+            if src_scale is None:
+                x = ch.conv(x, _I64)
+            ok = _f_within(x, fit)
+            up = dst_scale - (src_scale or 0)
+            if up:
+                x = _f_times(x, 10 ** up)
         else:
-            x = _f_times(ch.conv(x, _I64), 10 ** dst_scale)
+            y = _f_times(x, 10.0 ** dst_scale)
+            if y is None:
+                return None
+            r = ch.op("rha_f", y, dtype=_F64, nullable=y.nullable)
+            ok = _f_within(r, fit)
+            x = ch.conv(r, _I64)
     elif isinstance(dst, dt.BooleanType):
         x = ch.op("ne0", x, dtype=torch.bool, nullable=x.nullable)
-    elif not tdt.is_floating_point and ch.is_float(x.dtype):
-        x = ch.op("trunc_f", x, dtype=x.dtype, nullable=x.nullable)
-    return None if x is None else ch.conv(x, tdt)
+    elif fit is not None:  # a decimal held as a double
+        ok = _f_within(ch.conv(x, _F64), fit)
+    if x is None:
+        return None
+    if ok is not None:
+        x = ch.op("andv", x, ok, dtype=x.dtype, nullable=True)
+    return ch.conv(x, tdt)
+
+
+def _f_within(x: ch.Frag, bound) -> Optional[ch.Frag]:
+    """``_within``: -bound < x < bound, never NULL (None: no bound)."""
+    if bound is None:
+        return None
+    lt = ch.strict("cmp", x, ch.const(bound, x.dtype), dtype=torch.bool,
+                   imm=("<",))
+    gt = ch.strict("cmp", x, ch.const(-bound, x.dtype), dtype=torch.bool,
+                   imm=(">",))
+    return ch.op("band_nv", lt, gt, dtype=torch.bool, nullable=False)
 
 
 def _f_by_code(f: Optional[ch.Frag], lut: torch.Tensor,
@@ -1407,17 +1526,27 @@ def _f_trunc(date_arg: Compiled, fmt: str, out_is_ts: bool):
 
 
 def _in_builder(args, r):
+    """``x IN (items)`` as Spark evaluates it: TRUE where an item equals
+    x; NULL where x is NULL, or where no item does and an item is NULL;
+    else FALSE."""
     child, items = args[0], args[1:]
     s = _decimal_scale(child.dtype)
 
     def fn(cols):
         xd, xv = child.fn(cols)
         hit = torch.zeros(xd.shape, dtype=torch.bool, device=xd.device)
+        unknown = None  # an item is NULL in the row
         for it in items:
             yd, yv = it.fn(cols)
             si = _decimal_scale(it.dtype)
             x, y = xd, yd
-            if s is not None or si is not None:
+            if _in_doubles(x, s, y, si):
+                if s is not None:
+                    x = NUM._div(x.to(torch.float64), 10.0 ** s)
+                if si is not None:
+                    y = NUM._div(y.to(torch.float64), 10.0 ** si)
+                x = x.to(torch.float64)
+            elif s is not None or si is not None:
                 sc = max(s or 0, si or 0)
                 if s is not None:
                     x = x * (10 ** (sc - s))
@@ -1426,32 +1555,59 @@ def _in_builder(args, r):
             eq = x == y.to(x.dtype)
             if yv is not None:
                 eq = eq & yv
+                unknown = ~yv if unknown is None else unknown | ~yv
             hit = hit | eq
+        if unknown is not None:
+            known = hit | ~unknown
+            xv = known if xv is None else xv & known
         return hit, xv
 
     return fn, _f_in(child, items, s)
 
 
+def _in_doubles(x, s, y, si) -> bool:
+    """IN compares x and an item as doubles where a decimal meets a
+    float (a tensor or a fragment each; s, si: their decimal scales)."""
+    def fl(v):
+        return v.dtype.is_floating_point
+    return (s is not None and fl(y)) or (si is not None and fl(x))
+
+
 def _f_in(child: Compiled, items, s):
-    """IN over items that read no column: each compared as its literal,
-    converted on the host as the closure converts it."""
+    """``_in_builder``'s fn. An item known on the host (a literal, or an
+    expression of literals) is compared as its literal, converted there as
+    the closure converts it; a NULL one leaves the rows no item matched
+    NULL (one ANDV). Any other item (a column, a subquery's value, read
+    when the kernel runs) joins by a Kleene OR of its comparison, which
+    is NULL where the item is."""
     if child.frag is None:
         return None
     x0 = child.frag
-    hit = None
+    hit, null_item, rest = None, False, []
     for it in items:
-        if it.frag is not None and it.frag.op == "const":
-            yd, yv = ch.host_value(it.frag)  # no wait for the card
+        f = it.frag
+        if f is not None and f.op == "const" and len(f.imm) > 2:
+            rest.append(it)  # a subquery's value, an argument of the kernel
+            continue
+        if f is not None and f.op == "const":
+            yd, yv = ch.host_value(f)  # no wait for the card
         else:
             try:
                 yd, yv = it.fn([])
             except IndexError:  # it reads a column
-                return None
+                rest.append(it)
+                continue
         if yd.dim() != 0:
             return None
         si = _decimal_scale(it.dtype)
         x, y = x0, yd
-        if s is not None or si is not None:
+        if _in_doubles(x, s, y, si):
+            if s is not None:
+                x = _f_over(x, 10.0 ** s)
+            if si is not None:
+                y = NUM._div(y.to(torch.float64), 10.0 ** si)
+            x = ch.conv(x, _F64)
+        elif s is not None or si is not None:
             sc = max(s or 0, si or 0)
             if s is not None and sc != s:
                 x = _f_times(x, 10 ** (sc - s))
@@ -1460,7 +1616,8 @@ def _f_in(child: Compiled, items, s):
         if x is None:
             return None
         if yv is not None and not bool(yv):
-            continue  # a NULL item matches no row
+            null_item = True  # matches no row
+            continue
         lit = ch.const_of(y.to(x.dtype).cpu(), None)
         if lit is None:
             return None
@@ -1469,7 +1626,32 @@ def _f_in(child: Compiled, items, s):
                                                dtype=torch.bool)
     if hit is None:
         hit = ch.const(False, torch.bool)
-    return ch.op("setv", hit, x0, dtype=torch.bool, nullable=x0.nullable)
+    out = ch.op("setv", hit, x0, dtype=torch.bool, nullable=x0.nullable)
+    if null_item:
+        out = ch.op("andv", out, hit, dtype=torch.bool, nullable=True)
+    for it in rest:
+        if it.frag is None:
+            return None
+        si = _decimal_scale(it.dtype)
+        x, y = x0, it.frag
+        if _in_doubles(x, s, y, si):
+            if s is not None:
+                x = _f_over(x, 10.0 ** s)
+            if si is not None:
+                y = _f_over(y, 10.0 ** si)
+            x = ch.conv(x, _F64)
+        elif s is not None or si is not None:
+            sc = max(s or 0, si or 0)
+            if s is not None and sc != s:
+                x = _f_times(x, 10 ** (sc - s))
+            if si is not None and sc != si:
+                y = _f_times(y, 10 ** (sc - si))
+        if x is None or y is None:
+            return None
+        eq = ch.strict("cmp", x, ch.conv(y, x.dtype), dtype=torch.bool,
+                       imm=("==",))
+        out = ch.strict("or3", out, eq, dtype=torch.bool)
+    return out
 
 
 def _rtf_member_builder(args, r):
@@ -1533,9 +1715,13 @@ def _math_binary(op: str):
         sa, sb = _decimal_scale(a.dtype) or 0, _decimal_scale(b.dtype) or 0
         tdt = physical_torch_dtype(r.dtype)
 
+        hx, hy = _host_literal(a), _host_literal(b)
+
         def fn(cols):
             (x, xv), (y, yv) = a.fn(cols), b.fn(cols)
-            out, ok = NUM.math_binary(x, xv, y, yv, op, sa, sb)
+            out, ok = NUM.math_binary(x if hx is None else hx, xv,
+                                      y if hy is None else hy, yv, op, sa,
+                                      sb)
             return out.to(tdt), ok
 
         return fn, _f_math_binary(a.frag, b.frag, op, sa, sb, tdt)
@@ -1629,12 +1815,17 @@ def _calendar_builder(op: str):
                 return _local_us(data, c.dtype), True
             return data, False
 
+        # a literal operand on the host (a timestamp's local µs made there)
+        hx = _host_literal(a)
+        hy = None if b is None else _host_literal(b)
+
         def fn(cols):
             xd, xv = a.fn(cols)
-            x, x_us = operand(a, xd)
+            x, x_us = operand(a, xd if hx is None else hx)
             if b is None:
                 return NUM.calendar(x, xv, op, x_micros=x_us)
             yd, yv = b.fn(cols)
+            yd = yd if hy is None else hy
             if op == "add_months":  # a count of months
                 return NUM.calendar(x, xv, op, yd, yv, x_us)
             y, y_us = operand(b, yd)

@@ -36,9 +36,13 @@ from torch_tpch_common import assert_same_result, reference_session
 TABLE = chain_table()
 # the kinds whose every expression the reference computes as Spark does
 # (ROADMAP Queue C lists the rest: casts of NaN and infinities to
-# integers, logarithms of x <= 0, rounding to negative digits)
+# integers, logarithms of x <= 0, rounding to negative digits, and IN
+# over a list with a NULL or of decimals beside a double, which
+# test_torch_cast_in.py holds to Spark)
 REFERENCE_QUERIES = {k: v for k, v in CHAIN_QUERIES.items()
-                     if k not in ("cast", "math")}
+                     if k not in ("cast", "math", "in")}
+REFERENCE_QUERIES["in"] = (
+    "SELECT i32 IN (1, 2, 3, 0), dec IN (1.25, 0.05, 0.0) FROM t")
 REFERENCE_QUERIES["cast"] = (
     "SELECT CAST(i32 AS BIGINT), CAST(i64 AS INT), CAST(i32 AS DOUBLE), "
     "CAST(i8 AS BOOLEAN), CAST(b AS INT), CAST(i16 AS DECIMAL(10,2)), "

@@ -46,8 +46,7 @@ CSRC = pathlib.Path(cg.__file__).parents[1] / "csrc"
 ULPS_KINDS = ("math", "calendar", "keyless_expr")
 
 # chain.cuh on the host: the device qualifiers emptied, the intrinsics the
-# card computes in hardware as the host computes them (a double cast to an
-# integer out of range or NaN gives INT64_MIN there, as torch on the CPU)
+# card computes in hardware as the host computes them
 HOST_SHIM = r"""
 #define SAIL_CHAIN_HOST 1
 #include <climits>
@@ -77,18 +76,13 @@ inline unsigned __float_as_uint(float x) {
   return u;
 }
 inline float __double2float_rn(double x) { return (float)x; }
-inline long long __double2ll_rz(double x) {
-  if (!(x > -9223372036854775808.0 && x < 9223372036854775808.0))
-    return LLONG_MIN;
-  return (long long)x;
-}
 """
 
 
 def _synthetic():
     """A program of the opcodes no test query reaches (float NULLIF, <=>
-    and pmod's fix-up, a float cast to bool, PASSV) over chain_table's
-    float64 and int32 columns."""
+    and pmod's fix-up, a float cast to bool and to a narrow integer,
+    PASSV) over chain_table's float64 and int32 columns."""
     f = ch.col(6, torch.float64, True)
     i = ch.col(3, torch.int32, True)
     g = ch.strict("mul", f, ch.const(0.5, torch.float64),
@@ -98,9 +92,39 @@ def _synthetic():
             ch.op("pmodfix", ch.strict("smod", f, g, dtype=torch.float64), g,
                   dtype=torch.float64, nullable=True),
             ch.conv(f, torch.bool),
+            ch.conv(f, torch.int16),
             ch.op("passv", ch.conv(i, torch.int64), f, dtype=torch.int64,
                   nullable=True)]
     return ch.build_program([], outs, "cpu")
+
+
+# a float64 column at the edges of Spark's casts, and each cast's answer:
+# toward zero, NaN 0, saturated at a long's or an int's limits, SMALLINT
+# and TINYINT the int's low bits
+CAST_EDGES = [float("nan"), float("inf"), float("-inf"), 1e30, -1e30, 3e9,
+              -3e9, 2.7, -2.7, 2147483647.5, -2147483648.9, 9.3e18, -9.3e18,
+              65535.0, 128.0, 0.0]
+_TOP, _BOTTOM = (1 << 63) - 1, -(1 << 63)
+_INT_TOP, _INT_BOTTOM = (1 << 31) - 1, -(1 << 31)
+CAST_WANT = {
+    torch.int64: [0, _TOP, _BOTTOM, _TOP, _BOTTOM, 3_000_000_000,
+                  -3_000_000_000, 2, -2, 2147483647, -2147483648,
+                  _TOP, _BOTTOM, 65535, 128, 0],
+    torch.int32: [0, _INT_TOP, _INT_BOTTOM, _INT_TOP, _INT_BOTTOM, _INT_TOP,
+                  _INT_BOTTOM, 2, -2, _INT_TOP, _INT_BOTTOM, _INT_TOP,
+                  _INT_BOTTOM, 65535, 128, 0],
+    torch.int16: [0, -1, 0, -1, 0, -1, 0, 2, -2, -1, 0, -1, 0, -1, 128, 0],
+    torch.int8: [0, -1, 0, -1, 0, -1, 0, 2, -2, -1, 0, -1, 0, -1, -128, 0],
+}
+
+
+def _float_casts():
+    """The program of a float64 column cast to each integer width (F2I,
+    F2I32 and WRAP), over CAST_EDGES."""
+    f = ch.col(0, torch.float64, False)
+    prog = ch.build_program([], [ch.conv(f, t) for t in CAST_WANT], "cpu")
+    hb = xl._positional(ai.from_arrow(pa.table({"f": CAST_EDGES}), "cpu"))
+    return prog, xl.LocalExecutor._cols(hb), hb.device.sel
 
 
 def _k16_as_k17_chain(ex, p, stage, child):
@@ -137,6 +161,7 @@ def programs():
     hb = xl._positional(ai.from_arrow(TABLE, "cpu"))
     out["synthetic"] = [(_synthetic(), xl.LocalExecutor._cols(hb),
                          hb.device.sel)]
+    out["float_casts"] = [_float_casts()]
     return out
 
 
@@ -238,20 +263,27 @@ def host_rows(programs, tmp_path_factory):
     return out
 
 
+def _host_outputs(prog, cols, sel, fn, gen):
+    """The row body built on the host over every row: its outputs and
+    selection."""
+    n = sel.shape[0]
+    outs = [(torch.empty(n, dtype=d),
+             torch.empty(n, dtype=torch.bool) if nullable else None)
+            for d, nullable in prog.outputs]
+    sel_out = torch.empty(n, dtype=torch.bool)
+    words, keep = cg.arguments(gen, prog, cols, sel, outs, sel_out)
+    fn(ctypes.byref(words), n)
+    del keep
+    return ch._outputs(prog, cols, outs), sel_out
+
+
 @pytest.mark.parametrize("case", sorted(set(CHAIN_QUERIES) |
-                                        set(REDUCE_QUERIES) | {"synthetic"}))
+                                        set(REDUCE_QUERIES) |
+                                        {"synthetic", "float_casts"}))
 def test_host_row_bodies_equal_plain(programs, host_rows, case):
     assert programs[case], case
     for (prog, cols, sel), (fn, gen) in zip(programs[case], host_rows[case]):
-        n = sel.shape[0]
-        outs = [(torch.empty(n, dtype=d),
-                 torch.empty(n, dtype=torch.bool) if nullable else None)
-                for d, nullable in prog.outputs]
-        sel_out = torch.empty(n, dtype=torch.bool)
-        words, keep = cg.arguments(gen, prog, cols, sel, outs, sel_out)
-        fn(ctypes.byref(words), n)
-        del keep
-        got = ch._outputs(prog, cols, outs)
+        got, sel_out = _host_outputs(prog, cols, sel, fn, gen)
         want, want_sel = ch.run_chain_plain(prog, cols, sel)
         assert torch.equal(sel_out, want_sel)
         for g, w in zip(got, want):
@@ -259,6 +291,21 @@ def test_host_row_bodies_equal_plain(programs, host_rows, case):
                 ulps_close(g, w)
             else:
                 same_cv(g, w)
+
+
+def test_generated_float_casts_saturate_as_spark(programs, host_rows):
+    """The generated F2I (sat_i64) and F2I32 (sat_i32, then WRAP for
+    SMALLINT and TINYINT), built on the host: NaN 0, out of range
+    saturated, as Spark casts a double (the card's __double2ll_rz gave
+    INT64_MIN at NaN)."""
+    (prog, cols, sel), = programs["float_casts"]
+    (fn, gen), = host_rows["float_casts"]
+    got, _ = _host_outputs(prog, cols, sel, fn, gen)
+    names = {ch.OPCODES[ins[0]] for ins in prog.instrs}
+    assert {"F2I", "F2I32", "WRAP"} <= names
+    for (data, valid), (dtype, want) in zip(got, CAST_WANT.items()):
+        assert valid is None and data.dtype == dtype
+        assert data.tolist() == want, dtype
 
 
 @pytest.mark.parametrize("case", sorted(SORT_QUERIES))

@@ -446,19 +446,18 @@ def test_wrappers_refuse_unknown_operations():
         num.math_binary(x, None, x, None, "&")
 
 
-def _k12_table():
-    """K12's source: the op names of ``enum Unary`` (expr_math.cuh), in
-    order, and those of the dispatch table ``SAIL_UNARY_TABLE``
-    (expr_math.cu), from which ``sail_math_unary`` picks an instantiation
-    a call."""
+def _dispatch(enum_name: str, macro: str):
+    """The op names of ``enum <enum_name>`` (expr_math.cuh), in order, and
+    those of the dispatch table ``<macro>`` (expr_math.cu) from which an
+    entry point picks an instantiation a call."""
     import pathlib
     import re
     csrc = pathlib.Path(num.__file__).parents[1] / "csrc"
     header = (csrc / "expr_math.cuh").read_text()
-    body = re.search(r"enum Unary \{(.*?)\};", header, re.S).group(1)
+    body = re.search(rf"enum {enum_name} {{(.*?)}};", header, re.S).group(1)
     enum = [x.split("=")[0].strip() for x in body.split(",") if x.strip()]
     source = (csrc / "expr_math.cu").read_text()
-    table = re.search(r"#define SAIL_UNARY_TABLE\(X\)(.*?)\n\n", source,
+    table = re.search(rf"#define {macro}\(X\)(.*?)\n\n", source,
                       re.S).group(1)
     return enum, re.findall(r"X\((k\w+)\)", table)
 
@@ -468,7 +467,7 @@ def test_every_unary_op_has_an_instantiation():
     (``functions/numeric.py`` UNARY_OPS, each code its position) is the
     enum member of that code in expr_math.cuh, and is in the dispatch
     table of expr_math.cu once: it has its own instantiations."""
-    enum, table = _k12_table()
+    enum, table = _dispatch("Unary", "SAIL_UNARY_TABLE")
     assert len(enum) == len(num.UNARY_OPS)
     assert set(num.UNARY_OPS) <= set(tcomp._BUILDERS)
     for op, member in zip(num.UNARY_OPS, enum):
@@ -476,6 +475,57 @@ def test_every_unary_op_has_an_instantiation():
                                                                    member)
         assert table.count(member) == 1, member
     assert len(table) == len(enum)
+
+
+_BINARY_MEMBERS = {"atan2": "kAtan2", "hypot": "kHypot", "power": "kPower",
+                   "log": "kLogBase", "&": "kAnd", "|": "kOr", "^": "kXor",
+                   "shiftleft": "kShiftLeft", "shiftright": "kShiftRight",
+                   "nanvl": "kNanvl"}
+_CALENDAR_MEMBERS = {"add_months": "kAddMonths",
+                     "months_between": "kMonthsBetween",
+                     "last_day": "kLastDay", "weekofyear": "kWeekOfYear"}
+
+
+@pytest.mark.parametrize("ops,members,enum_name,macro", [
+    (num.BINARY_OPS, _BINARY_MEMBERS, "Binary", "SAIL_BINARY_TABLE"),
+    (num.CALENDAR_OPS, _CALENDAR_MEMBERS, "Calendar", "SAIL_CALENDAR_TABLE"),
+], ids=["K14", "K15"])
+def test_every_binary_and_calendar_op_has_an_instantiation(ops, members,
+                                                            enum_name, macro):
+    """Every op the compiler sends to ``math_binary`` (K14) and
+    ``calendar`` (K15), each code its position in BINARY_OPS or
+    CALENDAR_OPS, is the enum member of that code in expr_math.cuh and is
+    in its dispatch table in expr_math.cu once: it has its own
+    instantiations."""
+    enum, table = _dispatch(enum_name, macro)
+    assert [members[op] for op in ops] == enum
+    for member in enum:
+        assert table.count(member) == 1, member
+    assert len(table) == len(enum)
+
+
+def test_calendar_tables_are_the_months_of_1900_to_2100():
+    """K15's tables, built once on the host: the days of the first of each
+    month of 1900-2100 and of 2101-01, and each day's month from
+    1900-01-01 to 2100-12-31 (expr_math.cu kDay0, kDays)."""
+    import pathlib
+    import re
+    starts, of_day = num.calendar_tables("cpu")
+    first = datetime.date(1970, 1, 1)
+    want = [(datetime.date(1900 + j // 12, j % 12 + 1, 1) - first).days
+            for j in range(201 * 12 + 1)]
+    assert starts.dtype == torch.int32 and starts.tolist() == want
+    assert of_day.dtype == torch.int16
+    assert of_day.shape[0] == want[-1] - want[0]
+    for day in (0, 59, 365 * 70 + 17, of_day.shape[0] - 1):
+        d = datetime.date(1900, 1, 1) + datetime.timedelta(days=day)
+        assert int(of_day[day]) == (d.year - 1900) * 12 + d.month - 1
+    source = (pathlib.Path(num.__file__).parents[1] / "csrc" /
+              "expr_math.cu").read_text()
+    assert int(re.search(r"kDay0 = (-?\d+)", source).group(1)) == want[0]
+    assert int(re.search(r"kDays = (\d+)", source).group(1)) == \
+        of_day.shape[0]
+    assert num.calendar_tables("cpu")[0] is starts
 
 
 # cbrt's edge cases: zeros, subnormals (the smallest, and an exact cube
@@ -690,6 +740,109 @@ def test_k15_matches_plain_on_card(cuda, op):
         assert _cv_equal(got, want), (op, x.dtype)
 
 
+def _validity_pairs(v):
+    return ((v, None), (None, v), (v, v), (None, None))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", num.BINARY_OPS)
+def test_k14_instantiations_match_plain_on_card(cuda, op):
+    """Each K14 instantiation (op, first operand's type, second's type or
+    a scalar, power's square) at 100,000 rows with the edge values (NaN,
+    infinities, INT64_MIN, shift counts past 63), held to
+    ``math_binary_plain`` within 8 ulp: columns aligned (16 B vectors) and
+    a row off (one row at a time), each validity given or not, a scalar
+    on the host and on the card."""
+    c = _edge_columns(cuda, 100_001)
+    counts = c["c"]
+    on_host = torch.tensor  # a literal's value, as the compiler passes it
+    if op in num.BITWISE_OPS:
+        xs = [(c["l"], 0), (c["i"], 0)]
+        ys = [(counts, 0), (counts.to(torch.int32), 0),
+              (on_host(65), 0), (on_host(-3, dtype=torch.int32), 0),
+              (torch.tensor(70, device=cuda), 0)]
+    elif op == "nanvl":
+        xs = [(c["d"], 0)]
+        ys = [(c["m"], 2), (c["i"], 0), (c["d"].flip(0), 0),
+              (on_host(1.5, dtype=torch.float64), 0)]
+    else:
+        xs = [(c["d"], 0), (c["m"], 2), (c["i"], 0), (c["l"], 0)]
+        ys = [(c["d"].flip(0), 0), (c["m"], 2), (c["i"], 0), (c["l"], 0),
+              (on_host(2, dtype=torch.int32), 0),
+              (on_host(2.0, dtype=torch.float64), 0),
+              (on_host(250), 2), (torch.tensor(-1.5, device=cuda,
+                                               dtype=torch.float64), 0),
+              (torch.tensor(250, device=cuda), 2)]
+    rows = 100_000
+    for x, sx in xs:
+        for y, sy in ys:
+            for lo in (0, 1):
+                xc = x[lo:lo + rows]
+                yc = y if y.dim() == 0 else y[lo:lo + rows]
+                for xv, yv in _validity_pairs(c["v"][lo:lo + rows]):
+                    if y.dim() == 0 and yv is not None:
+                        yv = c["v"][lo]  # a scalar's validity: one bool
+                    got = num.math_binary(xc, xv, yc, yv, op, sx, sy)
+                    want = num.math_binary_plain(xc, xv, yc, yv, op, sx,
+                                                 sy)
+                    assert _cv_equal(got, want), (op, x.dtype, sx, y.dtype,
+                                                  y.dim(), lo)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", num.CALENDAR_OPS)
+def test_k15_instantiations_match_plain_on_card(cuda, op):
+    """Each K15 instantiation (op, the operands' kinds: int32 or int64
+    days, microseconds, months, a scalar) at 100,000 rows of days from
+    1833 to 2134 (outside the month tables too), held to
+    ``calendar_plain`` exactly: aligned and a row off, with validities and
+    without, a scalar on the host and on the card."""
+    c = _edge_columns(cuda, 100_001)
+    days, v = c["days"], c["v"]
+    us = days.to(torch.int64) * 86_400_000_000 + \
+        (c["c"] * 431_234_567) % 86_400_000_000
+    xs = [(days, False), (days.to(torch.int64), False), (us, True)]
+    if op == "add_months":
+        ys = [(c["i"] % 3000, False), ((c["i"] % 300).to(torch.int64), False),
+              (torch.tensor(-13, dtype=torch.int32), False),
+              (torch.tensor(1, device=cuda), False)]
+    elif op == "months_between":
+        ys = [(days.flip(0), False), (days.flip(0).to(torch.int64), False),
+              (us.flip(0), True),
+              (torch.tensor(10592, dtype=torch.int32), False),
+              (torch.tensor(10592, dtype=torch.int32, device=cuda), False),
+              (torch.tensor(915_148_800_000_123, dtype=torch.int64), True),
+              (torch.tensor(915_148_800_000_123, device=cuda), True)]
+    else:
+        ys = [(None, False)]
+    rows = 100_000
+    for x, xm in xs:
+        for y, ym in ys:
+            for lo in (0, 1):
+                xc = x[lo:lo + rows]
+                yc = y if y is None or y.dim() == 0 else y[lo:lo + rows]
+                for xv, yv in _validity_pairs(v[lo:lo + rows]):
+                    if y is None:
+                        yv = None
+                    elif y.dim() == 0 and yv is not None:
+                        yv = v[lo]
+                    got = num.calendar(xc, xv, op, yc, yv, xm, ym)
+                    want = num.calendar_plain(xc, xv, op, yc, yv, xm, ym)
+                    assert _cv_equal(got, want), (op, x.dtype, xm, lo)
+    if op not in ("add_months", "months_between"):
+        return
+    # a scalar first operand beside a column, on the host and on the card
+    y, ym = ys[0]
+    for x in (torch.tensor(10592, dtype=torch.int32),
+              torch.tensor(-40_000, device=cuda)):
+        for lo in (0, 1):
+            yc, yvc = y[lo:lo + rows], v[lo:lo + rows]
+            got = num.calendar(x, v[lo], op, yc, yvc, False, ym)
+            want = num.calendar_plain(x.to(cuda), v[lo], op, yc, yvc, False,
+                                      ym)
+            assert _cv_equal(got, want), (op, x.device, lo)
+
+
 @pytest.mark.gpu
 def test_a_literal_validity_broadcasts_on_card(cuda):
     """A 0-d validity (a literal's, merged into a column's) beside a
@@ -704,3 +857,75 @@ def test_a_literal_validity_broadcasts_on_card(cuda):
     assert not bool(got[1].any())
     got = num.calendar(c["days"], no, "add_months", c["i"] % 50, c["v"])
     assert got[1].shape == c["days"].shape and not bool(got[1].any())
+
+
+# literal operands of K14 and K15 in either place, a timestamp's too
+_LITERAL_OPERANDS = [
+    ("power(d, 2)", "math_binary", (False, True)),
+    ("power(2, m)", "math_binary", (True, False)),
+    ("shiftleft(1, i)", "math_binary", (True, False)),
+    ("l & 7", "math_binary", (False, True)),
+    ("add_months(dt, 3)", "calendar", (False, True)),
+    ("add_months(DATE '2000-01-31', s)", "calendar", (True, False)),
+    ("months_between(DATE '1999-01-01', dt)", "calendar", (True, False)),
+    ("months_between(dt, TIMESTAMP '1999-01-01 10:30:00')", "calendar",
+     (False, True)),
+]
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("expr,kernel,literal", _LITERAL_OPERANDS,
+                         ids=[e for e, _, _ in _LITERAL_OPERANDS])
+def test_literal_operands_reach_k14_and_k15_from_the_host(table, device,
+                                                          expr, kernel,
+                                                          literal,
+                                                          monkeypatch):
+    """On the closures' route the compiler hands K14 and K15 each literal
+    operand as a 0-d tensor on the host (a timestamp's as local µs made
+    there), and on the card a call then waits for nothing: no read-back
+    of a scalar, no copy of one from the host (CUDA's sync debug mode
+    raises on either)."""
+    from sail_tpu_torch import SparkSession
+    from torch_chain_common import PerOp
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    spark = SparkSession({"spark.sail.device": device})
+    spark.createDataFrame(table).createOrReplaceTempView("t")
+    wrapped, calls = getattr(num, kernel), []
+
+    def spy(*args, **kwargs):
+        x, y = args[0], args[2] if kernel == "math_binary" else \
+            (args[3] if len(args) > 3 else kwargs.get("y"))
+        calls.append(tuple(t.dim() == 0 and t.device.type == "cpu"
+                           for t in (x, y)))
+        if device != "cuda":
+            return wrapped(*args, **kwargs)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return wrapped(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    class Spied:  # the compiler's view of functions/numeric.py
+        def __getattr__(self, name):
+            return spy if name == kernel else getattr(num, name)
+
+    monkeypatch.setattr(tcomp, "NUM", Spied())
+    with PerOp():
+        got = _column(spark, expr)
+    assert calls and all(c == literal for c in calls), calls
+    want = _column(port_session({"t": table}), expr)
+    assert _same(got, want), expr
+
+
+@pytest.mark.parametrize("name", sorted(
+    __import__("sail_tpu_torch.benchmarks.expr_variants",
+               fromlist=["VARIANTS"]).VARIANTS))
+def test_expr_variants_apply_to_the_source(name):
+    """Each design variant that benchmarks/expr_variants.py times still
+    replaces lines that occur once in csrc/expr_math.cu."""
+    from sail_tpu_torch.benchmarks import expr_variants
+    text = expr_variants.variant_source(name)
+    assert text != expr_variants._SOURCE.read_text()
