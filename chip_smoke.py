@@ -110,7 +110,8 @@ SF10 tables and phase 4's tables):
    (``unique_consecutive`` of the sorted word for K8, and of its first
    key alone, ``vals[perm]`` for the gather,
    ``index_put_`` of the live positions for the inverse, ``cumsum`` for
-   K10's scan, ``unfold(...).amin`` for K11 at 5 rows,
+   K10's scan, ``unfold(...).amin`` for K11 at 5 rows (and K11's float64
+   SUM and AVG over the same 5 rows, ``unfold(...).sum``),
    ``index_select`` of one 16 B element a row through ``inv_perm`` for
    the unpermute, ``index_copy_`` of the live ones where rows are dead),
    and that call with its gather
@@ -210,8 +211,22 @@ Then, after phase 10, on the same tables:
    for a grouping each key gathered and compared with its neighbour),
    with the sort of the words as the passes against the packed word, and
    the program's compile ms, registers and local bytes.
+16. Host aggregates (``benchmarks/host_agg_queries.py``): K19
+   (seg_moments, both passes) at H1's four bins of lineitem and keyless,
+   K20 (seg_pick, max_by's pick) at H2's grouping of l_suppkey, and K1's
+   bit kinds (``seg_reduce:and``, ``:or``, ``:xor``; binned at H1's bins,
+   runs at H2's grouping), each against its plain version (K19 within
+   HOST_FLOAT_RTOL, K20 and the bit kinds exactly), timed beside it, its
+   bound and a PyTorch call (``index_add_`` of K19's products, two
+   ``scatter_reduce_`` for K20); then H1, H1 keyless, H2 and H3 over
+   TPC-H at ``--check-sf`` on the card (phase 4's session), each
+   group held to the oracle (the copied ``functions/host_aggregates.py``
+   per-group functions over pandas groups, floats within HOST_FLOAT_RTOL);
+   then the four at ``--sf``, one warm-up and ``--runs`` timed runs each,
+   ``cuda_ms`` over ``--runs`` more, one profiled run (device busy
+   share), and every query launches what its ``KERNELS`` entry names.
 
-Every query of phases 5, 7, 10 and 13 prints its chains' routes (K16,
+Every query of phases 5, 7, 10, 13 and 16 prints its chains' routes (K16,
 K17, K18, per-op, with the first expression that kept a chain on its
 closures) and its sorts' (K18 or K3, packed or passes); a TPC-H, E or
 ClickBench Q30 chain that computes an expression must run K16, K17 or
@@ -221,7 +236,7 @@ before K18 (``PARENT_SYNCS``).
 It prints one ``{"kernels": [...]}`` JSON line (``launches`` is the sum
 over the TPC-H, window, expression and ClickBench queries of their
 one-run counts, ``launches_on_path`` gives each, ``qN``, ``wN``/``uN``,
-``eN`` and ``cbN``), the
+``eN``, ``hN`` and ``cbN``), the
 ``nvidia-smi`` name and power limit line, and last
 ``{"ok": true, "device": {...}}``.
 """
@@ -235,6 +250,7 @@ import decimal
 import gc
 import json
 import math
+import os
 import pathlib
 import re
 import subprocess
@@ -318,6 +334,8 @@ PROFILED_KERNELS = {
     "K16 chain": re.compile(r"\bsail_chain_k16\b"),
     "K17 chain_reduce": re.compile(r"\bsail_chain_k17\b"),
     "K18 chain_sort": re.compile(r"\bsail_chain_k18\b"),
+    "K19 seg_moments": re.compile(r"\bmoments_kernel<"),
+    "K20 seg_pick": re.compile(r"\bpick_kernel<"),
 }
 # float64 sums add in an order that varies with the atomics: relative error
 FLOAT_RTOL = 1e-12
@@ -1323,7 +1341,9 @@ def _counters():
                 ("calendar", num.calendar)) for op, c in fn.by_op.items()},
             "round_number": num.round_number,
             "chain": chn.run_chain, "chain_reduce": chn.run_chain_reduce,
-            "chain_sort": chn.run_chain_sort}
+            "chain_sort": chn.run_chain_sort,
+            "seg_moments": agg.seg_moments, "seg_pick": agg.seg_pick,
+            **{f"seg_reduce:{k}": c for k, c in agg.BIT_LAUNCHES.items()}}
 
 
 @contextlib.contextmanager
@@ -1900,6 +1920,26 @@ def check_window_kernels(tables: dict, dev) -> list:
                         ctx, gather()[0], None, None, lo, hi, "min"),
                         **({} if library_perm is None else
                            {"library_perm_ms": library_perm})}))
+                # its float SUM and AVG over the queries' band
+                # (framed_agg's sums over two finite offsets; the plain
+                # version of a 10,001-row frame takes 27 s a call)
+                if width > 16:
+                    continue
+                fs, _ = ctx.sorted_values(vals.to(torch.float64) / 100,
+                                          None)
+                zero = fs.new_zeros(hi)
+                for fn in ("sum", "avg"):
+                    rows["window_extreme"].append(_timed(
+                        f"K11 float64 {fn} over rows {lo}..{hi}, {label}", n,
+                        lambda: win.window_extreme(ctx, fs, None, None, lo,
+                                                   hi, fn),
+                        lambda: win.window_extreme_plain(ctx, fs, None, None,
+                                                         lo, hi, fn),
+                        n * (8 + 4 + 4 + 4 + 8 + 1),
+                        lambda: torch.cat([zero, fs, zero]).unfold(
+                            0, width, 1).sum(1),
+                        compare=_rel_err))
+                del fs, zero
         del ctx, keys, perm, inv, sorted_vals, part, order, vals, sel
         torch.cuda.empty_cache()
     # the moves where the order is near the stored one (W8's running total
@@ -3240,6 +3280,219 @@ def _print_routes(label: str, routes: list, strict: bool) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the host aggregates
+# ---------------------------------------------------------------------------
+
+# float64 answers and sums against the oracle and the plain versions: the
+# card's atomics add in another order than Python's and index_add_'s
+# (relative to max(|want|, 1))
+HOST_FLOAT_RTOL = 1e-9
+# the oracle's forked workers: its per-group Python takes about 76 s of
+# one core at SF1, over phase 16's budget of 120 s
+ORACLE_PROCESSES = max(1, len(os.sched_getaffinity(0)))
+HOST_REPLACES = {
+    "seg_moments": "sail_tpu/functions/host_aggregates.py:52",
+    "seg_pick": "sail_tpu/functions/host_aggregates.py:217",
+    "seg_reduce:": "sail_tpu/functions/host_aggregates.py:342",
+}
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """float64 within HOST_FLOAT_RTOL of max(|want|, 1), NaN-aware;
+    integers exactly. Returns the largest relative difference."""
+    if not got.dtype.is_floating_point:
+        return _max_abs_err(got, want)
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        raise AssertionError("NaN positions differ")
+    diff = ((got - want).abs() / want.abs().clamp_min(1.0))[~nan]
+    err = float(diff.max()) if diff.numel() else 0.0
+    if err > HOST_FLOAT_RTOL:
+        raise AssertionError(f"beyond relative {HOST_FLOAT_RTOL}: {err}")
+    return err
+
+
+def _host_contexts(tables: dict, dev):
+    """The groupings H1 and H2 make at this scale, as the executor makes
+    them: lineitem binned by (l_returnflag, l_linestatus) through K2,
+    keyless, and sorted by l_suppkey (K3, the pack pass, one sort); and
+    lineitem's columns the aggregates read."""
+    from sail_tpu_torch.columnar import arrow_interop as ai
+    from sail_tpu_torch.columnar.batch import Column
+    from sail_tpu_torch.ops import aggregate as agg
+    from sail_tpu_torch.spec import data_type as dt
+
+    li = tables["lineitem"]
+    hb = ai.from_arrow(li.select(["l_returnflag", "l_linestatus"]), dev)
+    flags = [hb.device.columns[c] for c in ("l_returnflag", "l_linestatus")]
+    domains = [len(hb.dicts[c]) for c in ("l_returnflag", "l_linestatus")]
+    n = li.num_rows
+    sel = torch.ones(n, dtype=torch.bool, device=dev)
+    direct, _ = agg.group_rows_direct(flags, domains, sel)
+    keyless, _ = agg.group_rows([], sel, 1)
+    supp = Column(_device_column(li, "l_suppkey", dev), None, dt.LongType())
+    by_supp, _ = agg.group_rows([supp], sel, n)
+    cols = {c: _device_column(li, c, dev) for c in (
+        "l_quantity", "l_extendedprice", "l_discount", "l_orderkey",
+        "l_partkey")}
+    return {"H1's bins": direct, "H1 keyless": keyless,
+            "H2's l_suppkey": by_supp}, cols, sel
+
+
+def check_host_agg_kernels(tables: dict, dev) -> list:
+    """Phase 16's kernels at H1's and H2's shapes (``tables``: TPC-H at
+    ``--sf``): K19 (seg_moments: both passes, qty and price as the
+    statistics read them, decimals unscaled at scale 2) at H1's bins and
+    keyless, K20 (seg_pick: max_by's key, l_extendedprice's K3 word, every
+    row valid) at H2's 100,000 suppliers, K1's bit kinds (and, or, xor of
+    l_orderkey) at H1's bins (the binned entry point) and H2's grouping
+    (the runs entry point). Each against its plain version (K19 within
+    HOST_FLOAT_RTOL, K20 and the bit kinds exactly), then timed beside
+    it, its bound (bytes once at HBM_BYTES_PER_S) and a PyTorch call
+    computing as much: K19's ``index_add_`` of the rows' products
+    (precomputed), K20's two ``scatter_reduce_`` (amax, then amin of the
+    row index where the key is the best); none for the bit kinds."""
+    from sail_tpu_torch.ops import aggregate as agg
+    from sail_tpu_torch.ops.sort import order_keys
+
+    print("phase 16: K19, K20 and K1's bit kinds against their plain "
+          "versions", flush=True)
+    ctxs, cols, sel = _host_contexts(tables, dev)
+    n = sel.shape[0]
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    qty = agg.Operand(cols["l_quantity"], ok, 2)
+    price = agg.Operand(cols["l_extendedprice"], None, 2)
+    rows = {"seg_moments": [], "seg_pick": [],
+            **{f"seg_reduce:{k}": [] for k in ("and", "or", "xor")}}
+    for label in ("H1's bins", "H1 keyless"):
+        ctx = ctxs[label]
+        ids, perm = agg.positions(ctx)
+        slots = agg.output_slots(ctx)
+        g = ids.to(torch.int64).clamp_max(slots)
+        x = qty.data.to(torch.float64) / 100
+        y = price.data.to(torch.float64) / 100
+        products = torch.stack([torch.ones_like(x), x, y], 1)
+        rows["seg_moments"].append(_timed(
+            f"K19 pass 1 (count, sums, extremes), qty and price, {label}, "
+            f"{slots} groups", n,
+            lambda: agg.seg_moments(ids, perm, slots, qty, price),
+            lambda: agg.seg_moments_plain(ids, perm, slots, qty, price),
+            n * (4 + 8 + 8 + 1) + slots * 7 * 8,
+            lambda: torch.zeros(slots + 1, 3, dtype=torch.float64,
+                                device=dev).index_add_(0, g, products),
+            compare=_rel_err))
+        cnt, sums, _ = agg.seg_moments_plain(ids, perm, slots, qty, price)
+        means = sums / cnt.clamp_min(1)[:, None].to(torch.float64)
+        dx, dy = x - means[g.clamp_max(slots - 1), 0], \
+            y - means[g.clamp_max(slots - 1), 1]
+        centred = torch.stack([dx * dx, dy * dy, dx * dy], 1)
+        rows["seg_moments"].append(_timed(
+            f"K19 pass 2 (three centred sums), {label}", n,
+            lambda: agg.seg_centred(ids, perm, slots, qty, price, means, 7),
+            lambda: agg.seg_centred_plain(ids, perm, slots, qty, price,
+                                          means, 7),
+            n * (4 + 8 + 8 + 1) + slots * (2 + 5) * 8,
+            lambda: torch.zeros(slots + 1, 3, dtype=torch.float64,
+                                device=dev).index_add_(0, g, centred),
+            compare=_rel_err))
+        del x, y, products, dx, dy, centred, g
+    for label in ("H1's bins", "H2's l_suppkey"):
+        ctx = ctxs[label]
+        binned = ctx.perm is None
+        for kind in ("and", "or", "xor"):
+            value = agg.Column(cols["l_orderkey"], ok, None)
+            if binned:
+                plain = lambda: agg.seg_reduce_plain(  # noqa: E731
+                    value.data, ctx.seg_ids, ctx.max_groups, kind, ok)
+                nbytes = n * (4 + 8 + 1) + ctx.max_groups * 8
+            else:
+                plain = lambda: agg.seg_reduce_runs_plain(  # noqa: E731
+                    ctx.sorted_ids, ctx.perm, ctx.n_live, ctx.max_groups,
+                    kind, value.data, ok)[0]
+                nbytes = n * (4 + 8 + 8 + 1) + \
+                    agg.output_slots(ctx) * (8 + 8)
+            rows[f"seg_reduce:{kind}"].append(_timed(
+                f"K1 {kind} of l_orderkey, {label}", n,
+                lambda: agg.agg_bit(ctx, value, kind).data, plain, nbytes))
+    ctx = ctxs["H2's l_suppkey"]
+    ids, perm = agg.positions(ctx)
+    slots = agg.output_slots(ctx)
+    keys = order_keys(cols["l_extendedprice"])
+    g = ids.to(torch.int64)
+    live = g < slots
+    gl, rl = g[live], perm[live]
+
+    def library():
+        best = torch.full((slots,), -(1 << 63), dtype=torch.int64, device=dev)
+        best.scatter_reduce_(0, gl, keys[rl], "amax")
+        at = keys[rl] == best[gl]
+        index = torch.full((slots,), (1 << 63) - 1, dtype=torch.int64,
+                           device=dev)
+        return index.scatter_reduce_(0, gl[at], rl[at], "amin")
+    rows["seg_pick"].append(_timed(
+        f"K20 max_by's pick, H2's l_suppkey, {slots} groups", n,
+        lambda: agg.seg_pick(ids, perm, slots, keys, ok, True),
+        lambda: agg.seg_pick_plain(ids, perm, slots, keys, ok, True),
+        n * (4 + 8 + 1 + 8) + 2 * slots * 8, library))
+    del ctxs, cols, keys, g, live, gl, rl
+    torch.cuda.empty_cache()
+    entries = []
+    for name, shapes in rows.items():
+        main = shapes[0]
+        src = "seg_reduce.cu" if name.startswith("seg_reduce:") \
+            else name + ".cu"
+        entries.append(dict(
+            name=name, source=f"sail_tpu_torch/csrc/{src}",
+            replaces=HOST_REPLACES["seg_reduce:" if name.startswith(
+                "seg_reduce:") else name],
+            max_abs_err=max(s["max_abs_err"] for s in shapes),
+            ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], library_ms=main["library_ms"],
+            shapes=shapes))
+    return entries
+
+
+def check_host_oracle(card, tables: dict, sf: float) -> dict:
+    """Phase 16's answers: H1-H3 (and H1 keyless) over ``tables`` (TPC-H
+    at ``sf``, registered in the card's session ``card``), each group held
+    to ``host_agg_queries.oracle`` (the copied module's per-group functions
+    over pandas groups of the same tables), floats within HOST_FLOAT_RTOL
+    of max(|want|, 1)."""
+    from sail_tpu_torch.benchmarks import host_agg_queries as hq
+
+    report = {}
+    for name, sql in hq.QUERIES.items():
+        t = time.perf_counter()
+        got = card.sql(sql).toArrow()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = hq.oracle(tables, name, ORACLE_PROCESSES)
+        oracle_s = time.perf_counter() - t
+        groups = hq.check(got, want, name, HOST_FLOAT_RTOL)
+        report[name] = dict(groups=groups, card_first_s=card_s,
+                            oracle_s=oracle_s)
+        print(f"{name.upper()} SF{sf}: {groups} groups equal the oracle's "
+              f"(card {card_s:.2f} s, oracle {oracle_s:.2f} s)", flush=True)
+    return report
+
+
+def run_host_path(tables: dict, sf: float, runs: int) -> dict:
+    """Phase 16's main path: H1-H3 and H1 keyless at ``sf``, one warm-up
+    and ``runs`` timed runs each (host clock), then ``cuda_ms`` over
+    ``runs`` more, and one profiled run (device busy share); every query
+    launches what ``host_agg_queries.KERNELS`` names."""
+    from sail_tpu_torch.benchmarks import host_agg_queries as hq
+
+    def check(name, result, spark):
+        sql = hq.QUERIES[name]
+        return {"cuda_ms": cuda_ms(lambda: spark.sql(sql).toArrow(), runs)}
+
+    return run_query_path(tables, sf, runs, True, hq.QUERIES, hq.KERNELS,
+                          check)
+
+
+# ---------------------------------------------------------------------------
 # phases 6 and 7: ClickBench
 # ---------------------------------------------------------------------------
 
@@ -3576,6 +3829,12 @@ def main() -> int:
     t = time.perf_counter()
     sort_rows = check_sort_kernels(tables)
     phases["sort_kernels"] = time.perf_counter() - t
+
+    t = time.perf_counter()
+    entries += check_host_agg_kernels(tables, dev)
+    host_checks = check_host_oracle(small, small_tables, args.check_sf)
+    host_report = run_host_path(tables, args.sf, args.runs)
+    phases["host_aggregates"] = time.perf_counter() - t
     small.stop()
     del tables, small_tables, small
     gc.collect()
@@ -3604,6 +3863,7 @@ def main() -> int:
                     spilling=csrc.jit_kernel.spilling)
     on_path = {**report["launches_on_path"], **win_report["launches_on_path"],
                **expr_report["launches_on_path"],
+               **host_report["launches_on_path"],
                **cb_report["launches_on_path"]}
     kernels = [dict(name=e["name"], route="cuda", source=e["source"],
                     replaces=e["replaces"],
@@ -3624,6 +3884,7 @@ def main() -> int:
             "check_sf": args.check_sf, "window": win_report,
             "window_checks": win_checks, "window_functions": win_functions,
             "expr": expr_report, "expr_checks": expr_checks,
+            "host": host_report, "host_checks": host_checks,
             "clickbench": cb_report,
             "clickbench_checks": cb_checks, "cb_rows": args.cb_rows,
             "cb_check_rows": args.cb_check_rows, "seed": args.seed,
@@ -3634,7 +3895,8 @@ def main() -> int:
         args.report.write_text(json.dumps(full, indent=1))
     print(json.dumps({k: full[k] for k in (
         "main_path", "checks", "sf", "check_sf", "window", "window_checks",
-        "window_functions", "expr", "expr_checks", "clickbench",
+        "window_functions", "expr", "expr_checks", "host", "host_checks",
+        "clickbench",
         "clickbench_checks", "cb_rows", "cb_check_rows", "seed",
         "phases_s", "chain_compiles")}))
     print(f"chain kernels compiled with NVRTC in this run: "

@@ -9,6 +9,9 @@ The PyTorch counterpart of ``sail_tpu/columnar/arrow_interop.py``:
   the int64 value whenever it fits)
 - strings/binary dictionary-encode; int32 codes upload, the dictionary
   stays on the host
+- a nested column (array, struct, map) uploads each row's position as its
+  int32 code, the Arrow column its dictionary on the host (the
+  reference's ``encode_host_column`` codes)
 """
 
 from __future__ import annotations
@@ -199,8 +202,11 @@ def from_arrow(table: pa.Table, device) -> HostBatch:
         elif isinstance(spec_t, dt.NullType):
             columns[name] = (np.zeros(n, dtype=np.int8), np.zeros(n, dtype=bool), spec_t)
         elif isinstance(spec_t, (dt.ArrayType, dt.StructType, dt.MapType)):
-            raise NotImplementedError(
-                f"column {name!r}: nested Arrow types are not ported yet")
+            # a nested value stays on the host: the card carries each
+            # row's position as its code, the column itself is the
+            # dictionary (codes need not name distinct values)
+            dicts[name] = arr
+            columns[name] = (np.arange(n, dtype=np.int32), validity, spec_t)
         else:
             # Temporal types upload as their epoch integers.
             if isinstance(spec_t, dt.DateType):
@@ -238,14 +244,18 @@ def to_arrow(batch: HostBatch) -> pa.Table:
         data = col.data[idx].cpu().numpy()
         validity = (col.validity[idx].cpu().numpy()
                     if col.validity is not None else None)
-        arr = _column_to_arrow(data, validity, col.dtype,
+        arr = column_to_arrow(data, validity, col.dtype,
                                batch.dicts.get(name), name in batch.dicts)
         arrays.append(arr)
         fields.append(pa.field(name, arr.type, nullable=True))
     return pa.Table.from_arrays(arrays, schema=pa.schema(fields))
 
 
-def _column_to_arrow(data, validity, d, dictionary, has_dict) -> pa.Array:
+def column_to_arrow(data, validity, d, dictionary, has_dict) -> pa.Array:
+    if isinstance(d, (dt.ArrayType, dt.StructType, dt.MapType)) and has_dict:
+        codes = pa.array(data.astype(np.int32),
+                         mask=None if validity is None else ~validity)
+        return dictionary.take(codes)
     if isinstance(d, (dt.StringType, dt.BinaryType)) and has_dict:
         codes = pa.array(data.astype(np.int32),
                          mask=None if validity is None else ~validity)

@@ -54,6 +54,24 @@ class Column:
         return f"Column({self.dtype.simple_string()}, n={self.data.shape[0]})"
 
 
+class StructData:
+    """A struct value kept as Arrow lays one out: a column of each field
+    (``fields``: (data, validity) pairs, a literal field's a 0-d tensor),
+    with each field's dictionary (``dicts``: a string field's, else None)
+    and, for a literal field, its value (``literals``: the Python value,
+    else None). It stands in for a column's data where a projection
+    computes ``struct(...)``; the struct itself is never NULL. Only a host
+    aggregate reads one (the arguments of a multi-argument aggregate):
+    the executor raises where one reaches any other consumer."""
+
+    __slots__ = ("fields", "dicts", "literals")
+
+    def __init__(self, fields, dicts, literals):
+        self.fields = list(fields)
+        self.dicts = list(dicts)
+        self.literals = list(literals)
+
+
 class DeviceBatch:
     """Named columns + selection mask. All tensors share one length."""
 

@@ -35,7 +35,8 @@ from typing import Dict, Tuple
 import torch
 
 _HERE = pathlib.Path(__file__).resolve().parent
-SOURCES = ("seg_reduce.cu", "direct_group.cu", "order_keys.cu",
+SOURCES = ("seg_reduce.cu", "seg_moments.cu", "seg_pick.cu",
+           "direct_group.cu", "order_keys.cu",
            "join_keys.cu", "join_probe.cu", "join_expand.cu", "bloom.cu",
            "window_bounds.cu", "window_ranks.cu", "window_scan.cu",
            "window_extreme.cu", "window_perm.cu", "expr_math.cu",
@@ -65,6 +66,9 @@ _ENTRY = {
     "seg_reduce.cu": {"sail_seg_reduce": [P, P, P, LL, I, I, I, P, P, I, P],
                       "sail_seg_reduce_runs": [P, P, P, P, P, I, I, I, P, P,
                                                P, P, I, P]},
+    "seg_moments.cu": {"sail_seg_moments": [I, P, P, LL, I, P, P, I, D, P,
+                                            P, I, D, I, P, P, P, P, I, P]},
+    "seg_pick.cu": {"sail_seg_pick": [P, P, LL, I, P, P, I, P, P, I, P]},
     "direct_group.cu": {"sail_direct_group":
                         [P, P, P, P, I, P, LL, I, P, P, I, P]},
     "order_keys.cu": {"sail_order_keys": [P, I, LL, I, P, I, P]},

@@ -7,7 +7,11 @@
 //
 // int sums wrap in two's complement (exact in any order); float64 min/max
 // propagate NaN, as XLA's min/max do. An empty segment holds the identity
-// (0, or the type's extreme).
+// (0, or the type's extreme). The bit folds (bit_and, bit_or, bit_xor:
+// kinds kAnd, kOr, kXor, identities -1, 0, 0) take int32 and int64 only
+// and are exact in any order, through 32- and 64-bit atomics in the
+// binned entry point; they replace the reference's per-group Python fold
+// (sail_tpu/functions/host_aggregates.py `_bit_fold`).
 //
 // sail_seg_reduce: the binned entry point, for direct (K2) and keyless
 // grouping, where a row's id is its bin and rows come in input order.
@@ -72,7 +76,7 @@
 
 namespace {
 
-enum Kind { kSum = 0, kMin = 1, kMax = 2 };
+enum Kind { kSum = 0, kMin = 1, kMax = 2, kAnd = 3, kOr = 4, kXor = 5 };
 
 __device__ __forceinline__ double canonical_nan() {
   return __longlong_as_double(0x7ff8000000000000LL);
@@ -83,6 +87,9 @@ struct Combine {
   __device__ __forceinline__ int operator()(int a, int b) const {
     if (K == kSum) return (int)((unsigned)a + (unsigned)b);
     if (K == kMin) return a < b ? a : b;
+    if (K == kAnd) return a & b;
+    if (K == kOr) return a | b;
+    if (K == kXor) return a ^ b;
     return a > b ? a : b;
   }
   __device__ __forceinline__ long long operator()(long long a,
@@ -90,6 +97,9 @@ struct Combine {
     if (K == kSum)
       return (long long)((unsigned long long)a + (unsigned long long)b);
     if (K == kMin) return a < b ? a : b;
+    if (K == kAnd) return a & b;
+    if (K == kOr) return a | b;
+    if (K == kXor) return a ^ b;
     return a > b ? a : b;
   }
   __device__ __forceinline__ double operator()(double a, double b) const {
@@ -108,15 +118,20 @@ template <int K>
 __device__ __forceinline__ void atomic_combine(int* addr, int v) {
   if (K == kSum) atomicAdd(addr, v);
   else if (K == kMin) atomicMin(addr, v);
+  else if (K == kAnd) atomicAnd(addr, v);
+  else if (K == kOr) atomicOr(addr, v);
+  else if (K == kXor) atomicXor(addr, v);
   else atomicMax(addr, v);
 }
 
 template <int K>
 __device__ __forceinline__ void atomic_combine(long long* addr, long long v) {
-  if (K == kSum)
-    atomicAdd(reinterpret_cast<unsigned long long*>(addr),
-              (unsigned long long)v);
+  unsigned long long* u = reinterpret_cast<unsigned long long*>(addr);
+  if (K == kSum) atomicAdd(u, (unsigned long long)v);
   else if (K == kMin) atomicMin(addr, v);
+  else if (K == kAnd) atomicAnd(u, (unsigned long long)v);
+  else if (K == kOr) atomicOr(u, (unsigned long long)v);
+  else if (K == kXor) atomicXor(u, (unsigned long long)v);
   else atomicMax(addr, v);
 }
 
@@ -577,6 +592,16 @@ cudaError_t dispatch_kind(int kind, const Args& args, T identity) {
     case kMax:
       return args.template run<T, kMax>(identity);
   }
+  if constexpr (!std::is_same<T, double>::value) {
+    switch (kind) {
+      case kAnd:
+        return args.template run<T, kAnd>(identity);
+      case kOr:
+        return args.template run<T, kOr>(identity);
+      case kXor:
+        return args.template run<T, kXor>(identity);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -599,7 +624,8 @@ cudaError_t dispatch(int dtype, int kind, const Args& args,
 
 }  // namespace
 
-// dtype: 0 = int32, 1 = int64, 2 = float64. kind: 0 sum, 1 min, 2 max.
+// dtype: 0 = int32, 1 = int64, 2 = float64. kind: 0 sum, 1 min, 2 max,
+// 3 and, 4 or, 5 xor (the last three: int32 and int64 only).
 // `identity` points to one host value of the dtype; `valid` may be null.
 // Returns the launch's cudaError_t.
 extern "C" int sail_seg_reduce(const void* vals, const void* seg,

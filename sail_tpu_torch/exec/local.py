@@ -42,7 +42,8 @@ import pyarrow as pa
 import torch
 
 from ..columnar import arrow_interop as ai
-from ..columnar.batch import Column, DeviceBatch, HostBatch, physical_torch_dtype
+from ..columnar.batch import (Column, DeviceBatch, HostBatch, StructData,
+                              physical_torch_dtype)
 from ..config import _DEFAULTS as config_defaults
 from ..config import get as config_get
 from ..config import truthy_value
@@ -54,6 +55,7 @@ from ..ops import join as joink
 from ..ops import runtime_filter as rtfk
 from ..ops import sort as sortk
 from ..ops import window as wink
+from . import host_aggs as hagg
 from ..plan import join_reorder as jr
 from ..plan import nodes as pn
 from ..plan import rex as rx
@@ -126,6 +128,9 @@ class _Stage(NamedTuple):
 
 # the most chain programs a session keeps
 _MAX_PROGRAMS = 512
+_STRUCT_UNPORTED = (
+    "a struct value outside the arguments of a host aggregate is not "
+    "ported yet: it waits for the slice that ports the host functions")
 
 
 class LocalExecutor:
@@ -305,6 +310,9 @@ class LocalExecutor:
                 new_cols = []
                 for c, tdt in zip(compiled, types):
                     d, v = c.fn(cols)
+                    if isinstance(d, StructData):  # a host aggregate's
+                        new_cols.append((d, None))
+                        continue
                     new_cols.append((_full(d.to(tdt), n),
                                      None if v is None else _full(v, n)))
                 cols = new_cols
@@ -492,7 +500,11 @@ class LocalExecutor:
             return chainop.run_chain(stage.prog, cols, sel)
         if stage.route == "refs":
             return [cols[k] for _, k in stage.prog.out_map], sel
-        return stage.chain_fn(cols, sel)
+        cols, sel = stage.chain_fn(cols, sel)
+        if consumer != "AggregateExec" and \
+                any(isinstance(d, StructData) for d, _ in cols):
+            raise NotImplementedError(_STRUCT_UNPORTED)
+        return cols, sel
 
     # -- leaves -------------------------------------------------------------
     def _exec_ScanExec(self, p: pn.ScanExec) -> HostBatch:
@@ -626,9 +638,6 @@ class LocalExecutor:
 
     # -- aggregation ----------------------------------------------------------
     def _exec_AggregateExec(self, p: pn.AggregateExec) -> HostBatch:
-        if any(a.fn.startswith("__host__") for a in p.aggs):
-            raise NotImplementedError(
-                "host-evaluated aggregates are not ported yet")
         chain, node = self._split_chain(p.input)
         child = self.run(node)
         stage = self._stage(chain, child, node, agg=p)
@@ -668,28 +677,50 @@ class LocalExecutor:
                     form=ctx.sort_form, keys=len(key_cols)))
         out_cols: Dict[str, Column] = {}
         out_dicts: Dict[str, pa.Array] = {}
+        # host aggregates reduce into the groups there are (a sorted
+        # grouping's count read once); the others' columns are cut to them
+        host = None
+        if any(hagg.host_name(a.fn) for a in p.aggs):
+            host = hagg.HostAgg(ctx, aggk.output_slots(ctx),
+                                self._dict_order, hagg.needed_sums(p.aggs))
+
+        def cut(t):
+            return t if host is None or t is None else t[:host.slots]
+
+        def cut_column(col: Column) -> Column:
+            return Column(cut(col.data), cut(col.validity), col.dtype)
         for j, (gi, g) in enumerate(zip(p.group_indices,
                                         aggk.group_key_output(ctx, keys))):
-            out_cols[_col_name(j)] = g
+            out_cols[_col_name(j)] = cut_column(g)
             if _col_name(gi) in dicts:
                 out_dicts[_col_name(j)] = dicts[_col_name(gi)]
         ng = len(p.group_indices)
         distinct: Dict[int, torch.Tensor] = {}  # arg → its distinct rows
         for j, a in enumerate(p.aggs):
+            src_dict = None if a.arg is None else dicts.get(_col_name(a.arg))
+            if hagg.host_name(a.fn):
+                d, v = cols[a.arg]
+                col, out_dict = host.run(a, hagg.arg_fields(
+                    d, v, in_schema[a.arg].dtype, src_dict))
+                out_cols[_col_name(ng + j)] = col
+                if out_dict is not None:
+                    out_dicts[_col_name(ng + j)] = out_dict
+                continue
+            if a.arg is not None and isinstance(cols[a.arg][0], StructData):
+                raise NotImplementedError(_STRUCT_UNPORTED)
             arg = None if a.arg is None else \
                 Column(cols[a.arg][0], cols[a.arg][1], in_schema[a.arg].dtype)
             if a.distinct and arg is not None:
                 if a.arg not in distinct:
                     distinct[a.arg] = aggk.distinct_rows(ctx, arg)
                 arg = Column(arg.data, distinct[a.arg], arg.dtype)
-            src_dict = None if a.arg is None else dicts.get(_col_name(a.arg))
             col = self._run_agg(ctx, a, arg, src_dict)
-            out_cols[_col_name(ng + j)] = Column(col.data, col.validity,
-                                                 a.out_dtype)
+            out_cols[_col_name(ng + j)] = cut_column(Column(
+                col.data, col.validity, a.out_dtype))
             if src_dict is not None and a.fn in ("min", "max", "first",
                                                  "last"):
                 out_dicts[_col_name(ng + j)] = src_dict
-        out = sortk.compact(DeviceBatch(out_cols, aggk.group_sel(ctx)))
+        out = sortk.compact(DeviceBatch(out_cols, cut(aggk.group_sel(ctx))))
         return HostBatch(out, out_dicts)
 
     def _reduce_chain(self, p: pn.AggregateExec, stage: _Stage,
@@ -863,7 +894,9 @@ class LocalExecutor:
     def _exec_UnionExec(self, p: pn.UnionExec) -> HostBatch:
         """UNION ALL: the branches' rows one after another. String columns
         merge their dictionaries and remap each branch's codes on the
-        device; numeric columns take the union's physical type. (UNION
+        device; nested columns concatenate their arrays and move each
+        branch's codes past the earlier ones'; numeric columns take the
+        union's physical type. (UNION
         DISTINCT, INTERSECT and EXCEPT resolve to an aggregate or a
         semi/anti join above this.)"""
         parts = [self.run(c) for c in p.inputs]
@@ -871,12 +904,20 @@ class LocalExecutor:
         for i, f in enumerate(p.schema):
             key = _col_name(i)
             branch = [b.device.columns[key] for b in parts]
-            if any(key in b.dicts for b in parts):
-                if isinstance(f.dtype, (dt.ArrayType, dt.MapType,
-                                        dt.StructType)):
-                    raise NotImplementedError(
-                        "UNION of nested types is not ported yet (ROADMAP "
-                        "Queue A item 4: nested Arrow types)")
+            if any(key in b.dicts for b in parts) and isinstance(
+                    f.dtype, (dt.ArrayType, dt.MapType, dt.StructType)):
+                # nested values: the branches' arrays one after another,
+                # each branch's positional codes moved past the earlier
+                at = ai.spec_type_to_arrow(f.dtype)
+                pieces, datas, off = [], [], 0
+                for b, c in zip(parts, branch):
+                    d = b.dicts.get(key)
+                    d = pa.array([], type=at) if d is None else d.cast(at)
+                    datas.append(c.data.to(torch.int32) + off)
+                    pieces.append(d)
+                    off += len(d)
+                dicts[key] = pa.concat_arrays(pieces)
+            elif any(key in b.dicts for b in parts):
                 from ..plan.compiler import _merge_dicts
                 merged, remaps = _merge_dicts([b.dicts.get(key)
                                                for b in parts])

@@ -32,8 +32,12 @@ WINDOW_FUNCTIONS = {
 
 def is_aggregate(name: str) -> bool:
     n = name.lower()
-    # host-evaluated aggregates are not ported yet: only the device ones
-    return n in AGGREGATE_FUNCTIONS
+    if n in AGGREGATE_FUNCTIONS:
+        return True
+    # the sketch aggregates (the reference's functions/sketches.py) are
+    # not ported yet: HOST_AGGS holds none of them
+    from .host_aggregates import HOST_AGGS
+    return n in HOST_AGGS
 
 
 def is_window(name: str) -> bool:

@@ -18,7 +18,7 @@ each (group, value) pair.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,24 +26,30 @@ import torch
 from .. import csrc
 from ..columnar.batch import Column, physical_torch_dtype
 from ..spec import data_type as dt
-from .sort import order_keys, sort_words
+from .sort import order_keys, order_keys_plain, sort_words
 
 # ---------------------------------------------------------------------------
 # K1: segmented reduction
 # ---------------------------------------------------------------------------
 
-_KINDS = {"sum": 0, "min": 1, "max": 2}
+_KINDS = {"sum": 0, "min": 1, "max": 2, "and": 3, "or": 4, "xor": 5}
+# the bit folds (bit_and, bit_or, bit_xor): integers only
+_BIT_KINDS = ("and", "or", "xor")
 # the types K1 reduces in (narrower inputs widen exactly and narrow back)
 _K1_TYPE = {torch.int32: (0, ctypes.c_int), torch.int64: (1, ctypes.c_longlong),
             torch.float64: (2, ctypes.c_double)}
 _K1_WIDEN = {torch.bool: torch.int32, torch.int8: torch.int32,
              torch.int16: torch.int32, torch.float32: torch.float64}
-_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+_COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
+            "and": torch.bitwise_and, "or": torch.bitwise_or,
+            "xor": torch.bitwise_xor}
 
 
 def _identity(dtype: torch.dtype, kind: str):
-    if kind == "sum":
+    if kind in ("sum", "or", "xor"):
         return 0
+    if kind == "and":
+        return -1
     if dtype.is_floating_point:
         return float("inf") if kind == "min" else float("-inf")
     info = torch.iinfo(dtype)
@@ -53,9 +59,10 @@ def _identity(dtype: torch.dtype, kind: str):
 def seg_reduce_plain(vals: torch.Tensor, seg_ids: torch.Tensor,
                      num_segments: int, kind: str,
                      valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """out[s] = sum/min/max of vals[i] over seg_ids[i] == s where valid[i];
-    ids outside [0, num_segments) are dropped and an empty segment holds
-    the identity, as ``jax.ops.segment_*`` give. Rows are sorted by id and
+    """out[s] = sum/min/max (or the bit fold and/or/xor, of integers) of
+    vals[i] over seg_ids[i] == s where valid[i]; ids outside
+    [0, num_segments) are dropped and an empty segment holds the identity,
+    as ``jax.ops.segment_*`` give. Rows are sorted by id and
     combined by a segmented Hillis-Steele scan (log2(n) elementwise
     passes); integer sums wrap, min/max propagate NaN."""
     out = torch.full((num_segments,), _identity(vals.dtype, kind),
@@ -93,6 +100,28 @@ def _k1_work(vals: torch.Tensor, name: str) -> torch.Tensor:
     return work
 
 
+class _Launches:
+    """A launch count of its own: K1's bit kinds are counted by kind too,
+    in ``BIT_LAUNCHES`` (beside the entry point's count)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
+BIT_LAUNCHES = {k: _Launches() for k in _BIT_KINDS}
+
+
+def _count_kind(kind: str) -> None:
+    if kind in BIT_LAUNCHES:
+        BIT_LAUNCHES[kind].launches += 1
+
+
+def _check_kind(kind: str, dtype: torch.dtype, name: str) -> None:
+    if kind not in _KINDS or (kind in _BIT_KINDS and
+                              dtype.is_floating_point):
+        raise TypeError(f"{name}: no {kind!r} reduction of {dtype} values")
+
+
 def _same_rows(name: str, n: int, device: torch.device, **tensors) -> None:
     for label, t in tensors.items():
         if t is not None and (t.dim() != 1 or t.shape[0] != n or
@@ -127,6 +156,7 @@ def seg_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
     _same_rows("seg_reduce", n, vals.device, vals=vals, ids=seg_ids,
                valid=valid)
     work = _k1_work(vals, "seg_reduce")
+    _check_kind(kind, work.dtype, "seg_reduce")
     code, ctype = _K1_TYPE[work.dtype]
     identity = ctype(_identity(work.dtype, kind))
     out = torch.full((num_segments,), identity.value, dtype=work.dtype,
@@ -142,6 +172,7 @@ def seg_reduce(vals: torch.Tensor, seg_ids: torch.Tensor,
                 out.data_ptr(), csrc.grid_for(n, work.device),
                 csrc.stream_ptr(work.device)), "seg_reduce")
         seg_reduce.launches += 1
+        _count_kind(kind)
     return out.to(vals.dtype)
 
 
@@ -213,6 +244,7 @@ def seg_reduce_runs(ids: torch.Tensor, perm: torch.Tensor,
     if vals is not None:
         vals = _k1_work(vals, "seg_reduce_runs")
     work = torch.int64 if vals is None else vals.dtype
+    _check_kind(kind or "sum", work, "seg_reduce_runs")
     code, ctype = _K1_TYPE[work]
     identity = ctype(_identity(work, kind or "sum"))
     out = None if kind is None else \
@@ -230,23 +262,25 @@ def seg_reduce_runs(ids: torch.Tensor, perm: torch.Tensor,
         valid = None if valid is None else valid.contiguous()
         grid = csrc.grid_for(n, dev, blocks_per_sm=4, block=_RUNS_TILE)
         scratch = torch.empty(2 * grid * 20, dtype=torch.uint8, device=dev)
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
         with torch.cuda.device(dev):
             csrc.check(csrc.entry("seg_reduce.cu", "sail_seg_reduce_runs")(
                 ids.data_ptr(), perm.data_ptr(), n_live.data_ptr(),
-                ptr(vals), ptr(valid), num_segments, code,
-                _KINDS[kind or "sum"], ctypes.addressof(identity), ptr(out),
-                ptr(cnt), scratch.data_ptr(), grid, csrc.stream_ptr(dev)),
+                _ptr(vals), _ptr(valid), num_segments, code,
+                _KINDS[kind or "sum"], ctypes.addressof(identity), _ptr(out),
+                _ptr(cnt), scratch.data_ptr(), grid, csrc.stream_ptr(dev)),
                 "seg_reduce_runs")
         seg_reduce_runs.launches += 1
+        _count_kind(kind)
     return None if out is None else out.to(out_dtype), cnt
 
 
 seg_reduce_runs.launches = 0
 # rows a block of the runs kernel takes at a time (kTile in seg_reduce.cu)
 _RUNS_TILE = 1024
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -634,7 +668,8 @@ def agg_bool(ctx: GroupContext, value: Column, is_any: bool) -> Column:
     return agg_min_max(ctx, value, is_min=not is_any)
 
 
-def distinct_rows(ctx: GroupContext, value: Column) -> torch.Tensor:
+def distinct_rows(ctx: GroupContext, value: Column,
+                  more: Sequence[Column] = ()) -> torch.Tensor:
     """bool[n] in row order: True at one row of each distinct (group,
     value) pair among the live rows whose value is non-null.
 
@@ -644,26 +679,44 @@ def distinct_rows(ctx: GroupContext, value: Column) -> torch.Tensor:
     a group). The rows sort by (group id, value): the value's K3 order
     keys, in the grouping's order (``perm`` in sort mode, row order
     otherwise), then a stable sort by group id. A row is kept where its
-    pair differs from its neighbour's. Values compare by their order keys,
-    so all NaNs are one value and -0.0 is 0.0, as Spark's keys are. No
-    host sync; dead and null rows carry the dead id and sort last."""
+    pair differs from its neighbour's: the first of its pair in that
+    order, which is row order within a group. Values compare by their
+    order keys, so all NaNs are one value and -0.0 is 0.0, as Spark's
+    keys are. ``more``: further fields of a struct argument (a NULL one
+    equal to another NULL), deduplicated with the value as one tuple; a
+    literal field (0-d) is the same in every row. No host sync; dead and
+    null rows carry the dead id and sort last."""
     n = ctx.alive.shape[0]
     dev = ctx.alive.device
-    if ctx.perm is not None:
-        rows, ids = ctx.perm, ctx.sorted_ids
-    else:
-        rows, ids = torch.arange(n, device=dev), ctx.seg_ids
+    ids, rows = positions(ctx)
+    if rows is None:
+        rows = torch.arange(n, device=dev)
     dead = ctx.max_groups
     keep = ids < dead
     if value.validity is not None:
         keep = keep & value.validity[rows]
     ids = torch.where(keep, ids, dead)
-    bits = order_keys(value.data)[rows]
-    order = torch.sort(bits, stable=True).indices
+    keys = [order_keys(value.data)[rows]]
+    for c in more:
+        if c.data.dim() == 0:
+            continue
+        bits = order_keys(c.data)[rows]
+        if c.validity is not None:
+            ok = c.validity[rows]
+            keys += [torch.where(ok, bits, 0), ok.to(torch.int64)]
+        else:
+            keys.append(bits)
+    order = torch.sort(keys[-1], stable=True).indices
+    for k in reversed(keys[:-1]):
+        order = order[torch.sort(k[order], stable=True).indices]
     order = order[torch.sort(ids[order], stable=True).indices]
-    ids, bits = ids[order], bits[order]
+    ids = ids[order]
     first = ids < dead
-    first[1:] &= (ids[1:] != ids[:-1]) | (bits[1:] != bits[:-1])
+    differs = ids[1:] != ids[:-1]
+    for k in keys:
+        k = k[order]
+        differs |= k[1:] != k[:-1]
+    first[1:] &= differs
     out = torch.zeros(n, dtype=torch.bool, device=dev)
     out[rows[order]] = first
     return out
@@ -691,3 +744,438 @@ def agg_first_last(ctx: GroupContext, value: Column, is_first: bool,
     if value.validity is not None:
         validity = validity & value.validity[pos]
     return Column(value.data[pos], validity, value.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the host aggregates' families (sail_tpu/functions/host_aggregates.py),
+# each over a GroupContext in its three modes. A context's positions are
+# the sort's order in sort mode (position i reads row perm[i]) and the
+# rows themselves in the binned modes; ``positions`` gives each one's
+# group (a dead position's is max_groups) and row. Each family reduces
+# into ``slots`` groups (``output_slots``): in sort mode the groups there
+# are, in the binned modes every bin.
+# ---------------------------------------------------------------------------
+
+def positions(ctx: GroupContext
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(int32 group id of each position, int64 row of each position or
+    None where position i is row i)."""
+    if ctx.perm is not None:
+        return ctx.sorted_ids, ctx.perm
+    return ctx.seg_ids, None
+
+
+def output_slots(ctx: GroupContext) -> int:
+    """The groups a host aggregate writes: every bin of a binned context,
+    the groups of a sorted one (read to the host: one wait)."""
+    if ctx.perm is None:
+        return ctx.max_groups
+    return int(ctx.num_groups)
+
+
+def at_rows(t: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    """A row-order tensor read at each position."""
+    return t if rows is None else t[rows]
+
+
+# -- K19: segment moments ------------------------------------------------------
+
+class Operand(NamedTuple):
+    """A column a statistical aggregate reads as float64: int32 or int64
+    values (a decimal's unscaled ones, ``scale`` its scale) or float64."""
+
+    data: torch.Tensor
+    validity: Optional[torch.Tensor]
+    scale: int = 0
+
+
+_OPERAND_TYPE = {torch.int32: 0, torch.int64: 1, torch.float64: 2}
+
+
+def _operand(x: Operand) -> Operand:
+    """x in a type K19 loads (narrower types widen exactly)."""
+    data = x.data
+    if data.dtype in (torch.bool, torch.int8, torch.int16):
+        data = data.to(torch.int32)
+    elif data.dtype == torch.float32:
+        data = data.to(torch.float64)
+    if data.dtype not in _OPERAND_TYPE:
+        raise TypeError(f"seg_moments: unsupported operand {data.dtype}")
+    return Operand(data.contiguous(), None if x.validity is None else
+                   x.validity.contiguous(), x.scale)
+
+
+def _as_float(x: Operand, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    v = at_rows(x.data, rows).to(torch.float64)
+    return v / float(10 ** x.scale) if x.scale else v
+
+
+def _from_order_word(w: torch.Tensor) -> torch.Tensor:
+    """The float64 of K3's order word of a float64 (the word's inverse)."""
+    return torch.where(w < 0, w ^ 0x7FFFFFFFFFFFFFFF, w).view(torch.float64)
+
+
+def _pair_ok(ids, rows, num_segments, a: Operand, b: Optional[Operand]):
+    keep = (ids >= 0) & (ids < num_segments)
+    for x in (a, b):
+        if x is not None and x.validity is not None:
+            keep = keep & at_rows(x.validity, rows)
+    return keep
+
+
+def seg_moments_plain(ids: torch.Tensor, rows: Optional[torch.Tensor],
+                      num_segments: int, a: Operand,
+                      b: Optional[Operand] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K19's first pass: (count int64[S], sums float64[S, 2] of a and b,
+    extremes float64[S, 4]: min a, max a, min b, max b) over the positions
+    of groups [0, S) where a and b are both valid. Sums in position order
+    (``index_add_``); an empty group's extremes are NaN, as the kernel's
+    identity words read."""
+    keep = _pair_ok(ids, rows, num_segments, a, b)
+    g = ids[keep].to(torch.int64)
+    dev = ids.device
+    count = torch.zeros(num_segments, dtype=torch.int64, device=dev)
+    count.index_add_(0, g, torch.ones_like(g))
+    sums = torch.zeros(num_segments, 2, dtype=torch.float64, device=dev)
+    ext = torch.zeros(num_segments, 4, dtype=torch.float64, device=dev)
+    for j, x in enumerate((a, b)):
+        if x is None:
+            continue
+        v = _as_float(x, rows)[keep]
+        sums[:, j].index_add_(0, g, v)
+        for k, how in enumerate(("amin", "amax")):
+            col = torch.zeros(num_segments, dtype=torch.float64, device=dev)
+            ext[:, 2 * j + k] = col.scatter_reduce(0, g, v, how,
+                                                   include_self=False)
+    ext[count == 0] = float("nan")
+    return count, sums, ext
+
+
+def seg_moments(ids: torch.Tensor, rows: Optional[torch.Tensor],
+                num_segments: int, a: Operand, b: Optional[Operand] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K19's first pass: ``seg_moments_plain`` as a kernel on the card.
+
+    Replaces the per-group sums of ``sail_tpu/functions/host_aggregates.py``
+    ``_corr``, ``_covar``, ``_skew_kurt`` and ``_regr``; the kernel's
+    source (csrc/seg_moments.cu) states its bound and design. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel or raises.
+    float64 sums come out in an order that varies between runs."""
+    if ids.device.type == "cpu":
+        return seg_moments_plain(ids, rows, num_segments, a, b)
+    dev = ids.device
+    count = torch.zeros(num_segments, dtype=torch.int64, device=dev)
+    sums = torch.zeros(num_segments, 2, dtype=torch.float64, device=dev)
+    words = torch.tensor([_MAX64, _MIN64, _MAX64, _MIN64], dtype=torch.int64,
+                         device=dev).repeat(num_segments, 1)
+    _launch_moments(1, ids, rows, num_segments, a, b, 0, None, count, sums,
+                    words)
+    return count, sums, _from_order_word(words)
+
+
+_MAX64 = (1 << 63) - 1
+_MIN64 = -(1 << 63)
+
+
+def seg_centred_plain(ids: torch.Tensor, rows: Optional[torch.Tensor],
+                      num_segments: int, a: Operand, b: Optional[Operand],
+                      means: torch.Tensor, mask: int) -> torch.Tensor:
+    """K19's second pass: float64[S, 5], the sums over each group's rows
+    (those of ``seg_moments_plain``) of (a - ma)^2, (b - mb)^2,
+    (a - ma)(b - mb), (a - ma)^3 and (a - ma)^4 for the bits of ``mask``
+    (zero elsewhere), ``means`` [S, 2] each group's (ma, mb)."""
+    keep = _pair_ok(ids, rows, num_segments, a, b)
+    g = ids[keep].to(torch.int64)
+    out = torch.zeros(num_segments, 5, dtype=torch.float64,
+                      device=ids.device)
+    dx = _as_float(a, rows)[keep] - means[g, 0]
+    dy = _as_float(b, rows)[keep] - means[g, 1] if b is not None else \
+        torch.zeros_like(dx)
+    dx2 = dx * dx
+    terms = (dx2, dy * dy, dx * dy, dx2 * dx, dx2 * dx2)
+    for k, t in enumerate(terms):
+        if mask >> k & 1:
+            out[:, k].index_add_(0, g, t)
+    return out
+
+
+def seg_centred(ids: torch.Tensor, rows: Optional[torch.Tensor],
+                num_segments: int, a: Operand, b: Optional[Operand],
+                means: torch.Tensor, mask: int) -> torch.Tensor:
+    """K19's second pass: ``seg_centred_plain`` as a kernel on the card
+    (the same kernel as ``seg_moments``, whose launches it counts)."""
+    if ids.device.type == "cpu":
+        return seg_centred_plain(ids, rows, num_segments, a, b, means, mask)
+    out = torch.zeros(num_segments, 5, dtype=torch.float64,
+                      device=ids.device)
+    _launch_moments(2, ids, rows, num_segments, a, b, mask,
+                    means.to(torch.float64).contiguous(), None, out, None)
+    return out
+
+
+def _launch_moments(pass_, ids, rows, num_segments, a, b, mask, means,
+                    count, sums, ext) -> None:
+    n, dev = ids.shape[0], ids.device
+    if ids.dtype != torch.int32 or (rows is not None and
+                                    rows.dtype != torch.int64):
+        raise TypeError(f"seg_moments: needs int32 ids and int64 rows, got "
+                        f"{ids.dtype} and {None if rows is None else rows.dtype}")
+    a = _operand(a)
+    b = None if b is None else _operand(b)
+    nrows = n if rows is None else a.data.shape[0]
+    _same_rows("seg_moments", n, dev, rows=rows)
+    for x in (a, b):
+        if x is not None:
+            _same_rows("seg_moments", nrows, dev, data=x.data,
+                       valid=x.validity)
+            if x.validity is not None and x.validity.dtype != torch.bool:
+                raise TypeError("seg_moments: validity must be bool")
+    if n == 0 or num_segments == 0:
+        return
+    ids = ids.contiguous()
+    rows = None if rows is None else rows.contiguous()
+
+    def operand(x):
+        if x is None:
+            return None, None, 0, 1.0
+        return (x.data.data_ptr(), _ptr(x.validity),
+                _OPERAND_TYPE[x.data.dtype], float(10 ** x.scale))
+    with torch.cuda.device(dev):
+        csrc.check(csrc.entry("seg_moments.cu")(
+            pass_, ids.data_ptr(), _ptr(rows), n, num_segments, *operand(a),
+            *operand(b), mask, _ptr(means), _ptr(count), sums.data_ptr(),
+            _ptr(ext), csrc.grid_for(n, dev), csrc.stream_ptr(dev)),
+            "seg_moments")
+    seg_moments.launches += 1
+
+
+seg_moments.launches = 0
+
+# the centred sums of K19's second pass, by bit of its mask
+CENTRED = {"aa": 1, "bb": 2, "ab": 4, "aaa": 8, "aaaa": 16}
+
+
+def agg_moments(ctx: GroupContext, slots: int, a: Operand,
+                b: Optional[Operand], mask: int) -> dict:
+    """Family A (the statistical aggregates): K19's two passes over the
+    context's positions into ``slots`` groups. Returns each group's
+    ``count``, the sums ``sa``/``sb`` and the centred sums the ``mask``
+    asks for (``aa``, ``bb``, ``ab``, ``aaa``, ``aaaa``), each float64[S].
+    A group whose values of an operand are all equal and finite (its
+    minimum equals its maximum) is centred on that value, so its centred
+    sums of that operand are exactly 0, whatever order the first pass
+    summed in."""
+    ids, rows = positions(ctx)
+    count, sums, ext = seg_moments(ids, rows, slots, a, b)
+    out = {"count": count, "sa": sums[:, 0], "sb": sums[:, 1]}
+    if mask:
+        n = count.clamp_min(1).to(torch.float64)
+        means = sums / n[:, None]
+        for j in range(2):
+            lo, hi = ext[:, 2 * j], ext[:, 2 * j + 1]
+            constant = (lo == hi) & torch.isfinite(lo)
+            means[:, j] = torch.where(constant, lo, means[:, j])
+        centred = seg_centred(ids, rows, slots, a, b, means, mask)
+        for name, bit in CENTRED.items():
+            out[name] = centred[:, bit.bit_length() - 1]
+    return out
+
+
+# -- K20: segment arg-extreme --------------------------------------------------
+
+def seg_pick_plain(ids: torch.Tensor, rows: Optional[torch.Tensor],
+                   num_segments: int, keys: torch.Tensor,
+                   valid: Optional[torch.Tensor], is_max: bool
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(best int64[S], index int64[S]): over the positions of groups
+    [0, S) whose row r is valid, best[g] the largest (``is_max``) or
+    smallest key keys[r], index[g] the least r whose key is best[g]. A
+    group without a row holds INT64_MIN (or INT64_MAX) and INT64_MAX."""
+    keep = (ids >= 0) & (ids < num_segments)
+    r = torch.arange(ids.shape[0], device=ids.device) if rows is None \
+        else rows
+    if valid is not None:
+        keep = keep & valid[r]
+    g, r = ids[keep].to(torch.int64), r[keep]
+    k = keys[r]
+    best = torch.full((num_segments,), _MIN64 if is_max else _MAX64,
+                      dtype=torch.int64, device=ids.device)
+    best.scatter_reduce_(0, g, k, "amax" if is_max else "amin")
+    index = torch.full((num_segments,), _MAX64, dtype=torch.int64,
+                       device=ids.device)
+    at_best = k == best[g]
+    index.scatter_reduce_(0, g[at_best], r[at_best], "amin")
+    return best, index
+
+
+def seg_pick(ids: torch.Tensor, rows: Optional[torch.Tensor],
+             num_segments: int, keys: torch.Tensor,
+             valid: Optional[torch.Tensor], is_max: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K20: ``seg_pick_plain`` as a kernel on the card (two launches).
+
+    Replaces the per-group ``max``/``min`` of
+    ``sail_tpu/functions/host_aggregates.py`` (max_by, min_by) and
+    ``_mode``/``_mode_ordered``'s pick; the kernel's source
+    (csrc/seg_pick.cu) states its bound and design. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
+    if ids.device.type == "cpu":
+        return seg_pick_plain(ids, rows, num_segments, keys, valid, is_max)
+    n, dev = ids.shape[0], ids.device
+    if ids.dtype != torch.int32 or keys.dtype != torch.int64 or \
+            (rows is not None and rows.dtype != torch.int64) or \
+            (valid is not None and valid.dtype != torch.bool):
+        raise TypeError("seg_pick: needs int32 ids, int64 keys and rows and "
+                        "a bool validity")
+    _same_rows("seg_pick", n, dev, rows=rows)
+    _same_rows("seg_pick", keys.shape[0], dev, valid=valid)
+    best = torch.full((num_segments,), _MIN64 if is_max else _MAX64,
+                      dtype=torch.int64, device=dev)
+    index = torch.full((num_segments,), _MAX64, dtype=torch.int64,
+                       device=dev)
+    if n and num_segments:
+        ids, keys = ids.contiguous(), keys.contiguous()
+        rows = None if rows is None else rows.contiguous()
+        valid = None if valid is None else valid.contiguous()
+        with torch.cuda.device(dev):
+            csrc.check(csrc.entry("seg_pick.cu")(
+                ids.data_ptr(), _ptr(rows), n, num_segments, keys.data_ptr(),
+                _ptr(valid), 1 if is_max else 0, best.data_ptr(),
+                index.data_ptr(), csrc.grid_for(n, dev),
+                csrc.stream_ptr(dev)), "seg_pick")
+        seg_pick.launches += 1
+    return best, index
+
+
+seg_pick.launches = 0
+
+
+def agg_pick(ctx: GroupContext, slots: int, keys: torch.Tensor,
+             valid: torch.Tensor, is_max: bool) -> torch.Tensor:
+    """Family B (max_by, min_by): each group's row whose key (an int64
+    order word, by row) is the largest (smallest) among its rows where
+    ``valid``, the first row of a tie; int64[S], INT64_MAX where the group
+    has no such row."""
+    ids, rows = positions(ctx)
+    return seg_pick(ids, rows, slots, keys, valid, is_max)[1]
+
+
+# -- ranks: a sort of each group's values ------------------------------------
+
+class GroupSorted(NamedTuple):
+    """The eligible positions of a context, grouped: ``rows`` each one's
+    row, in (group, then the words', then row) order; ``ids`` each one's
+    group; ``offsets`` int64[S + 1], group g's rows at
+    [offsets[g], offsets[g + 1])."""
+
+    rows: torch.Tensor
+    ids: torch.Tensor
+    offsets: torch.Tensor
+
+
+def group_sorted(ctx: GroupContext, slots: int, eligible: torch.Tensor,
+                 words: Sequence = ()) -> GroupSorted:
+    """Each group's eligible rows (``eligible``: bool by row), ordered by
+    the K3 ``words`` (each (int64 word by row, validity by row or None,
+    nulls_first)), ties in row order: one stable sort of (group id, the
+    words) through ``ops/sort.py`` ``sort_words`` (one sort of one packed
+    word where they fit in 63 bits, else the passes). A sort context with
+    no words needs no sort: its positions are already its groups' rows in
+    row order. The eligible count is read to the host (one wait)."""
+    ids, rows = positions(ctx)
+    ok = (ids < slots) & at_rows(eligible, rows)
+    m = int(ok.sum())
+    if rows is not None and not words:
+        pos = torch.nonzero(ok).squeeze(1)
+    else:
+        keys = [(ids.to(torch.int64), None, True)] + \
+            [(at_rows(w, rows), None if v is None else at_rows(v, rows), nf)
+             for w, v, nf in words]
+        pos = sort_words(keys, ok).perm[:m]
+    g = ids[pos]
+    offsets = torch.searchsorted(
+        g, torch.arange(slots + 1, dtype=torch.int32, device=g.device))
+    return GroupSorted(pos if rows is None else rows[pos], g, offsets)
+
+
+def group_counts(srt: GroupSorted) -> torch.Tensor:
+    return srt.offsets[1:] - srt.offsets[:-1]
+
+
+def pick_at(srt: GroupSorted, index: torch.Tensor) -> torch.Tensor:
+    """The row at each group's ``index`` (int64[S], within the group's
+    rows; clipped into them, so an empty group reads some row)."""
+    pos = srt.offsets[:-1] + index
+    top = max(srt.rows.shape[0] - 1, 0)
+    pos = pos.clamp(0, top)
+    return srt.rows[pos] if srt.rows.shape[0] else pos
+
+
+def agg_mode(ctx: GroupContext, slots: int, srt: GroupSorted,
+             words: torch.Tensor) -> torch.Tensor:
+    """Family B over family C's sort (mode): ``srt`` each group's rows
+    sorted by value, ``words`` the values' order words by row. A run of
+    equal words is one value; K20 over the runs (their count read to the
+    host: one wait) picks each group's longest, a tie to the earliest (the
+    first value in the sort's order). Returns the row of that run's first
+    element, int64[S] (any row for an empty group)."""
+    m = srt.rows.shape[0]
+    dev = srt.rows.device
+    if m == 0:
+        return torch.zeros(slots, dtype=torch.int64, device=dev)
+    w = words[srt.rows]
+    start = torch.ones(m, dtype=torch.bool, device=dev)
+    start[1:] = (srt.ids[1:] != srt.ids[:-1]) | (w[1:] != w[:-1])
+    first = torch.nonzero(start).squeeze(1)
+    length = torch.diff(first, append=first.new_full((1,), m))
+    _, run = seg_pick(srt.ids[first].to(torch.int32), None, slots, length,
+                      None, True)
+    return srt.rows[first[run.clamp(0, first.shape[0] - 1)]]
+
+
+# -- exact sums, bit folds, product -------------------------------------------
+
+def agg_exact_sum(ctx: GroupContext, value: Column
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Family D (try_sum, try_avg of integers): the exact sum of each
+    group's integers as two K1 sums of their 32-bit halves (each exact in
+    int64 below 2^31 rows a group), combined: (hi, lo, count) with the
+    total hi * 2^32 + lo, lo in [0, 2^32), over ``ctx.max_groups``
+    slots."""
+    v = value.data.to(torch.int64)
+    hi = Column(v >> 32, value.validity, dt.LongType())
+    lo = Column(v & 0xFFFFFFFF, value.validity, dt.LongType())
+    s_hi = agg_sum(ctx, hi, dt.LongType()).data
+    s_lo = agg_sum(ctx, lo, dt.LongType()).data
+    count = _group_counts(ctx, value)
+    return s_hi + (s_lo >> 32), s_lo & 0xFFFFFFFF, count
+
+
+def agg_bit(ctx: GroupContext, value: Column, kind: str) -> Column:
+    """Family E: bit_and, bit_or or bit_xor (``kind`` and/or/xor) of an
+    integer column, K1's bit kinds; NULL where a group has no non-null
+    value."""
+    vals = value.data
+    if ctx.perm is not None:
+        out, cnt = _runs(ctx, kind, vals, value.validity)
+        has = cnt > 0
+    else:
+        out = seg_reduce(vals, ctx.seg_ids, ctx.max_groups, kind,
+                         value.validity)
+        has = _group_counts(ctx, value) > 0
+    return Column(out.to(vals.dtype), has, value.dtype)
+
+
+def agg_product(ctx: GroupContext, slots: int, value: Operand
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Family E: product (float64) of each group's non-null values,
+    ``scatter_reduce_`` with "prod"; (product, count)."""
+    ids, rows = positions(ctx)
+    keep = _pair_ok(ids, rows, slots, value, None)
+    g = ids[keep].to(torch.int64)
+    out = torch.ones(slots, dtype=torch.float64, device=ids.device)
+    out.scatter_reduce_(0, g, _as_float(value, rows)[keep], "prod")
+    count = torch.zeros(slots, dtype=torch.int64, device=ids.device)
+    count.index_add_(0, g, torch.ones_like(g))
+    return out, count

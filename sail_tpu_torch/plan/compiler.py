@@ -47,7 +47,7 @@ import pyarrow.compute as pc
 import torch
 
 from ..columnar.arrow_interop import dictionary_ranks, unify_dictionaries
-from ..columnar.batch import physical_torch_dtype
+from ..columnar.batch import StructData, physical_torch_dtype
 from ..functions import kernels as K
 from ..functions import numeric as NUM
 from ..functions.numeric import civil_from_days, days_from_civil
@@ -478,6 +478,8 @@ class ExprCompiler:
 
     # -- calls -----------------------------------------------------------
     def _compile_call(self, r: rx.RCall) -> Compiled:
+        if r.fn == "struct":
+            return self._compile_struct(r)
         args = [self.compile(a) for a in r.args]
         if any(_is_str(a.dtype) for a in args):
             out = self._compile_string_call(r, args)
@@ -493,6 +495,20 @@ class ExprCompiler:
         if frag is not None and any(a.frag is None for a in args):
             frag = None
         return Compiled(fn, r.dtype, frag=frag)
+
+    def _compile_struct(self, r: rx.RCall) -> Compiled:
+        """``struct(...)`` as its fields' columns (``StructData``), the
+        arguments of a multi-argument host aggregate; no fragment, so its
+        chain runs on the closures."""
+        args = [self.compile(a) for a in r.args]
+        dicts = [a.dictionary for a in args]
+        literals = [a.value.value if isinstance(a, rx.RLit) else None
+                    for a in r.args]
+
+        def fn(cols):
+            return StructData([a.fn(cols) for a in args], dicts,
+                              literals), None
+        return Compiled(fn, r.dtype)
 
     # -- string calls ------------------------------------------------------
     def _compile_string_call(self, r: rx.RCall, args: List[Compiled]

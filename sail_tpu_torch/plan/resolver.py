@@ -1032,8 +1032,16 @@ class Resolver:
         if plan.having is not None:
             having_rex = collector.rewrite(self._subst_alias(plan.having, items))
 
+        # a DISTINCT host aggregate of several arguments dedupes the rows'
+        # struct of them: the two-level plan would group by that struct
+        # (the reference's raises or dedupes nothing), so the specs keep
+        # their flags
         mixed_distinct = collector.has_distinct and any(
-            not a.spec.distinct for a in collector.aggs)
+            not a.spec.distinct or (
+                a.arg is not None and
+                isinstance(rx.rex_type(collector.arg_rex[a.arg]),
+                           dt.StructType))
+            for a in collector.aggs)
 
         # pre-projection: group keys then agg args
         pre = [( _fresh("g"), g) for g in group_rex]
@@ -2177,8 +2185,18 @@ class _AggCollector:
             return mk("sqrt", [var])
         if fn == "approx_count_distinct":
             return self._add_agg("count", arg, True, dt.LongType())
-        # host-evaluated aggregates (sketches, percentiles, UDAFs) are
-        # not ported yet
+        from ..functions.host_aggregates import HOST_AGGS
+        if fn in HOST_AGGS:
+            spec = HOST_AGGS[fn]
+            types = [rx.rex_type(a) for a in args]
+            out_t = spec.type_fn(types)
+            if len(args) > 1:
+                st = dt.StructType(tuple(
+                    dt.StructField(f"_{i}", t, True)
+                    for i, t in enumerate(types)))
+                arg = rx.RCall("struct", tuple(args), st, False)
+            return self._add_agg("__host__" + fn, arg, distinct, out_t)
+        # the sketch aggregates and wire UDAFs are not ported yet
         raise ResolutionError(f"aggregate {fn!r} not supported yet")
 
 
